@@ -1,0 +1,74 @@
+"""Vectorized table interpolation ops (port of :mod:`helios_tpu.ops.interp`;
+reference kernels.cu:496-919).
+
+One gather + weighted-sum expression over the whole layer column, with the
+reference's clamped index math.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def interface_temperatures(T_lay):
+    """Layer -> interface temperatures (kernels.cu:496-520).
+
+    T_lay: [nlayer+1] (index nlayer = surface ghost layer, unused here).
+    Returns T_int: [nlayer+1].
+    """
+    t = T_lay[:-1]
+    inner = 0.5 * (t[:-1] + t[1:])
+    bottom = t[0] - 0.5 * (t[1] - t[0])
+    top = t[-1] + 0.5 * (t[-1] - t[-2])
+    return torch.cat([bottom[None], inner, top[None]])
+
+
+def _fractional_index(x, x0, dx, n, lo=0.001):
+    """Clamped fractional table index (kernels.cu:545-559):
+    t = (x - x0)/dx clamped to [lo, n-1-lo].  Returns (idx_down, weight_up)
+    with value = v[idx]*(1-w) + v[idx+1]*w."""
+    t = (x - x0) / dx
+    t = torch.clamp(t, lo, n - 1.0 - lo)
+    td = torch.clamp(torch.floor(t).long(), max=n - 2)
+    return td, t - td
+
+
+def bilinear_tp(table, temps, press, T, p, *, clamp_lo: float = 0.001):
+    """Bilinear interpolation in (T, log10 P) of a tabulated quantity.
+
+    table: [ntemp, npress, ...trailing] on uniformly spaced temps and
+    log10-uniform press; T, p: [n].  Returns [n, ...trailing].
+    """
+    ntemp, npress = table.shape[0], table.shape[1]
+    dT = (temps[-1] - temps[0]) / (ntemp - 1.0)
+    dP = (torch.log10(press[-1]) - torch.log10(press[0])) / (npress - 1.0)
+
+    td, wt = _fractional_index(T, temps[0], dT, ntemp, clamp_lo)
+    pd, wp = _fractional_index(torch.log10(p), torch.log10(press[0]), dP,
+                               npress, clamp_lo)
+
+    v00 = table[td, pd]
+    v01 = table[td, pd + 1]
+    v10 = table[td + 1, pd]
+    v11 = table[td + 1, pd + 1]
+
+    extra_dims = (1,) * (table.ndim - 2)
+    wt = wt.reshape(wt.shape + extra_dims)
+    wp = wp.reshape(wp.shape + extra_dims)
+
+    return (v00 * (1 - wp) * (1 - wt) + v01 * wp * (1 - wt)
+            + v10 * (1 - wp) * wt + v11 * wp * wt)
+
+
+def interpolate_opacity(ktable, scat_cross_table, temps, press, T, p):
+    """Premixed opacity + Rayleigh cross-section interpolation
+    (opac_interpol, kernels.cu:524-609).  Returns (opac [n, ...],
+    scat_cross [n, nbin])."""
+    opac = bilinear_tp(ktable, temps, press, T, p)
+    scat = bilinear_tp(scat_cross_table, temps, press, T, p)
+    return opac, scat
+
+
+def interpolate_meanmolmass(meanmass_table, temps, press, T, p):
+    """Mean molecular mass interpolation (kernels.cu:649-698)."""
+    return bilinear_tp(meanmass_table, temps, press, T, p)

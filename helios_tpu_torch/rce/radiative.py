@@ -1,0 +1,261 @@
+"""Radiative temperature iteration (port of :mod:`helios_tpu.rce.radiative`;
+reference rad_temp_iter, kernels.cu:2606-2763, and radiation_loop,
+computation.py:827-990).
+
+The JAX package runs the loop as one device ``lax.while_loop`` whose
+branches are ``lax.cond`` on the iteration counter.  Here the counter ``it``
+is a host int, so those branches (cell refresh every 10th iteration,
+foreplay, prefactor resets, criterion relaxation, the overheat check every
+100th iteration) are host branches, and the loop reads back one device
+flag per iteration: whether to go on.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from helios_tpu_torch import constants as pc
+from helios_tpu_torch.forward import (CellCache, FluxState, ModelArrays, Phys,
+                                      compute_cells, init_flux_state,
+                                      integrate_flux_flat, solve_fluxes)
+from helios_tpu_torch.ops import integrate as int_ops
+from helios_tpu_torch.ops import interp as interp_ops
+
+
+class ThermoProps(NamedTuple):
+    """kappa / c_p source.  Only the constant-kappa mode is ported
+    (c_p = R_univ / kappa [erg/K/mol], reference read.py:1105-1193)."""
+    const_kappa: float
+
+
+def make_const_thermo(kappa_value: float) -> ThermoProps:
+    return ThermoProps(const_kappa=float(kappa_value))
+
+
+def kappa_cp_lay(thermo: ThermoProps, T_lay, p_lay):
+    """kappa and c_p on layer centers (computation.py:199-232)."""
+    L = p_lay.shape[0]
+    kw = dict(dtype=T_lay.dtype, device=T_lay.device)
+    kappa = torch.full((L,), thermo.const_kappa, **kw)
+    cp = torch.full((L,), pc.R_UNIV / thermo.const_kappa, **kw)
+    return kappa, cp
+
+
+def kappa_int(thermo: ThermoProps, T_int, p_int):
+    return torch.full((p_int.shape[0],), thermo.const_kappa,
+                      dtype=T_int.dtype, device=T_int.device)
+
+
+# --------------------------------------------------------------------------- #
+# smoothing flux
+# --------------------------------------------------------------------------- #
+
+def smoothing_flux(phys: Phys, T_lay, p_lay):
+    """Temperature smoothing force and its cumulative sum
+    (kernels.cu:2653-2670): F_smooth[i] = (t_mid - T[i])^7, t_mid the
+    neighbour mean for 0 < i < L-1 with p_lay < 1 bar, else T[i].
+    Returns (F_smooth [L], F_smooth_sum [L])."""
+    L = phys.nlayer
+    if not phys.smooth:
+        z = torch.zeros(L, dtype=T_lay.dtype, device=T_lay.device)
+        return z, z
+    t = T_lay[:L]
+    mid = torch.cat([t[:1], 0.5 * (t[:-2] + t[2:]), t[-1:]])
+    idx = torch.arange(L, device=t.device)
+    use_mid = (p_lay < 1e6) & (idx > 0) & (idx < L - 1)
+    t_mid = torch.where(use_mid, mid, t)
+    # odd power of a signed base: pow keeps the sign, as in the reference
+    F_smooth = torch.pow(t_mid - t, 7.0)
+    return F_smooth, torch.cumsum(F_smooth, 0)
+
+
+# --------------------------------------------------------------------------- #
+# the temperature step
+# --------------------------------------------------------------------------- #
+
+class RadTempResult(NamedTuple):
+    T_lay: torch.Tensor
+    T_store: torch.Tensor
+    prefactor: torch.Tensor
+    F_smooth_sum: torch.Tensor   # [L]
+    abort: torch.Tensor          # [L+1] bool
+
+
+def rad_temp_step(phys: Phys, m: ModelArrays, totals: int_ops.FluxTotals,
+                  T_lay, T_store, prefactor, it: int, local_limit: float,
+                  F_add_heat_lay=None, F_add_heat_sum=None) -> RadTempResult:
+    """One radiative temperature update with the adaptive pseudo-timestep
+    (rad_temp_iter, kernels.cu:2606-2763).  [L+1] vectors include the
+    surface/BOA ghost layer at index L; ``it`` is the host counter."""
+    if phys.physical_tstep != 0.0:
+        raise NotImplementedError("physical timestepping is not ported")
+    L = phys.nlayer
+    F_net = totals.F_net
+    if F_add_heat_lay is None:
+        F_add_heat_lay = torch.zeros_like(T_lay[:L])
+        F_add_heat_sum = torch.zeros_like(T_lay[:L])
+    F_net_diff = F_net[:L] - F_net[1:L + 1] + F_add_heat_lay
+    F_smooth, F_smooth_sum = smoothing_flux(phys, T_lay, m.p_lay)
+    combined_lay = F_net_diff + F_smooth
+
+    # ghost layer: driven by F_intern - F_net[0], or F_net[1] when the
+    # bottom layer is not converged (kernels.cu:2675-2683)
+    denom_crit = totals.F_down_tot[L] + phys.F_intern
+    use_above = (torch.abs(phys.F_intern - F_net[1]) / denom_crit
+                 > 0.5 * local_limit)
+    combined_surf = torch.where(use_above, phys.F_intern - F_net[1],
+                                phys.F_intern - F_net[0])
+    combined = torch.cat([combined_lay, combined_surf[None]])
+
+    if it == phys.foreplay:
+        prefactor = torch.ones_like(prefactor)
+    if it == 10000:
+        prefactor = torch.full_like(prefactor, 1e-1)
+
+    # delta_T = pref*p0/dp * sign(c)*|c|^0.1, the form of the JAX package
+    # (algebraically kernels.cu:2695-2698)
+    absc = torch.abs(combined)
+    delta_T = (prefactor * m.p_lay[0] / (m.p_int[0] - m.p_int[1])
+               * torch.sign(combined) * absc ** 0.1)
+    delta_T = torch.where(torch.abs(delta_T) > 500.0,
+                          500.0 * torch.sign(combined), delta_T)
+
+    if it % phys.adapt_interval == 0:
+        T_store = T_lay
+    if it % phys.adapt_interval == phys.adapt_interval - 1:
+        oscillating = (torch.abs(T_lay - T_store)
+                       < phys.adapt_interval / 2.0 * torch.abs(delta_T))
+        prefactor = torch.where(oscillating, prefactor / 1.5,
+                                prefactor * 1.1)
+
+    max_limit = phys.plancktable_dim * phys.plancktable_step - 1.001
+    T_new = torch.clamp(T_lay + delta_T, 1.001, max_limit)
+
+    # per-layer convergence flags (kernels.cu:2750-2762)
+    crit_lay = (torch.abs(phys.F_intern + F_add_heat_sum + F_smooth_sum
+                          - F_net[1:L + 1]) / denom_crit < local_limit)
+    crit_surf = (torch.abs(phys.F_intern - F_net[0]) / denom_crit
+                 < local_limit)
+    abort = torch.cat([crit_lay, crit_surf[None]])
+    return RadTempResult(T_lay=T_new, T_store=T_store, prefactor=prefactor,
+                         F_smooth_sum=F_smooth_sum, abort=abort)
+
+
+# --------------------------------------------------------------------------- #
+# the radiation loop
+# --------------------------------------------------------------------------- #
+
+class RadLoopState(NamedTuple):
+    T_lay: torch.Tensor
+    flux: FluxState
+    cache: CellCache
+    totals: int_ops.FluxTotals
+    T_store: torch.Tensor
+    prefactor: torch.Tensor
+    F_smooth_sum: torch.Tensor
+    abort: torch.Tensor
+    it: int                         # host iteration counter
+    local_limit: float              # relaxable convergence criterion
+    keep_running: torch.Tensor      # 0-d bool on the device
+    goto_convection: torch.Tensor   # 0-d bool (surface overheat)
+    aborted: bool                   # max iteration cap hit
+
+
+def _one_radiation_iteration(phys: Phys, m: ModelArrays,
+                             s: RadLoopState) -> RadLoopState:
+    """Body of the radiation loop (computation.py:851-981)."""
+    L = phys.nlayer
+    if s.it % 10 == 0:
+        T_int = interp_ops.interface_temperatures(s.T_lay)
+        cache = compute_cells(phys, m, s.T_lay, T_int)
+    else:
+        cache = s.cache
+
+    flux = solve_fluxes(phys, m, cache, s.T_lay, s.flux)
+    totals = integrate_flux_flat(phys, m, flux, cache.F_dir)
+
+    # temperature stepping only after the foreplay prerun
+    # (computation.py:906-932)
+    stepping = s.it >= phys.foreplay
+    if stepping:
+        res = rad_temp_step(phys, m, totals, s.T_lay, s.T_store,
+                            s.prefactor, s.it, s.local_limit,
+                            F_add_heat_lay=cache.F_add_heat_lay,
+                            F_add_heat_sum=cache.F_add_heat_sum)
+    else:
+        res = RadTempResult(T_lay=s.T_lay, T_store=s.T_store,
+                            prefactor=s.prefactor,
+                            F_smooth_sum=s.F_smooth_sum,
+                            abort=torch.zeros_like(s.abort))
+
+    it_next = s.it + 1
+    # criterion relaxation x10 at the configured iteration numbers
+    # (computation.py:974-975, host_functions.py:243-248)
+    local_limit = s.local_limit
+    for n in phys.crit_relaxation_numbers:
+        if it_next == int(n):
+            local_limit = local_limit * 10.0
+
+    # surface overheat -> jump to the convection loop (computation.py:
+    # 946-952); checked every 100th iteration like the reference
+    no = torch.zeros((), dtype=torch.bool, device=s.T_lay.device)
+    overheat = no
+    if s.it % 100 == 0:
+        overheat = (res.T_lay[L]
+                    >= phys.plancktable_dim * phys.plancktable_step - 2)
+    goto_conv = s.goto_convection | overheat
+
+    converged = torch.all(res.abort) if stepping else no
+    hit_cap = it_next > phys.max_nr_iterations
+    keep = no if hit_cap else ~converged & ~overheat
+
+    return RadLoopState(
+        T_lay=res.T_lay, flux=flux, cache=cache, totals=totals,
+        T_store=res.T_store, prefactor=res.prefactor,
+        F_smooth_sum=res.F_smooth_sum, abort=res.abort, it=it_next,
+        local_limit=local_limit, keep_running=keep,
+        goto_convection=goto_conv, aborted=s.aborted or hit_cap)
+
+
+def init_rad_state(phys: Phys, m: ModelArrays, T_lay0) -> RadLoopState:
+    L = phys.nlayer
+    kw = dict(dtype=T_lay0.dtype, device=T_lay0.device)
+    T_int = interp_ops.interface_temperatures(T_lay0)
+    cache = compute_cells(phys, m, T_lay0, T_int)
+    flux = init_flux_state(phys, T_lay0.dtype, T_lay0.device)
+    totals = integrate_flux_flat(phys, m, flux, cache.F_dir)
+    return RadLoopState(
+        T_lay=T_lay0, flux=flux, cache=cache, totals=totals,
+        T_store=torch.zeros(L + 1, **kw), prefactor=torch.ones(L + 1, **kw),
+        F_smooth_sum=torch.zeros(L, **kw),
+        abort=torch.zeros(L + 1, dtype=torch.bool, device=T_lay0.device),
+        it=0, local_limit=float(phys.rad_convergence_limit),
+        keep_running=torch.ones((), dtype=torch.bool, device=T_lay0.device),
+        goto_convection=torch.zeros((), dtype=torch.bool,
+                                    device=T_lay0.device),
+        aborted=False)
+
+
+def radiation_loop(phys: Phys, m: ModelArrays, thermo: Optional[ThermoProps],
+                   T_lay0, max_steps: Optional[int] = None,
+                   state0: Optional[RadLoopState] = None) -> RadLoopState:
+    """Run the radiative-equilibrium iteration to convergence
+    (computation.py:827-990), reading back one flag per iteration.
+
+    ``max_steps`` caps this call; ``state0`` continues from a prior state
+    instead of initializing from ``T_lay0``.  ``thermo`` is unused by the
+    adaptive-timestep iteration (kept for the JAX package's signature).
+    """
+    if phys.singlewalk:
+        raise NotImplementedError("post-processing (singlewalk) runs are "
+                                  "not ported")
+    if phys.physical_tstep != 0.0:
+        raise NotImplementedError("physical timestepping is not ported")
+    state = state0 if state0 is not None else init_rad_state(phys, m, T_lay0)
+    start_it = state.it
+    while ((max_steps is None or state.it - start_it < max_steps)
+           and bool(state.keep_running)):
+        state = _one_radiation_iteration(phys, m, state)
+    return state

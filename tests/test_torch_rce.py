@@ -1,0 +1,251 @@
+"""The port's RCE machinery (helios_tpu_torch.rce, .pipeline) against the
+JAX package and the loop-based numpy oracle of the reference host logic
+(tests/reference_convect.py) on the CPU.
+
+Tolerances.  The radiation steps start from identical model arrays and a
+non-isothermal profile (an isothermal one makes F_net pure rounding
+residue, which |F_net|^0.1 amplifies) and use the JAX package's native
+fp64 Planck lookup (see tests/test_torch_forward.py).
+
+The radiation loop's iteration count is not reproducible across
+implementations in this marginally convective scenario: its adaptive
+pseudo-timestep tests thresholds every iteration, and a 1e-15 relative
+change of the start profile moves the count of the port's own run from
+1009 to 794 iterations.  The convection loop then settles on the same
+profile regardless: the full run is held to equal convection counts and
+the final T (see test_small_run_matches_jax_pipeline).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from helios_tpu import forward as jf
+from helios_tpu import grid as grid_mod
+from helios_tpu import pipeline as jax_pipeline
+from helios_tpu.config import HeliosConfig as JaxConfig
+from helios_tpu.rce import convect as jconvect
+from helios_tpu.rce import radiative as jrad
+from helios_tpu_torch import convert
+from helios_tpu_torch import forward as tf
+from helios_tpu_torch import pipeline as torch_pipeline
+from helios_tpu_torch.config import HeliosConfig as TorchConfig
+from helios_tpu_torch.rce import convect as tconvect
+from helios_tpu_torch.rce import radiative as trad
+
+import reference_convect as refc
+import torch_port_helpers as H
+
+
+@pytest.fixture(scope="module")
+def model():
+    cfg = H.SMALL_RUN
+    table = H.small_table()
+    jphys, jarr = jax.block_until_ready(
+        jf.build_model(JaxConfig(**cfg).finalize(), table))
+    tphys = tf.Phys.from_config(TorchConfig(**cfg).finalize(), nbin=65, ny=4)
+    d = {k: v for k, v in H.nested_numpy(jarr).items()
+         if k != "planck_grid_pairs"}
+    tarr = convert.model_arrays_from_numpy(d, device="cpu")
+    return jphys, H.native_planck(jarr), tphys, tarr
+
+
+def _jax_rad(jphys, jarr, T0, steps, state0=None):
+    thermo = jrad.make_const_thermo(0.1)
+    return jax.jit(lambda t: jrad.radiation_loop(
+        jphys, jarr, thermo, t, max_steps=steps, state0=state0))(
+            jnp.asarray(T0))
+
+
+def test_one_radiation_step_from_a_mid_run_state(model):
+    """25 JAX iterations, the state carried across with
+    rad_state_from_numpy, then one more iteration in both (it = 25 reuses
+    the carried cell cache): T at rtol 1e-12."""
+    jphys, jarr, tphys, tarr = model
+    T0 = H.start_profile(jphys.nlayer)
+    mid = _jax_rad(jphys, jarr, T0, 25)
+    assert int(mid.it) == 25
+    want = _jax_rad(jphys, jarr, T0, 1, state0=mid)
+
+    s = convert.rad_state_from_numpy(H.nested_numpy(mid), device="cpu")
+    got = trad.radiation_loop(tphys, tarr, trad.make_const_thermo(0.1),
+                              None, max_steps=1, state0=s)
+    assert got.it == int(want.it) == 26
+    H.assert_close(got.T_lay.numpy(), want.T_lay, rtol=1e-12)
+    H.assert_close(got.T_store.numpy(), want.T_store, rtol=1e-12)
+    H.assert_close(got.prefactor.numpy(), want.prefactor, rtol=1e-12)
+    H.assert_close(got.abort.numpy(), want.abort, rtol=0)
+    assert bool(got.keep_running) == bool(want.keep_running)
+    assert got.local_limit == float(want.local_limit)
+
+
+def test_thirty_radiation_iterations(model):
+    """30 iterations (three cell-cache refreshes) from the start profile:
+    T at rtol 1e-10."""
+    jphys, jarr, tphys, tarr = model
+    T0 = H.start_profile(jphys.nlayer)
+    want = _jax_rad(jphys, jarr, T0, 30)
+    got = trad.radiation_loop(tphys, tarr, None, torch.tensor(T0),
+                              max_steps=30)
+    assert got.it == int(want.it) == 30
+    H.assert_close(got.T_lay.numpy(), want.T_lay, rtol=1e-10)
+    H.assert_close(got.totals.F_up_tot.numpy(), want.totals.F_up_tot,
+                   rtol=1e-10)
+
+
+# --------------------------------------------------------------------------- #
+# convective adjustment (profiles as in tests/test_rce.py)
+# --------------------------------------------------------------------------- #
+
+def _profile(seed, L=24):
+    rng = np.random.default_rng(seed)
+    g = grid_mod.build_grid(p_boa=1e9, p_toa=1e2, nlayer=L, g=2288.0)
+    T = 1500.0 * (g.p_lay / g.p_lay[0]) ** 0.35
+    T = T * (1.0 + 0.05 * rng.standard_normal(L))
+    T_lay = np.concatenate([T, [T[0] * 1.1]])
+    kl = np.full(L, 2.0 / 7.0)
+    ki = np.full(L + 1, 2.0 / 7.0)
+    cp = np.full(L, 83144626.1815324 / (2.0 / 7.0))
+    mmm = np.full(L, 2.3 * 1.6605390666e-24)
+    return g, T_lay, kl, ki, cp, mmm
+
+
+def _t(*xs):
+    return [torch.tensor(np.asarray(x)) for x in xs]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_checks_and_marks_match_oracle(seed):
+    g, T, kl, ki, _, _ = _profile(seed)
+    args = _t(T, g.p_lay, g.p_int, kl, ki)
+    np.testing.assert_array_equal(
+        tconvect.conv_check(*args).numpy(),
+        refc.conv_check(T, g.p_lay, g.p_int, kl, ki))
+    L = len(T) - 1
+    for iter_value in (100, 6000):
+        np.testing.assert_array_equal(
+            tconvect.mark_convective_layers(*args, stitching=1,
+                                            iter_value=iter_value).numpy(),
+            refc.mark_convective_layers(T, g.p_lay, g.p_int, kl, ki,
+                                        np.zeros(L + 1, bool), 1,
+                                        iter_value).astype(bool))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_stitching_and_zones_match(seed):
+    """stitch_zone_holes against the oracle; find_zones (the scatter with
+    a sentinel slot) against JAX's scatter-with-drop."""
+    rng = np.random.default_rng(seed)
+    L = 20
+    g = grid_mod.build_grid(p_boa=1e9, p_toa=1e2, nlayer=L, g=2288.0)
+    conv = np.zeros(L + 1, bool)
+    conv[rng.choice(L, size=8, replace=False)] = True
+    conv[L] = bool(seed % 2)
+    conv[0] = conv[0] or seed == 3
+    np.testing.assert_array_equal(
+        tconvect.stitch_zone_holes(*_t(conv, g.p_lay, g.p_int)).numpy(),
+        refc.stitching_holes(conv, g.p_lay, g.p_int).astype(bool))
+    got = tconvect.find_zones(torch.tensor(conv))
+    want = jconvect.find_zones(jnp.asarray(conv))
+    for f in want._fields:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)), f)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fudge_factors_match_jax(seed):
+    rng = np.random.default_rng(10 + seed)
+    L = 20
+    g = grid_mod.build_grid(p_boa=1e9, p_toa=1e2, nlayer=L, g=2288.0)
+    conv = rng.uniform(size=L + 1) < 0.4
+    fluxes = dict(F_intern=100.0,
+                  F_add_heat_sum=rng.uniform(0, 10, L),
+                  F_smooth_sum=rng.uniform(0, 10, L),
+                  F_down_tot=rng.uniform(1e5, 2e5, L + 1),
+                  F_up_tot=rng.uniform(1e5, 2e5, L + 1))
+    for T_star, dampara in ((5000.0, "automatic"), (5.0, "automatic"),
+                            (5000.0, "2.0")):
+        want = jconvect.fudge_factors(
+            jconvect.find_zones(jnp.asarray(conv)), jnp.asarray(g.p_lay),
+            jnp.asarray(g.p_int), T_star, dampara,
+            **{k: (jnp.asarray(v) if k != "F_intern" else v)
+               for k, v in fluxes.items()})
+        got = tconvect.fudge_factors(
+            tconvect.find_zones(torch.tensor(conv)), *_t(g.p_lay, g.p_int),
+            T_star, dampara,
+            **{k: (torch.tensor(v) if k != "F_intern" else v)
+               for k, v in fluxes.items()})
+        H.assert_close(got.numpy(), want, rtol=1e-12)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_convective_adjustment_matches(seed):
+    """Against the oracle at rtol 1e-10 (as tests/test_rce.py holds the JAX
+    package) and against JAX at rtol 1e-12; the result is stable."""
+    g, T, kl, ki, cp, mmm = _profile(seed)
+    L = len(T) - 1
+    kw = dict(T_star=5000.0, input_dampara="automatic", F_intern=100.0)
+    fl = dict(F_add_heat_sum=np.zeros(L), F_smooth_sum=np.zeros(L),
+              F_down_tot=np.full(L + 1, 1e5), F_up_tot=np.full(L + 1, 1.02e5))
+    want_T, want_conv = refc.convective_adjustment(
+        T, g.p_lay, g.p_int, kl, ki, cp, mmm, 100, **kw, **fl)
+    jT, jconv = jconvect.convective_adjustment(
+        *(jnp.asarray(x) for x in (T, g.p_lay, g.p_int, kl, ki, cp, mmm)),
+        iter_value=jnp.asarray(100), **kw,
+        **{k: jnp.asarray(v) for k, v in fl.items()})
+    got_T, got_conv = tconvect.convective_adjustment(
+        *_t(T, g.p_lay, g.p_int, kl, ki, cp, mmm), iter_value=100, **kw,
+        **{k: torch.tensor(v) for k, v in fl.items()})
+    np.testing.assert_allclose(got_T.numpy(), want_T, rtol=1e-10)
+    np.testing.assert_array_equal(got_conv.numpy(), want_conv.astype(bool))
+    np.testing.assert_allclose(got_T.numpy(), np.asarray(jT), rtol=1e-12)
+    np.testing.assert_array_equal(got_conv.numpy(), np.asarray(jconv))
+    assert not refc.conv_check(got_T.numpy(), g.p_lay, g.p_int, kl,
+                               ki).any()
+
+
+# --------------------------------------------------------------------------- #
+# the whole run
+# --------------------------------------------------------------------------- #
+
+def test_small_run_matches_jax_pipeline(tmp_path, monkeypatch):
+    """pipeline.run of both packages on the small scenario from the same
+    non-isothermal TP file, to convergence through both loops.
+
+    Against the JAX run with native fp64 Planck lookups: equal convection
+    counts, final T at rtol 1e-10.  Against the unmodified JAX run (its
+    two-float32 Planck pairs change the flux solve at ~3e-8, see
+    tests/test_torch_forward.py): final T at rtol 1e-7.  The radiation
+    counts differ (module docstring)."""
+    tp = tmp_path / "start_tp.dat"
+    H.write_tp_file(tp, H.start_profile(12))
+    cfg = dict(H.SMALL_RUN, force_start_tp_from_file="yes",
+               temp_format="helios", temp_path=str(tp))
+    table = H.small_table()
+
+    got = torch_pipeline.run(TorchConfig(**cfg), table, device="cpu")
+    assert got.conv is not None and got.conv.steps > 0
+    assert not got.conv.keep_running and not got.conv.aborted
+    assert not bool(got.rad.keep_running) and not got.rad.aborted
+    assert got.conv.it >= 400
+    assert got.n_flux_solves == got.rad.it + got.conv.steps
+    T = got.T_lay.numpy()
+    assert np.all(np.isfinite(T))
+
+    pairs = jax_pipeline.run(JaxConfig(**cfg), table=table,
+                             write_output=False)
+    np.testing.assert_allclose(T, np.asarray(pairs.conv.T_lay), rtol=1e-7)
+
+    build = jax_pipeline.build_model
+    monkeypatch.setattr(
+        jax_pipeline, "build_model",
+        lambda *a, **k: (lambda pa: (pa[0], H.native_planck(pa[1])))(
+            build(*a, **k)))
+    native = jax_pipeline.run(JaxConfig(**cfg), table=table,
+                              write_output=False)
+    assert got.conv.it == int(native.conv.it)
+    assert not bool(native.conv.keep_running)
+    np.testing.assert_allclose(T, np.asarray(native.conv.T_lay), rtol=1e-10)
