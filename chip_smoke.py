@@ -33,7 +33,7 @@ import time
 import numpy as np
 import torch
 
-# data sheet of the H100 SXM (the on-chip-measurement guide's table)
+# NVIDIA's data sheet of the H100 SXM: HBM rate and non-tensor peak FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
 L_FLAG, NBIN_FLAG, NY_FLAG, PASSES = 105, 385, 20, 4

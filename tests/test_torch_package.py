@@ -1,6 +1,11 @@
 """Properties of the PyTorch port as a package: it stands apart from JAX
-and from helios_tpu, and its entry points run on CUDA unless the caller
-asks for the CPU."""
+and from helios_tpu, its entry points run on CUDA unless the caller asks
+for the CPU, and on a card its kernel agrees with its plain version.
+
+This file imports no JAX, so on a machine with a card and no JAX it runs
+without the suite's conftest:
+    python -m pytest --noconftest tests/test_torch_package.py -q
+"""
 
 import ast
 from pathlib import Path
@@ -14,6 +19,8 @@ from helios_tpu_torch import pipeline as torch_pipeline
 from helios_tpu_torch.config import HeliosConfig
 from helios_tpu_torch.device import resolve_device, torch_dtype
 from helios_tpu_torch.io.opacity import synthetic_premixed_table
+from helios_tpu_torch.kernels.sweep import (noniso_sweep,
+                                            noniso_sweep_reference)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "helios_tpu_torch").rglob("*.py")) + [
@@ -79,3 +86,33 @@ def test_dtype_policy():
                                      dtype=np.float32)
     _, arrays = tf.build_model(cfg, table, device="cpu")
     assert all(t.dtype == torch.float32 for t in arrays)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-4)])
+def test_cuda_kernel_matches_plain(cuda_device, dtype, rtol):
+    """The CUDA sweep against its plain version on the card, 4 passes
+    (nvcc's fma contraction rules out a bitwise match), and one counted
+    launch per call."""
+    rng = np.random.default_rng(3)
+    L, S = 12, 300
+    mk = lambda lo, hi, *s: torch.tensor(rng.uniform(lo, hi, s), dtype=dtype,
+                                         device=cuda_device)
+    ts = ([mk(0.8, 1.0, L, S), mk(0.0, 0.02, L, S), mk(1e2, 1e4, L, S),
+           mk(1e2, 1e4, L, S)] * 2
+          + [mk(0.0, 1e3, S), mk(0.0, 0.4, S), mk(1e2, 1e4, S),
+             mk(0.0, 1e3, S), mk(0.0, 1e3, L + 1, S), mk(0.0, 1e3, L, S)])
+    before = noniso_sweep.launches
+    got = noniso_sweep(*ts, n_passes=4)
+    torch.cuda.synchronize()
+    assert noniso_sweep.launches == before + 1
+    want = noniso_sweep_reference(*ts, n_passes=4)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=0.0)

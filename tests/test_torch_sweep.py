@@ -2,7 +2,7 @@
 the JAX package: its plain version against the lax.scan oracle
 (fastpath.fband_noniso_flat, use_pallas=False) and against the Pallas
 kernels in interpret mode, plus the wrapper's argument checks.  The CUDA
-kernel itself runs only on the card (test_cuda_kernel_matches_plain)."""
+kernel itself runs only on the card (tests/test_torch_package.py)."""
 
 import numpy as np
 import pytest
@@ -122,31 +122,9 @@ def test_wrapper_rejects_other_dtypes_and_pass_counts():
 
 
 def test_build_is_keyed_by_the_sources():
-    """Every CUDA source is known to the builder, and its library path
+    """Every CUDA source is known to kernels/_build.py, and its library path
     is a stable function of the source text and the flags."""
     assert "noniso_sweep" in _build.kernel_names()
     p = _build.library_path("noniso_sweep")
     assert p == _build.library_path("noniso_sweep")
     assert p.parent == _build.BUILD_DIR and p.name.startswith("noniso_sweep-")
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
-                                        (torch.float32, 1e-4)])
-def test_cuda_kernel_matches_plain(cuda_device, dtype, rtol):
-    """The CUDA kernel against its plain version on the card (nvcc's fma
-    contraction rules out a bitwise match)."""
-    ts = [t.to(cuda_device) for t in _tensors(dtype, L=12, S=300)]
-    before = noniso_sweep.launches
-    got = noniso_sweep(*ts, n_passes=4)
-    torch.cuda.synchronize()
-    assert noniso_sweep.launches == before + 1
-    want = noniso_sweep_reference(*ts, n_passes=4)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=rtol, atol=0.0)
