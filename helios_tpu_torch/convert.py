@@ -46,13 +46,17 @@ def flux_state_from_numpy(d: Mapping[str, Any], *, device,
 
 
 def _cell_cache_from_numpy(d, device, dtype) -> CellCache:
+    """An isothermal cache is told apart by its coefficient cache's
+    fields (IsoCoeffCache has ``planck_coeff``)."""
     fields = {k: _tensor(d[k], device, dtype) for k in CellCache._fields
               if k not in ("cells_or_upper", "lower", "coeff")}
+    coeff_cls = (fp.IsoCoeffCache if "planck_coeff" in d["coeff"]
+                 else fp.NonIsoCoeffCache)
     return CellCache(
         cells_or_upper=_build(fp.FlatCells, d["cells_or_upper"], device,
                               dtype),
         lower=_build(fp.FlatCells, d["lower"], device, dtype),
-        coeff=_build(fp.NonIsoCoeffCache, d["coeff"], device, dtype),
+        coeff=_build(coeff_cls, d["coeff"], device, dtype),
         **fields)
 
 

@@ -1,5 +1,5 @@
 """Flat-layout per-iteration pipeline on [.., S] tensors, S = nbin * ny
-(port of :mod:`helios_tpu.fastpath`, non-isothermal path).
+(port of :mod:`helios_tpu.fastpath`, isothermal and non-isothermal paths).
 
 Ordering s = b * ny + y (bin-major).  Every [L, S] array is row-major with
 s fastest, which is the layout the CUDA sweep reads coalesced.
@@ -12,7 +12,7 @@ from typing import NamedTuple
 import torch
 
 from helios_tpu_torch import constants as pc
-from helios_tpu_torch.kernels.sweep import noniso_sweep
+from helios_tpu_torch.kernels.sweep import iso_sweep, noniso_sweep
 from helios_tpu_torch.ops.twostream import (E_maybe, G_limiter, _G_pm,
                                             single_scat_albedo, trans_func,
                                             zeta_minus, zeta_plus)
@@ -94,6 +94,20 @@ def _rev_cumsum_above(dtau):
     return torch.cat([rev, torch.zeros_like(dtau[:1])], dim=0)
 
 
+def fdir_iso_flat(planck_star_flat, delta_tau_tot, mu_weights, *,
+                  mu_star, R_star, a, dir_beam):
+    """Flat isothermal direct beam: F_dir [I, S], plain mu* (cumulative
+    optical depth above each interface).  The geometric zenith-corrected
+    form (``mu_weights`` given) is not ported yet."""
+    if mu_weights is not None:
+        raise NotImplementedError(
+            "geometric zenith-angle correction (mu_weights) is not ported")
+    I_dir = (R_star / a) ** 2 * pc.PI * planck_star_flat   # [S]
+    expo = _rev_cumsum_above(delta_tau_tot) / mu_star
+    F0 = -dir_beam * mu_star * I_dir
+    return F0[None, :] * torch.exp(expo)
+
+
 def fdir_noniso_flat(planck_star_flat, dtau_up, dtau_low, mu_weights,
                      mu_diag, *, mu_star, R_star, a, dir_beam):
     """Flat non-isothermal direct beam: (F_dir [I,S], Fc_dir [L,S]), plain
@@ -110,6 +124,88 @@ def fdir_noniso_flat(planck_star_flat, dtau_up, dtau_low, mu_weights,
     # Fc_dir[i]: full layers strictly above i + upper half of layer i
     Fc_dir = F0[None, :] * torch.exp((above[1:] + dtau_up) / mu_star)
     return F_dir, Fc_dir
+
+
+# --------------------------------------------------------------------------- #
+# iterative isothermal sweep
+# --------------------------------------------------------------------------- #
+
+class FlatIsoCoeffs(NamedTuple):
+    a: torch.Tensor          # P/M        [L, S]
+    b_nm: torch.Tensor       # -N/M       [L, S]
+    src_down: torch.Tensor   # [L, S]
+    src_up: torch.Tensor     # [L, S]
+    boa_refl: torch.Tensor   # [S]
+    boa_emis: torch.Tensor   # [S]
+    toa: torch.Tensor        # [S]
+
+
+class IsoCoeffCache(NamedTuple):
+    """The temperature-independent part of FlatIsoCoeffs, refreshed with
+    the cell cache (every 10th iteration).  Every source term is linear in
+    the Planck arrays, so the per-iteration work is two fmas and a mul:
+      src_down = planck_coeff * B_lay + dir_down
+      src_up   = planck_coeff * B_lay + dir_up
+      boa_emis = boa_coeff * B_surf
+    """
+    a: torch.Tensor             # P/M                       [L, S]
+    b_nm: torch.Tensor          # -N/M                      [L, S]
+    planck_coeff: torch.Tensor  # 2*pi*eps*(1-w0)/(E-w0)*(N+M-P)/M  [L, S]
+    dir_down: torch.Tensor      # min(0, ...)/M             [L, S]
+    dir_up: torch.Tensor        # min(0, ...)/M             [L, S]
+    boa_coeff: torch.Tensor     # (1-alb)*pi*(1-w0_0)/(E_0-w0_0)  [S]
+    boa_refl: torch.Tensor      # [S]
+    toa: torch.Tensor           # [S] (star row is iteration-invariant)
+
+
+def iso_coeff_cache(cells: FlatCells, planck_star_flat, F_dir,
+                    surf_albedo_flat, *, scat_corr, i2s_transition, epsi,
+                    mu_star, dir_beam, f_factor, R_star, a
+                    ) -> IsoCoeffCache:
+    """Precompute the static iso sweep coefficients (Planck-linear form)."""
+    w0, M, N, P = cells.w0, cells.M, cells.N, cells.P
+    G_pl, G_min = cells.G_pl, cells.G_min
+    E = E_maybe(w0, cells.g0, scat_corr, i2s_transition)
+
+    planck_coeff = (2.0 * pc.PI * epsi * (1.0 - w0) / (E - w0)
+                    * (N + M - P)) / M
+    inv_neg_mu = 1.0 / (-mu_star)
+    zero = torch.zeros((), dtype=F_dir.dtype, device=F_dir.device)
+    Fd_top, Fd_bot = F_dir[1:], F_dir[:-1]
+    dir_down = torch.minimum(
+        zero, Fd_bot * inv_neg_mu * (G_min * M + G_pl * N)
+        - Fd_top * inv_neg_mu * P * G_min) / M
+    dir_up = torch.minimum(
+        zero, Fd_top * inv_neg_mu * (G_min * N + G_pl * M)
+        - Fd_bot * inv_neg_mu * P * G_pl) / M
+
+    boa_coeff = ((1.0 - surf_albedo_flat) * pc.PI
+                 * (1.0 - w0[0]) / (E[0] - w0[0]))
+    toa = ((1.0 - dir_beam) * f_factor * (R_star / a) ** 2 * pc.PI
+           * planck_star_flat)
+    return IsoCoeffCache(a=P / M, b_nm=-N / M, planck_coeff=planck_coeff,
+                         dir_down=dir_down, dir_up=dir_up,
+                         boa_coeff=boa_coeff, boa_refl=surf_albedo_flat,
+                         toa=toa)
+
+
+def iso_coeffs_from_cache(cc: IsoCoeffCache, planck_lay_flat,
+                          planck_surf_flat) -> FlatIsoCoeffs:
+    """Assemble the per-iteration FlatIsoCoeffs: two fmas + one mul."""
+    return FlatIsoCoeffs(
+        a=cc.a, b_nm=cc.b_nm,
+        src_down=cc.planck_coeff * planck_lay_flat + cc.dir_down,
+        src_up=cc.planck_coeff * planck_lay_flat + cc.dir_up,
+        boa_refl=cc.boa_refl,
+        boa_emis=cc.boa_coeff * planck_surf_flat,
+        toa=cc.toa)
+
+
+def fband_iso_flat(C: FlatIsoCoeffs, F_dir0, F_up_prev, *, n_passes: int):
+    """Iterative iso solve (flat): the CUDA sweep kernel for CUDA tensors,
+    its plain version for CPU tensors.  Returns (F_down, F_up) [I, S]."""
+    return iso_sweep(C.a, C.b_nm, C.src_down, C.src_up, C.toa, C.boa_refl,
+                     C.boa_emis, F_dir0, F_up_prev, n_passes=n_passes)
 
 
 # --------------------------------------------------------------------------- #

@@ -1,30 +1,37 @@
-"""The non-isothermal two-stream sweep: wrapper of the CUDA kernel
-``csrc/noniso_sweep.cu`` and its plain PyTorch version.
+"""The two-stream sweeps: wrappers of the CUDA kernels
+``csrc/noniso_sweep.cu`` and ``csrc/iso_sweep.cu`` and their plain PyTorch
+versions.
 
-:func:`noniso_sweep` launches the kernel for CUDA tensors and runs
-:func:`noniso_sweep_reference` for CPU tensors; there is no fallback from
-one to the other.  ``noniso_sweep.launches`` counts kernel launches.
+:func:`noniso_sweep` and :func:`iso_sweep` launch their kernel for CUDA
+tensors and run their plain version (:func:`noniso_sweep_reference`,
+:func:`iso_sweep_reference`) for CPU tensors; there is no fallback from one
+to the other.  ``noniso_sweep.launches`` and ``iso_sweep.launches`` count
+kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import operator
 
 import torch
 
 from helios_tpu_torch.kernels import _build
 
-_ENTRY = {torch.float64: "noniso_sweep_f64", torch.float32: "noniso_sweep_f32"}
-_N_TENSORS = 14
+_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+_INT_MAX = 2**31 - 1
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load("noniso_sweep")
-    for name in _ENTRY.values():
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * (_N_TENSORS + 4)
+def _library(name: str, n_tensors: int) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built and loaded, with the argument types of its
+    entry points ``<name>_f64`` / ``<name>_f32``: n_tensors pointers, then
+    L, S, n_passes and the stream."""
+    lib = _build.load(name)
+    for suffix in _SUFFIX.values():
+        fn = getattr(lib, f"{name}_{suffix}")
+        fn.argtypes = ([ctypes.c_void_p] * n_tensors
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.helios_cuda_error_string.argtypes = [ctypes.c_int]
@@ -32,36 +39,69 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(args, n_passes):
-    """Validate the 14 inputs; returns (L, S)."""
-    a_up = args[0]
-    if a_up.dim() != 2:
-        raise ValueError(f"a_up must be [L, S], got {tuple(a_up.shape)}")
-    L, S = a_up.shape
+def _sweep_shape(first, name):
+    """(L, S) of the [L, S] first argument."""
+    if not isinstance(first, torch.Tensor) or first.dim() != 2:
+        shape = tuple(first.shape) if isinstance(first, torch.Tensor) else None
+        raise ValueError(f"{name} must be an [L, S] tensor, got shape {shape}")
+    L, S = first.shape
     if L < 1 or S < 1:
         raise ValueError(f"empty sweep shape {(L, S)}")
-    want = [(L, S)] * 8 + [(S,)] * 4 + [(L + 1, S), (L, S)]
+    return L, S
+
+
+def _check(args, want, n_passes) -> int:
+    """Validate the inputs against their expected shapes: one dtype
+    (float32/float64), one device, contiguous.  Returns n_passes as an int;
+    nothing is adjusted."""
+    first = args[0]
     for k, (t, shape) in enumerate(zip(args, want)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"argument {k} is not a tensor")
         if tuple(t.shape) != shape:
             raise ValueError(f"argument {k} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
-        if t.dtype != a_up.dtype:
-            raise TypeError(f"argument {k} is {t.dtype}, a_up is "
-                            f"{a_up.dtype}: all must share one dtype")
-        if t.device != a_up.device:
-            raise ValueError(f"argument {k} is on {t.device}, a_up on "
-                             f"{a_up.device}")
+        if t.dtype != first.dtype:
+            raise TypeError(f"argument {k} is {t.dtype}, argument 0 is "
+                            f"{first.dtype}: all must share one dtype")
+        if t.device != first.device:
+            raise ValueError(f"argument {k} is on {t.device}, argument 0 on "
+                             f"{first.device}")
         if not t.is_contiguous():
             raise ValueError(f"argument {k} is not contiguous")
-    if a_up.dtype not in _ENTRY:
-        raise TypeError(f"unsupported dtype {a_up.dtype} "
+    if first.dtype not in _SUFFIX:
+        raise TypeError(f"unsupported dtype {first.dtype} "
                         "(float32 or float64)")
-    if int(n_passes) < 1:
-        raise ValueError(f"n_passes must be >= 1, got {n_passes}")
-    return L, S
+    n = operator.index(n_passes)
+    if not 1 <= n <= _INT_MAX:
+        raise ValueError(f"n_passes must be in [1, {_INT_MAX}], got {n}")
+    return n
 
+
+def _launch(name, args, out_shapes, L, S, n_passes):
+    """Launch ``<name>`` on the current stream of the inputs' CUDA device;
+    returns the outputs, allocated here.  Raises on any other device and on
+    a failed launch."""
+    dev = args[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    dtype = args[0].dtype
+    outs = tuple(torch.empty(shape, dtype=dtype, device=dev)
+                 for shape in out_shapes)
+    lib = _library(name, len(args) + len(outs))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, f"{name}_{_SUFFIX[dtype]}")(
+            *(t.data_ptr() for t in args + outs), L, S, n_passes, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib.helios_cuda_error_string(rc).decode())
+    return outs
+
+
+# --------------------------------------------------------------------------- #
+# non-isothermal sweep
+# --------------------------------------------------------------------------- #
 
 def noniso_sweep(a_up, b_up, src_up_down, src_up_up, a_low, b_low,
                  src_low_down, src_low_up, toa, boa_refl, boa_emis, F_dir0,
@@ -76,26 +116,13 @@ def noniso_sweep(a_up, b_up, src_up_down, src_up_up, a_low, b_low,
     args = (a_up, b_up, src_up_down, src_up_up, a_low, b_low, src_low_down,
             src_low_up, toa, boa_refl, boa_emis, F_dir0, F_up_prev,
             Fc_up_prev)
-    L, S = _check(args, n_passes)
-    dev = a_up.device
-    if dev.type == "cpu":
-        return noniso_sweep_reference(*args, n_passes=n_passes)
-    if dev.type != "cuda":
-        raise ValueError(f"noniso_sweep runs on cuda or cpu, not {dev}")
-
-    lib = _library()
-    outs = (torch.empty((L + 1, S), dtype=a_up.dtype, device=dev),
-            torch.empty((L + 1, S), dtype=a_up.dtype, device=dev),
-            torch.empty((L, S), dtype=a_up.dtype, device=dev),
-            torch.empty((L, S), dtype=a_up.dtype, device=dev))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, _ENTRY[a_up.dtype])(
-            *(t.data_ptr() for t in args + outs), L, S, int(n_passes),
-            stream)
-    if rc != 0:
-        raise RuntimeError("noniso_sweep launch failed: "
-                           + lib.helios_cuda_error_string(rc).decode())
+    L, S = _sweep_shape(a_up, "a_up")
+    n = _check(args, [(L, S)] * 8 + [(S,)] * 4 + [(L + 1, S), (L, S)],
+               n_passes)
+    if a_up.device.type == "cpu":
+        return noniso_sweep_reference(*args, n_passes=n)
+    outs = _launch("noniso_sweep", args, [(L + 1, S)] * 2 + [(L, S)] * 2,
+                   L, S, n)
     noniso_sweep.launches += 1
     return outs
 
@@ -130,3 +157,51 @@ def noniso_sweep_reference(a_up, b_up, src_up_down, src_up_up, a_low, b_low,
             Fc_up[i] = fc
             F_up[i + 1] = carry
     return F_down, F_up, Fc_down, Fc_up
+
+
+# --------------------------------------------------------------------------- #
+# isothermal sweep
+# --------------------------------------------------------------------------- #
+
+def iso_sweep(a, b_nm, src_down, src_up, toa, boa_refl, boa_emis, F_dir0,
+              F_up_prev, *, n_passes: int):
+    """Iterative isothermal flux solve (fastpath.fband_iso_flat).
+
+    Coefficients a = P/M, b_nm = -N/M and sources [L, S], boundary rows
+    [S], the previous solve's F_up_prev [L+1, S]; all of one dtype
+    (float32/float64), contiguous, on one device.  Returns
+    (F_down, F_up), both [L+1, S].
+    """
+    args = (a, b_nm, src_down, src_up, toa, boa_refl, boa_emis, F_dir0,
+            F_up_prev)
+    L, S = _sweep_shape(a, "a")
+    n = _check(args, [(L, S)] * 4 + [(S,)] * 4 + [(L + 1, S)], n_passes)
+    if a.device.type == "cpu":
+        return iso_sweep_reference(*args, n_passes=n)
+    outs = _launch("iso_sweep", args, [(L + 1, S)] * 2, L, S, n)
+    iso_sweep.launches += 1
+    return outs
+
+
+iso_sweep.launches = 0
+
+
+def iso_sweep_reference(a, b_nm, src_down, src_up, toa, boa_refl, boa_emis,
+                        F_dir0, F_up_prev, *, n_passes: int):
+    """Plain PyTorch version of :func:`iso_sweep`: the layer loops of the
+    JAX oracle (fastpath.py:385-411) in the same operation order."""
+    L = a.shape[0]
+    F_up = F_up_prev.clone()
+    F_down = torch.empty_like(F_up_prev)
+    F_down[L] = toa
+    for _ in range(n_passes):
+        carry = toa
+        for i in range(L - 1, -1, -1):
+            carry = a[i] * carry + b_nm[i] * F_up[i] + src_down[i]
+            F_down[i] = carry
+        carry = boa_refl * (F_dir0 + F_down[0]) + boa_emis
+        F_up[0] = carry
+        for i in range(L):
+            carry = a[i] * carry + b_nm[i] * F_down[i + 1] + src_up[i]
+            F_up[i + 1] = carry
+    return F_down, F_up

@@ -1,12 +1,14 @@
-"""The end-to-end RCE run (port of the core of :func:`helios_tpu.pipeline.run`,
+"""The end-to-end run (port of the core of :func:`helios_tpu.pipeline.run`,
 the run_helios equivalent, helios.py:35-137): config -> model -> radiation
-loop -> convection loop.
+loop -> convection loop -> diagnostics -> output files.
 
-Covered: the un-monitored, un-sharded premixed path of an iterative
-(non-isothermal) run, started from the grid's initial profile or from a
-"helios"-format TP file.  Output files, monitoring, checkpoints, meshes, clouds, real-gas
-thermodynamics (kappa from a file), stellar spectra from files, extra
-heating and physical timestepping raise ``NotImplementedError``.
+Covered: the un-monitored, un-sharded premixed path of an iterative run
+(isothermal or non-isothermal layers) and of a post-processing run, started
+from the grid's initial profile or from a TP file ("helios", "TP" or "PT"
+format), with or without the output files.  Monitoring, checkpoints,
+coupling, the Koll f-factor, meshes, clouds, real-gas thermodynamics (kappa
+from a file), stellar spectra from files, extra heating and physical
+timestepping raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,46 +20,73 @@ from typing import Optional
 import numpy as np
 import torch
 
+from helios_tpu_torch import fastpath as fp
 from helios_tpu_torch import grid as grid_mod
+from helios_tpu_torch import planck as planck_mod
 from helios_tpu_torch.config import HeliosConfig
 from helios_tpu_torch.device import resolve_device, torch_dtype
 from helios_tpu_torch.forward import (FluxState, ModelArrays, Phys,
-                                      build_model)
+                                      altitude_z, build_model, compute_cells,
+                                      integrate_flux_flat)
+from helios_tpu_torch.io import writers
 from helios_tpu_torch.io.opacity import OpacityTable, load_opacity_file
-from helios_tpu_torch.ops.integrate import FluxTotals
+from helios_tpu_torch.ops import integrate as int_ops
+from helios_tpu_torch.ops import interp as interp_ops
+from helios_tpu_torch.rce import convect
 from helios_tpu_torch.rce.loop import ConvLoopState, convection_loop
 from helios_tpu_torch.rce.radiative import (RadLoopState, ThermoProps,
+                                            kappa_cp_lay, kappa_int,
                                             make_const_thermo,
                                             radiation_loop)
 
 
-def initial_temperatures(cfg: HeliosConfig, phys: Phys) -> np.ndarray:
+def initial_temperatures(cfg: HeliosConfig, phys: Phys,
+                         m: ModelArrays) -> np.ndarray:
     """Initial TP profile: isothermal at T_eff (host_functions.py:164-184)
     or a restart from a TP file (read.py:1274-1322)."""
     if cfg.singlewalk or cfg.force_start_tp_from_file:
-        return load_tp_file(cfg.temp_path, cfg.temp_format, phys.nlayer)
+        return load_tp_file(cfg.temp_path, cfg.temp_format, phys.nlayer,
+                            m.p_lay.cpu().numpy(), m.p_int.cpu().numpy())
     return grid_mod.initial_temperature(
         phys.nlayer, f_factor=phys.f_factor, dir_beam=phys.dir_beam,
         mu_star=phys.mu_star, R_star=phys.R_star, a=phys.a,
         T_star=phys.T_star)
 
 
-def load_tp_file(path: str, fmt: str, nlayer: int) -> np.ndarray:
-    """Read a TP restart file in the "helios" format: the reference's
-    *_tp.dat layout, BOA row then layers, temperature in column 1
-    (read.py:1274-1322, write.py:128-145).  Returns [nlayer+1] with the
-    surface/BOA ghost at index nlayer.  The "TP"/"PT" formats are not
-    ported."""
-    if fmt != "helios":
-        raise NotImplementedError(f"temp_format={fmt!r} is not ported")
-    with open(path) as f:
-        lines = [ln.split() for ln in f if ln.strip()]
-    T_surf = float(lines[2][1])
-    T = np.asarray([float(ln[1]) for ln in lines[3:]])
-    if len(T) != nlayer:
-        raise ValueError(
-            f"restart file has {len(T)} layers, expected {nlayer}")
-    return np.concatenate([T, [T_surf]])
+def load_tp_file(path: str, fmt: str, nlayer: int, p_lay: np.ndarray,
+                 p_int: np.ndarray) -> np.ndarray:
+    """Read a TP restart file (read.py:1274-1322).
+
+    "helios" format: the reference's *_tp.dat layout (BOA row then layers,
+    temperature in column 1).  "TP"/"PT": two-column ASCII with pressure in
+    [10^-6 bar], interpolated in log-P onto the model grid (clamped at the
+    file's pressure range).
+
+    Returns [nlayer+1] with the surface/BOA ghost at index nlayer.
+    """
+    if fmt == "helios":
+        with open(path) as f:
+            lines = [ln.split() for ln in f if ln.strip()]
+        # row 2 = BOA (surface), rows 3.. = layers (write.py:128-145)
+        T_surf = float(lines[2][1])
+        T = np.asarray([float(ln[1]) for ln in lines[3:]])
+        if len(T) != nlayer:
+            raise ValueError(
+                f"restart file has {len(T)} layers, expected {nlayer}")
+        return np.concatenate([T, [T_surf]])
+
+    if fmt not in ("PT", "TP"):
+        raise ValueError(f"unknown TP format {fmt!r}")
+    cols = np.loadtxt(path)
+    if fmt == "PT":
+        press, temp = cols[:, 0], cols[:, 1]
+    else:
+        temp, press = cols[:, 0], cols[:, 1]
+    order = np.argsort(press)
+    logp, temp = np.log10(press[order]), temp[order]
+    T_lay = np.interp(np.log10(p_lay), logp, temp)
+    T_surf = np.interp(np.log10(p_int[0]), logp, temp)
+    return np.concatenate([T_lay, [T_surf]])
 
 
 def make_thermo(cfg: HeliosConfig) -> Optional[ThermoProps]:
@@ -72,12 +101,8 @@ def make_thermo(cfg: HeliosConfig) -> Optional[ThermoProps]:
     return None
 
 
-def _check_run_supported(cfg: HeliosConfig, write_output: bool):
+def _check_run_supported(cfg: HeliosConfig):
     missing = []
-    if write_output:
-        missing.append("write_output=True (output files)")
-    if cfg.singlewalk:
-        missing.append("run_type='post-processing'")
     if cfg.stellar_model != "blackbody":
         missing.append(f"stellar_model={cfg.stellar_model!r}")
     if isinstance(cfg.surf_albedo, str):
@@ -100,6 +125,128 @@ def _check_run_supported(cfg: HeliosConfig, write_output: bool):
             "not ported to helios_tpu_torch yet: " + ", ".join(missing))
 
 
+# --------------------------------------------------------------------------- #
+# final-state diagnostics
+# --------------------------------------------------------------------------- #
+
+def post_process(phys: Phys, m: ModelArrays, T_lay, flux_state: FluxState):
+    """Final-state diagnostics (computation.py:1176-1296): band-integrated
+    optical depth/transmission, contribution function, mean opacities,
+    beam flux.  Tensors stay on the model's device."""
+    Y = phys.ny
+    cube = lambda x: fp.flat_to_cube(x, Y)
+    T_int = interp_ops.interface_temperatures(T_lay)
+    cache = compute_cells(phys, m, T_lay, T_int)
+    totals = integrate_flux_flat(phys, m, flux_state, cache.F_dir)
+    if phys.iso:
+        cells = cache.cells_or_upper
+        trans_full = cube(cells.trans)
+        dtau_band, trans_band = int_ops.integrate_optdepth_transmission_iso(
+            cube(cells.delta_tau_total), cube(cells.trans), m.gauss_weight)
+    else:
+        up, low = cache.cells_or_upper, cache.lower
+        trans_full = cube(up.trans) * cube(low.trans)
+        dtau_band, trans_band = (
+            int_ops.integrate_optdepth_transmission_noniso(
+                cube(up.delta_tau_total), cube(low.delta_tau_total),
+                cube(up.trans), cube(low.trans), m.gauss_weight))
+
+    planckband_lay = planck_mod.planckband_layers(
+        m.planck_grid, T_lay, m.starflux, real_star=phys.real_star,
+        dim=phys.plancktable_dim, step=phys.plancktable_step)
+    trans_weight_band, contr_band = int_ops.contribution_function(
+        trans_full, planckband_lay, m.gauss_weight, phys.epsi)
+
+    means = int_ops.mean_opacities(
+        cube(cache.opac_lay), m.cloud_abs_cross_lay, cache.meanmolmass_lay,
+        planckband_lay, m.lambda_edges, m.delta_lambda, T_lay,
+        m.gauss_weight, m.gauss_y, phys.T_star)
+
+    return dict(cache=cache, totals=totals, dtau_band=dtau_band,
+                trans_band=trans_band, trans_weight_band=trans_weight_band,
+                contr_band=contr_band, means=means,
+                planckband_lay=planckband_lay)
+
+
+def collect_result(cfg: HeliosConfig, phys: Phys, m: ModelArrays, final_T,
+                   post, *, conv_unstable=None, conv_layer=None,
+                   F_smooth_sum=None, kappa_lay=None, c_p_lay=None,
+                   relaxed=0, final_limit=None) -> writers.RunResult:
+    """Assemble the host-side RunResult snapshot: the device tensors are
+    moved to numpy here, at the end of the run."""
+    L = phys.nlayer
+    cache = post["cache"]
+    totals = post["totals"]
+    means = post["means"]
+    delta_z, z_lay = altitude_z(phys, m, final_T, cache.meanmolmass_lay)
+    planckband_int = (planck_mod.planckband_interfaces(
+        m.planck_grid, interp_ops.interface_temperatures(final_T),
+        dim=phys.plancktable_dim, step=phys.plancktable_step)
+        if phys.iso == 0 else None)
+
+    h = lambda x: None if x is None else x.detach().cpu().numpy()
+    F_net = h(totals.F_net)
+    r = writers.RunResult(
+        name=cfg.name, output_dir=cfg.output_dir, nlayer=L, nbin=phys.nbin,
+        iso=phys.iso, convection=phys.convection,
+        singlewalk=phys.singlewalk, T_star=phys.T_star,
+        R_planet=phys.R_planet, R_star=phys.R_star, F_intern=phys.F_intern,
+        star_corr_factor=float(m.star_corr_factor),
+        input_kappa_value=cfg.kappa_value,
+        input_surf_albedo=cfg.surf_albedo,
+        albedo_file_surface_name=cfg.albedo_surface_name,
+        p_lay=h(m.p_lay), p_int=h(m.p_int),
+        delta_colmass=h(m.delta_colmass), T_lay=h(final_T),
+        z_lay=h(z_lay), delta_z_lay=h(delta_z),
+        meanmolmass_lay=h(cache.meanmolmass_lay),
+        c_p_lay=h(c_p_lay) if c_p_lay is not None else np.zeros(L),
+        kappa_lay=h(kappa_lay) if kappa_lay is not None else np.zeros(L),
+        entropy_lay=np.zeros(L),
+        phase_number_lay=None,
+        conv_unstable=(h(conv_unstable).astype(int)
+                       if conv_unstable is not None
+                       else np.zeros(L + 1, int)),
+        conv_layer=(h(conv_layer).astype(int) if conv_layer is not None
+                    else np.zeros(L + 1, int)),
+        opac_wave=h(m.lambda_centers), opac_interwave=h(m.lambda_edges),
+        opac_deltawave=h(m.delta_lambda),
+        F_down_tot=h(totals.F_down_tot), F_up_tot=h(totals.F_up_tot),
+        F_net=F_net,
+        F_dir_tot=h(int_ops.integrate_beamflux(totals.F_dir_band,
+                                               m.delta_lambda)),
+        F_net_diff=F_net[:L] - F_net[1:],
+        F_add_heat_lay=h(cache.F_add_heat_lay),
+        F_add_heat_sum=h(cache.F_add_heat_sum),
+        F_smooth_sum=(h(F_smooth_sum) if F_smooth_sum is not None
+                      else np.zeros(L)),
+        F_down_band=h(totals.F_down_band), F_up_band=h(totals.F_up_band),
+        F_dir_band=h(totals.F_dir_band),
+        planckband_lay=h(post["planckband_lay"]),
+        planckband_int=h(planckband_int),
+        opac_band_lay=h(means["opac_band_lay"]),
+        scat_cross_lay=h(cache.scat_cross_lay),
+        g_0_tot_lay=np.full((L, phys.nbin), phys.g_0),
+        trans_band=h(post["trans_band"]),
+        delta_tau_band=h(post["dtau_band"]),
+        contr_func_band=h(post["contr_band"]),
+        trans_weight_band=h(post["trans_weight_band"]),
+        planck_opac_T_pl=h(means["planck_opac_T_pl"]),
+        ross_opac_T_pl=h(means["ross_opac_T_pl"]),
+        planck_opac_T_star=h(means["planck_opac_T_star"]),
+        ross_opac_T_star=h(means["ross_opac_T_star"]),
+        surf_albedo=h(m.surf_albedo),
+        relaxed_criterion_trigger=relaxed,
+        rad_convergence_limit=(float(final_limit) if final_limit is not None
+                               else phys.rad_convergence_limit),
+    )
+    r.F_net_conv = writers.calculate_conv_flux(r)
+    return r
+
+
+# --------------------------------------------------------------------------- #
+# the run
+# --------------------------------------------------------------------------- #
+
 @dataclass
 class RunOutput:
     phys: Phys
@@ -108,36 +255,42 @@ class RunOutput:
     conv: Optional[ConvLoopState]
     T_lay: torch.Tensor          # final temperatures [L+1]
     flux: FluxState              # final flux state
-    totals: FluxTotals           # final integrated fluxes
+    totals: int_ops.FluxTotals   # final integrated fluxes
+    result: writers.RunResult    # host snapshot of the final state
     wall_seconds: float          # the whole run, model build included
     rad_seconds: float           # radiation loop
     conv_seconds: float          # convection loop (0 when not run)
 
     @property
     def n_flux_solves(self) -> int:
-        """Flux solves run by both loops (one per loop iteration)."""
+        """Flux solves run by both loops (one per loop iteration; one in
+        a post-processing run)."""
+        if self.phys.singlewalk:
+            return 1
         return self.rad.it + (self.conv.steps if self.conv is not None
                               else 0)
 
 
 def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
         write_output: bool = False, device="cuda") -> RunOutput:
-    """One RCE solve of one atmosphere: radiation loop, then the
-    convection loop when convection is on.  ``device`` defaults to CUDA
-    and raises without it; ``device="cpu"`` runs the plain versions of
-    the kernels on the CPU.  The times end after the device has
-    finished."""
+    """One run of one atmosphere: the radiation loop (one flux solve in a
+    post-processing run), then the convection loop when convection is on
+    and the layers are non-isothermal, then the final-state diagnostics,
+    and with ``write_output`` the output files under
+    ``cfg.output_dir/cfg.name``.  ``device`` defaults to CUDA and raises
+    without it; ``device="cpu"`` runs the plain versions of the kernels on
+    the CPU.  The times end after the device has finished."""
     t0 = time.perf_counter()
     dev = resolve_device(device)
     if not cfg._finalized:
         cfg = cfg.finalize()
-    _check_run_supported(cfg, write_output)
+    _check_run_supported(cfg)
     if table is None:
         table = load_opacity_file(cfg.opacity_path)
 
     phys, arrays = build_model(cfg, table, device=dev)
     thermo = make_thermo(cfg)
-    T0 = torch.as_tensor(initial_temperatures(cfg, phys),
+    T0 = torch.as_tensor(initial_temperatures(cfg, phys, arrays),
                          dtype=torch_dtype(cfg.dtype), device=dev)
 
     def clock():
@@ -150,11 +303,37 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
     t_conv = clock()
     conv = None
     final = rad
-    if phys.convection:
+    if phys.convection and not phys.singlewalk and not phys.iso:
         conv = convection_loop(phys, arrays, thermo, rad)
         final = conv
     t_end = clock()
+
+    if thermo is not None:
+        kappa_lay, c_p_lay = kappa_cp_lay(thermo, final.T_lay, arrays.p_lay)
+        T_int = interp_ops.interface_temperatures(final.T_lay)
+        conv_unstable = convect.conv_check(
+            final.T_lay, arrays.p_lay, arrays.p_int, kappa_lay,
+            kappa_int(thermo, T_int, arrays.p_int))
+    else:
+        kappa_lay = c_p_lay = conv_unstable = None
+
+    post = post_process(phys, arrays, final.T_lay, final.flux)
+    final_limit = final.local_limit
+    result = collect_result(
+        cfg, phys, arrays, final.T_lay, post, conv_unstable=conv_unstable,
+        conv_layer=conv.conv_layer if conv is not None else None,
+        F_smooth_sum=final.F_smooth_sum, kappa_lay=kappa_lay,
+        c_p_lay=c_p_lay,
+        relaxed=int(final_limit > phys.rad_convergence_limit * 1.5),
+        final_limit=final_limit)
+
+    if write_output:
+        writers.write_all(result)
+        if final.aborted:
+            writers.write_abort_file(result)
+
     return RunOutput(phys=phys, arrays=arrays, rad=rad, conv=conv,
                      T_lay=final.T_lay, flux=final.flux,
-                     totals=final.totals, wall_seconds=t_end - t0,
+                     totals=final.totals, result=result,
+                     wall_seconds=time.perf_counter() - t0,
                      rad_seconds=t_conv - t_rad, conv_seconds=t_end - t_conv)

@@ -19,6 +19,15 @@ from helios_tpu_torch import constants as pc
 _N_SERIES = 200  # reference kernels.cu:410: n = 1..199
 
 
+def dB_dT(lamda, T):
+    """Temperature derivative of the Planck function (kernels.cu:294-308).
+    lamda**6 is written as the JAX package's integer power evaluates it."""
+    l2 = lamda * lamda
+    D = 2.0 * pc.H * pc.C ** 3 * pc.H / (l2 * (l2 * l2) * pc.K_B * T * T)
+    e = torch.exp(pc.H * pc.C / (lamda * pc.K_B * T))
+    return D * e / ((e - 1.0) * (e - 1.0))
+
+
 def _series_antiderivative(y, n_terms=_N_SERIES):
     """S(y) = sum_{n=1}^{n_terms-1} exp(-n y)(y^3/n + 3y^2/n^2 + 6y/n^3 + 6/n^4).
 

@@ -247,13 +247,17 @@ def radiation_loop(phys: Phys, m: ModelArrays, thermo: Optional[ThermoProps],
     ``max_steps`` caps this call; ``state0`` continues from a prior state
     instead of initializing from ``T_lay0``.  ``thermo`` is unused by the
     adaptive-timestep iteration (kept for the JAX package's signature).
+    A post-processing run (``phys.singlewalk``) makes one flux solve with
+    1000*scat+1 sweep passes and no temperature step
+    (computation.py:983-984); it reads nothing back.
     """
-    if phys.singlewalk:
-        raise NotImplementedError("post-processing (singlewalk) runs are "
-                                  "not ported")
     if phys.physical_tstep != 0.0:
         raise NotImplementedError("physical timestepping is not ported")
     state = state0 if state0 is not None else init_rad_state(phys, m, T_lay0)
+    if phys.singlewalk:
+        flux = solve_fluxes(phys, m, state.cache, state.T_lay, state.flux)
+        totals = integrate_flux_flat(phys, m, flux, state.cache.F_dir)
+        return state._replace(flux=flux, totals=totals)
     start_it = state.it
     while ((max_steps is None or state.it - start_it < max_steps)
            and bool(state.keep_running)):

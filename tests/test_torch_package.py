@@ -1,6 +1,6 @@
 """Properties of the PyTorch port as a package: it stands apart from JAX
 and from helios_tpu, its entry points run on CUDA unless the caller asks
-for the CPU, and on a card its kernel agrees with its plain version.
+for the CPU, and on a card its kernels agree with their plain versions.
 
 This file imports no JAX, so on a machine with a card and no JAX it runs
 without the suite's conftest:
@@ -19,7 +19,8 @@ from helios_tpu_torch import pipeline as torch_pipeline
 from helios_tpu_torch.config import HeliosConfig
 from helios_tpu_torch.device import resolve_device, torch_dtype
 from helios_tpu_torch.io.opacity import synthetic_premixed_table
-from helios_tpu_torch.kernels.sweep import (noniso_sweep,
+from helios_tpu_torch.kernels.sweep import (iso_sweep, iso_sweep_reference,
+                                            noniso_sweep,
                                             noniso_sweep_reference)
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -63,18 +64,23 @@ def test_default_device_raises_without_cuda(no_cuda):
         torch_pipeline.run(cfg, table)
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
     table = synthetic_premixed_table(nbin=4, ny=2, ntemp=4, npress=4)
-    for kw in (dict(run_type="post-processing"), dict(iso_input="yes"),
-               dict(flux_calc_method="matrix")):
+    for kw, what in ((dict(flux_calc_method="matrix"), "flux_calc_method"),
+                     (dict(nr_cloud_decks=1), "clouds"),
+                     (dict(opacity_mixing="on-the-fly"), "opacity_mixing")):
         cfg = HeliosConfig(nlayer=6, **kw).finalize()
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match=what):
             tf.build_model(cfg, table, device="cpu")
-    cfg = HeliosConfig(nlayer=6).finalize()
-    with pytest.raises(NotImplementedError, match="write_output"):
-        torch_pipeline.run(cfg, table, write_output=True, device="cpu")
     with pytest.raises(NotImplementedError, match="kappa_value"):
         torch_pipeline.make_thermo(HeliosConfig(kappa_value="file"))
+    # a TP file format other than helios/TP/PT is refused, as in helios_tpu
+    tp = tmp_path / "tp.dat"
+    tp.write_text("1e9 1500\n1e3 500\n")
+    cfg = HeliosConfig(nlayer=6, force_start_tp_from_file="yes",
+                       temp_format="csv", temp_path=str(tp)).finalize()
+    with pytest.raises(ValueError, match="unknown TP format"):
+        torch_pipeline.run(cfg, table, device="cpu")
 
 
 def test_dtype_policy():
@@ -116,3 +122,23 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, rtol):
     want = noniso_sweep_reference(*ts, n_passes=4)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=rtol, atol=0.0)
+
+
+def test_cuda_iso_kernel_matches_plain(cuda_device):
+    """The CUDA iso sweep against its plain version on the card, fp64 at
+    rtol 1e-12, 4 passes, and one counted launch per call."""
+    rng = np.random.default_rng(4)
+    L, S = 12, 300
+    mk = lambda lo, hi, *s: torch.tensor(rng.uniform(lo, hi, s),
+                                         dtype=torch.float64,
+                                         device=cuda_device)
+    ts = [mk(0.8, 1.0, L, S), mk(0.0, 0.02, L, S), mk(1e2, 1e4, L, S),
+          mk(1e2, 1e4, L, S), mk(0.0, 1e3, S), mk(0.0, 0.4, S),
+          mk(1e2, 1e4, S), mk(0.0, 1e3, S), mk(0.0, 1e3, L + 1, S)]
+    before = iso_sweep.launches
+    got = iso_sweep(*ts, n_passes=4)
+    torch.cuda.synchronize()
+    assert iso_sweep.launches == before + 1
+    want = iso_sweep_reference(*ts, n_passes=4)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=0.0)
