@@ -10,11 +10,13 @@ Phases (any failure exits non-zero before the last line is printed):
   3. kernels against their plain PyTorch versions at the flagship shape
      (105 layers x 7700 spectral columns), fp64 and fp32: the non-iso sweep
      at 4 passes, the iso sweep at 4 and 31 passes (and fp32 against fp64
-     at 1001 passes); error, CUDA-event times (the iso sweep also at the
+     at 1001 passes), the Thomas solve at the iso and non-iso matrix sizes
+     (212 and 422 rows), the Random Overlap mix of 105 x 385 cells of 20
+     Gauss points; error, CUDA-event times (the iso sweep also at the
      post-processing run's 1001 passes), the card's copy bandwidth and
      each kernel's bound;
-  4. the main paths, each with every launch count set to 0 just before it
-     and read just after:
+  4. the paths, each with every launch count set to 0 just before it and
+     read just after:
      a. the flagship RCE run (105 layers x 385 bins x 20 Gauss points,
         non-isothermal, scattering, convection, fp64) to convergence
         through helios_tpu_torch.pipeline.run; then one forward_fluxes on
@@ -28,6 +30,17 @@ Phases (any failure exits non-zero before the last line is printed):
      c. the isothermal iterative run of the JAX package's iso benchmark
         workload (T_intern 100 K, no convection, no beam), 200 radiation
         iterations, and its time breakdown;
+     d. the matrix flux method: the flagship RCE run of path a with
+        flux_calc_method="matrix" through both loops and its time
+        breakdown, one forward_fluxes on the card against the CPU, and path
+        b's post-processing run with the matrix method (one Thomas solve in
+        place of the 1001 passes);
+     e. on-the-fly Random Overlap mixing: the JAX package's on-the-fly
+        benchmark workload (bench.py:329-354: H2O and CO2 absorbing, H2
+        Rayleigh, He; isothermal), 200 radiation iterations and their time
+        breakdown; one non-isothermal forward_fluxes of the same species on
+        the card against the CPU; the post-processing run of the final
+        profile with the output files;
   5. a JSON line of the kernels, the nvidia-smi line, and the result line.
 
 Needs one CUDA card; exits non-zero without one.  Imports neither JAX nor
@@ -52,6 +65,8 @@ DEVICE = "cuda"
 L_FLAG, NBIN_FLAG, NY_FLAG, PASSES = 105, 385, 20, 4
 PP_PASSES = 1001            # 1000*scat+1 passes of a post-processing solve
 ISO_RCE_ITERATIONS = 200
+# rows of the matrix method's tridiagonal systems at the flagship depth
+THOMAS_ROWS = {"iso": 2 * (L_FLAG + 1), "noniso": 4 * (L_FLAG + 1) - 2}
 
 # the files write_all writes for an isothermal run without clouds
 POSTPROC_FILES = sorted(
@@ -144,8 +159,11 @@ def copy_bandwidth():
 
 
 def kernel_counters():
+    from helios_tpu_torch.kernels.ro import ro_mix
     from helios_tpu_torch.kernels.sweep import iso_sweep, noniso_sweep
-    return {"noniso_sweep": noniso_sweep, "iso_sweep": iso_sweep}
+    from helios_tpu_torch.kernels.thomas import thomas_solve
+    return {"noniso_sweep": noniso_sweep, "iso_sweep": iso_sweep,
+            "thomas_solve": thomas_solve, "ro_mix": ro_mix}
 
 
 def reset_counts():
@@ -155,6 +173,11 @@ def reset_counts():
 
 def read_counts():
     return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def only(**counts):
+    """The launch counts of a path that runs just the named kernels."""
+    return {name: counts.get(name, 0) for name in kernel_counters()}
 
 
 def sweep_inputs(dtype, seed=0):
@@ -281,8 +304,123 @@ def iso_case(dtype, rtol, bandwidth):
     return res
 
 
+def thomas_inputs(dtype, n, seed):
+    """A diagonally dominant M-matrix system (b in [2, 3], c in
+    [-0.9, -0.1], sub-diagonal c_{i-1}) with d > 0: its solution is
+    positive, so relative errors are well defined."""
+    rng = np.random.default_rng(seed)
+    S = NBIN_FLAG * NY_FLAG
+    mk = lambda lo, hi: torch.tensor(rng.uniform(lo, hi, (n, S)),
+                                     device=DEVICE).to(dtype)
+    return [mk(2.0, 3.0), mk(-0.9, -0.1), mk(1.0, 1e3)]
+
+
+def thomas_bound_ms(dtype, n, S, bandwidth=HBM_BYTES_PER_S):
+    """(bound ms, what sets it): b, c, d read and x written once, 4 n S
+    values; 8 flops per row and column (two divisions, two fma and a
+    multiply-subtract going forward, one fma back)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    bytes_ms = 4 * n * S * size / bandwidth * 1e3
+    ops_ms = 8 * n * S / PEAK_FLOPS[dtype] * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def thomas_case(dtype, rtol, bandwidth):
+    from helios_tpu_torch.kernels.thomas import (thomas_solve,
+                                                 thomas_solve_reference)
+    name = str(dtype).split(".")[-1]
+    res = {}
+    for label, n in THOMAS_ROWS.items():
+        args = thomas_inputs(dtype, n, seed=n)
+        S = args[0].shape[1]
+        got = thomas_solve(*args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()),
+              f"thomas_solve {name}: non-finite output")
+        rel, ab = max_errors([got], [thomas_solve_reference(*args)])
+        check(rel <= rtol, f"thomas_solve {name} n={n}: max relative error "
+              f"{rel:.3e} > {rtol:.0e}")
+        r = dict(n=n, max_rel_err=rel, max_abs_err=ab,
+                 ms=cuda_ms(lambda: thomas_solve(*args), 30, 3),
+                 plain_ms=cuda_ms(lambda: thomas_solve_reference(*args), 5,
+                                  1))
+        r["bound_ms"], r["bound_by"] = thomas_bound_ms(dtype, n, S)
+        r["bound_ms_measured_bw"] = thomas_bound_ms(dtype, n, S,
+                                                    bandwidth)[0]
+        log(f"thomas_solve {name} [{n} x {S}, {label} matrix]: max rel err "
+            f"{rel:.3e} (limit {rtol:.0e}), max abs err {ab:.3e}; kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms; bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
+            f"({4 * n * S * args[0].element_size() / 1e6:.1f} MB at "
+            f"3.35 TB/s), {r['bound_ms_measured_bw']:.4f} ms at the measured "
+            f"{bandwidth / 1e12:.3f} TB/s; library: none (no single PyTorch "
+            "call solves a batched tridiagonal system)")
+        res[label] = r
+    return res
+
+
+def ro_inputs(dtype, seed=2):
+    """C = 105 x 385 cells of two ascending 20-point k-distributions; every
+    7th cell has exact ties (new == mixed), every 7th (offset 1) a
+    negligible overlap."""
+    from helios_tpu_torch.io.opacity import gauss_legendre_ypoints
+    rng = np.random.default_rng(seed)
+    C, ny = L_FLAG * NBIN_FLAG, NY_FLAG
+    m = np.sort(10.0 ** rng.uniform(-4, 1, (C, ny)), axis=1)
+    n = np.sort(10.0 ** rng.uniform(-3, 0.5, (C, ny)), axis=1)
+    n[::7] = m[::7]
+    n[1::7] *= 1e-7
+    y, w = gauss_legendre_ypoints(ny)
+    return [torch.tensor(np.asarray(x), device=DEVICE).to(dtype)
+            for x in (m, n, w, y)]
+
+
+def ro_bound_ms(dtype, C, ny, n_negligible, bandwidth=HBM_BYTES_PER_S):
+    """(bound ms, what sets it): mixed, new read and out written once,
+    3 C ny values; per cell of this run's data, ny additions where the
+    overlap is negligible, else the ny^2 sums, a merge of ny sorted runs
+    (ny^2 log2 ny comparisons), ny^2 weight products, ny^2 scan additions
+    and ny^2 half-weight subtractions."""
+    size = torch.empty((), dtype=dtype).element_size()
+    bytes_ms = 3 * C * ny * size / bandwidth * 1e3
+    ops = ((C - n_negligible) * ny * ny * (4 + np.log2(ny))
+           + n_negligible * ny)
+    ops_ms = ops / PEAK_FLOPS[dtype] * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def ro_case(dtype, rtol, bandwidth):
+    from helios_tpu_torch.kernels.ro import ro_mix, ro_mix_reference
+    from helios_tpu_torch.ops.mixing import negligible_overlap
+    name = str(dtype).split(".")[-1]
+    args = ro_inputs(dtype)
+    C, ny = args[0].shape
+    neg = int(negligible_overlap(args[0], args[1]).sum())
+    got = ro_mix(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"ro_mix {name}: non-finite")
+    rel, ab = max_errors([got], [ro_mix_reference(*args)])
+    check(rel <= rtol, f"ro_mix {name}: max relative error {rel:.3e} > "
+          f"{rtol:.0e}")
+    r = dict(C=C, ny=ny, negligible_cells=neg, max_rel_err=rel,
+             max_abs_err=ab, ms=cuda_ms(lambda: ro_mix(*args), 20, 3),
+             plain_ms=cuda_ms(lambda: ro_mix_reference(*args), 5, 1))
+    r["bound_ms"], r["bound_by"] = ro_bound_ms(dtype, C, ny, neg)
+    r["bound_ms_measured_bw"] = ro_bound_ms(dtype, C, ny, neg, bandwidth)[0]
+    log(f"ro_mix {name} [{C} cells x {ny}, {neg} negligible]: max rel err "
+        f"{rel:.3e} (limit {rtol:.0e}), max abs err {ab:.3e}; kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms; bound "
+        f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
+        f"{r['bound_ms_measured_bw']:.4f} ms at the measured "
+        f"{bandwidth / 1e12:.3f} TB/s; library: none (torch.sort alone does "
+        "not compute the function)")
+    return r
+
+
 # --------------------------------------------------------------------------- #
-# phase 4: the main paths
+# phase 4: the paths
 # --------------------------------------------------------------------------- #
 
 FLAGSHIP = dict(planet="manual", g=2140.0, a=0.03142, R_planet=1.138,
@@ -299,10 +437,11 @@ def flagship_table():
     return table
 
 
-def flagship(tmpdir):
+def flagship(tmpdir, **extra):
     """The flagship workload: an irradiated hot Jupiter with a thick
     interior, started from a super-adiabatic deep profile so that the run
-    goes through both the radiation and the convection loop."""
+    goes through both the radiation and the convection loop.  ``extra``
+    config fields change it (the flux method)."""
     from helios_tpu_torch import grid as grid_mod
     from helios_tpu_torch.config import HeliosConfig
 
@@ -317,7 +456,7 @@ def flagship(tmpdir):
         f.write(f"BOA {float(T0[0])!r}\n")
         for i, t in enumerate(T0):
             f.write(f"{i} {float(t)!r}\n")
-    cfg = HeliosConfig(**kw, force_start_tp_from_file="yes",
+    cfg = HeliosConfig(**kw, **extra, force_start_tp_from_file="yes",
                        temp_format="helios", temp_path=path).finalize()
     check(cfg.nlayer == L_FLAG, f"flagship has {cfg.nlayer} layers")
     return cfg, table
@@ -343,8 +482,8 @@ def main_path(launch_counts):
     converged = (not bool(rad.keep_running) and not conv.keep_running
                  and not rad.aborted and not conv.aborted)
     check(converged, "main path: the run did not converge")
-    check(launch_counts["noniso_sweep"] == out.n_flux_solves > 0
-          and launch_counts["iso_sweep"] == 0,
+    check(out.n_flux_solves > 0
+          and launch_counts == only(noniso_sweep=out.n_flux_solves),
           f"main path: launches {launch_counts} for {out.n_flux_solves} "
           "flux solves")
     log(f"main path: flagship RCE run [{L_FLAG} layers x {NBIN_FLAG} bins x "
@@ -372,48 +511,51 @@ def main_path(launch_counts):
     return out, T_start
 
 
-def time_breakdown(label, phys, arrays, T0, kernel, n=20):
+def time_breakdown(label, phys, arrays, T0, kernels, n=20, sset=None):
     """Where a radiation iteration's time goes: host wall per iteration
-    (unprofiled) against the device's busy time per iteration and the
-    sweep kernel's share of it (torch.profiler, CUDA kernels), over
-    iterations 10..10+n of a loop started from T0."""
+    (unprofiled) against the device's busy time per iteration and each
+    named kernel's share of it (torch.profiler, CUDA kernels), over
+    iterations 10..10+n of a loop started from T0 (two cell refreshes)."""
     from torch.profiler import ProfilerActivity, profile
     from helios_tpu_torch.rce import radiative
 
-    s = radiative.init_rad_state(phys, arrays, T0)
-    s = radiative.radiation_loop(phys, arrays, None, T0, max_steps=10,
-                                 state0=s)
+    loop = lambda steps, s: radiative.radiation_loop(
+        phys, arrays, None, T0, max_steps=steps, sset=sset, state0=s)
+    s = loop(10, radiative.init_rad_state(phys, arrays, T0, sset))
     torch.cuda.synchronize()
     t = time.perf_counter()
-    s1 = radiative.radiation_loop(phys, arrays, None, T0, max_steps=n,
-                                  state0=s)
+    s1 = loop(n, s)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3 / n
     check(s1.it == s.it + n, "time breakdown: the radiation loop stopped")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        radiative.radiation_loop(phys, arrays, None, T0, max_steps=n,
-                                 state0=s)
+        loop(n, s)
         torch.cuda.synchronize()
-    device_us, sweep_us, kernels = 0.0, 0.0, 0
+    device_us, count = 0.0, 0
+    kernel_us = dict.fromkeys(kernels, 0.0)
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
         device_us += us
-        kernels += e.count
-        if f"{kernel}_kernel" in e.key:
-            sweep_us += us
-    check(sweep_us > 0, f"time breakdown: the profiler saw no {kernel}")
+        count += e.count
+        for k in kernels:
+            if f"{k}_kernel" in e.key:
+                kernel_us[k] += us
+    for k, us in kernel_us.items():
+        check(us > 0, f"time breakdown: the profiler saw no {k}")
     busy_ms = device_us / 1e3 / n
+    shares = "; ".join(f"{k} {us / 1e3 / n:.3f} ms ({100 * us / device_us:.1f}"
+                       "% of device time)" for k, us in kernel_us.items())
     log(f"time breakdown, {label} radiation iteration (it {s.it}.."
         f"{s.it + n}): wall {wall_ms:.3f} ms; device busy {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.1f}% of wall, idle "
-        f"{100 * (1 - busy_ms / wall_ms):.1f}%) in {kernels / n:.0f} "
-        f"kernels; {kernel} {sweep_us / 1e3 / n:.3f} ms "
-        f"({100 * sweep_us / device_us:.1f}% of device time)")
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=kernels / n)
+        f"{100 * (1 - busy_ms / wall_ms):.1f}%) in {count / n:.0f} "
+        f"kernels; {shares}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=count / n,
+                kernel_ms={k: us / 1e3 / n for k, us in kernel_us.items()})
 
 
 def write_pt_file(path, p_lay, p_int, T):
@@ -426,46 +568,60 @@ def write_pt_file(path, p_lay, p_int, T):
     np.savetxt(path, rows, fmt="%.17g")
 
 
-def postprocessing_path(flag_out, launch_counts, kernel_ms_1001):
-    """The post-processing run of the converged flagship profile, with the
-    direct beam and the output files: one iso solve of 1001 passes."""
+def postprocessing_run(T_lay, arrays, cfg_kw, table, launch_counts,
+                       sset=None):
+    """The post-processing run of an RCE run's final profile T_lay (on the
+    grid of ``arrays``), read back from a "PT" file, with the direct beam
+    and the output files.  Returns (output, the files written, peak device
+    memory MiB); checks the run's shape, its files and its TOA
+    spectrum."""
     from helios_tpu_torch import pipeline
     from helios_tpu_torch.config import HeliosConfig
-    from helios_tpu_torch.forward import ModelArrays, forward_fluxes
 
-    T_final = flag_out.T_lay.cpu().numpy()
-    table = flagship_table()
+    T_final = T_lay.cpu().numpy()
     with tempfile.TemporaryDirectory() as tmpdir:
-        path = os.path.join(tmpdir, "flagship_final_pt.dat")
-        write_pt_file(path, flag_out.arrays.p_lay.cpu().numpy(),
-                      flag_out.arrays.p_int.cpu().numpy(), T_final)
-        kw = dict(FLAGSHIP, run_type="post-processing", iso_input="yes",
+        path = os.path.join(tmpdir, "final_pt.dat")
+        write_pt_file(path, arrays.p_lay.cpu().numpy(),
+                      arrays.p_int.cpu().numpy(), T_final)
+        kw = dict(cfg_kw, run_type="post-processing", iso_input="yes",
                   direct_beam="yes", temp_format="PT", temp_path=path,
                   name="pp", output_dir=tmpdir + "/")
         cfg = HeliosConfig(**kw).finalize()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        out = pipeline.run(cfg, table, write_output=True, device=DEVICE)
+        out = pipeline.run(cfg, table, write_output=True, sset=sset,
+                           device=DEVICE)
         launch_counts.update(read_counts())
         files = sorted(f[len("pp"):] for f in
                        os.listdir(os.path.join(tmpdir, "pp")))
-    peak_mib = torch.cuda.max_memory_allocated() / 2**20
     phys, L = out.phys, out.phys.nlayer
     check(phys.singlewalk == 1 and phys.iso == 1
           and phys.n_sweep_passes == PP_PASSES,
           f"post-processing: singlewalk {phys.singlewalk}, iso {phys.iso}, "
           f"{phys.n_sweep_passes} passes")
-    check(launch_counts == {"noniso_sweep": 0, "iso_sweep": 1},
-          f"post-processing: launches {launch_counts}, expected one "
-          "iso_sweep")
     check(files == POSTPROC_FILES, f"post-processing: files {files}")
     check(np.array_equal(out.T_lay.cpu().numpy(), T_final),
           "post-processing: the PT file did not give the profile back")
     toa = out.totals.F_up_band[L]
     check(bool(torch.isfinite(toa).all()) and bool((toa > 0).all()),
           "post-processing: TOA spectrum not finite and positive")
+    return out, files, torch.cuda.max_memory_allocated() / 2**20
 
+
+def postprocessing_path(flag_out, launch_counts, kernel_ms_1001):
+    """The post-processing run of the converged flagship profile, with the
+    direct beam and the output files: one iso solve of 1001 passes."""
+    from helios_tpu_torch.forward import ModelArrays, forward_fluxes
+
+    out, files, peak_mib = postprocessing_run(
+        flag_out.T_lay, flag_out.arrays, FLAGSHIP, flagship_table(),
+        launch_counts)
+    phys, L = out.phys, out.phys.nlayer
+    check(launch_counts == only(iso_sweep=1),
+          f"post-processing: launches {launch_counts}, expected one "
+          "iso_sweep")
+    toa = out.totals.F_up_band[L]
     arrays_cpu = ModelArrays(*(t.cpu() for t in out.arrays))
     t = time.perf_counter()
     cpu = forward_fluxes(phys, arrays_cpu, out.T_lay.cpu())[1]
@@ -485,7 +641,7 @@ def postprocessing_path(flag_out, launch_counts, kernel_ms_1001):
         f"{cpu_s:.2f} s")
     return dict(wall_s=out.wall_seconds, peak_mib=peak_mib,
                 kernel_share=kernel_ms_1001 / 1e3 / out.wall_seconds,
-                toa_rel_cpu=rel, cpu_s=cpu_s)
+                toa_rel_cpu=rel, cpu_s=cpu_s, toa=toa)
 
 
 def iso_rce_path(launch_counts):
@@ -520,15 +676,220 @@ def iso_rce_path(launch_counts):
           "iso RCE: non-finite temperatures")
     check(rad.it == ISO_RCE_ITERATIONS or not bool(rad.keep_running),
           f"iso RCE: stopped at {rad.it} iterations")
-    check(launch_counts == {"noniso_sweep": 0, "iso_sweep": rad.it},
+    check(launch_counts == only(iso_sweep=rad.it),
           f"iso RCE: launches {launch_counts} for {rad.it} iterations")
     log(f"iso RCE path [{L_FLAG} layers x {NBIN_FLAG} bins x {NY_FLAG} y, "
         f"fp64, {phys.n_sweep_passes} passes]: {rad.it} radiation "
         f"iterations = {launch_counts['iso_sweep']} iso_sweep launches in "
         f"{wall:.3f} s ({rad.it / wall:.1f} it/s, model build excluded); "
         f"T {float(rad.T_lay.min()):.1f}..{float(rad.T_lay.max()):.1f} K")
-    res = time_breakdown("iso RCE", phys, arrays, T0, "iso_sweep")
+    res = time_breakdown("iso RCE", phys, arrays, T0, ("iso_sweep",))
     res.update(it=rad.it, it_per_s=rad.it / wall)
+    return res
+
+
+def forward_cuda_vs_cpu(phys, arrays, T, sset=None, sset_cpu=None):
+    """One forward_fluxes on the card and the same call on the CPU; returns
+    (launch counts of the card's call, the card's totals, the relative
+    difference of each total)."""
+    from helios_tpu_torch.forward import ModelArrays, forward_fluxes
+
+    torch.cuda.synchronize()
+    reset_counts()
+    gpu = forward_fluxes(phys, arrays, T, sset=sset)[1]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    arrays_cpu = ModelArrays(*(t.cpu() for t in arrays))
+    cpu = forward_fluxes(phys, arrays_cpu, T.cpu(), sset=sset_cpu)[1]
+    rel = {f: ((getattr(gpu, f).cpu() - getattr(cpu, f)).abs()
+               / getattr(cpu, f).abs()) for f in ("F_up_tot", "F_down_tot")}
+    return counts, gpu, rel
+
+
+def matrix_path(flag_out, launch_counts):
+    """The flagship RCE run of path a with the matrix flux method: one
+    Thomas solve and one absorption-fallback non-iso sweep per flux solve.
+    Whether it converges is reported, not required (a run that does not
+    is a finding for ROADMAP C)."""
+    from helios_tpu_torch import pipeline
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        cfg, table = flagship(tmpdir, flux_calc_method="matrix")
+        torch.cuda.synchronize()
+        reset_counts()
+        out = pipeline.run(cfg, table, device=DEVICE)
+        launch_counts.update(read_counts())
+    rad, conv, n = out.rad, out.conv, out.n_flux_solves
+    T = out.T_lay.cpu().numpy()
+    check(out.phys.flux_calc_method == "matrix", "matrix path: not matrix")
+    check(np.all(np.isfinite(T)), "matrix path: non-finite temperatures")
+    check(n > 0 and launch_counts == only(thomas_solve=n, noniso_sweep=n),
+          f"matrix path: launches {launch_counts} for {n} flux solves")
+    converged = (not bool(rad.keep_running) and conv is not None
+                 and not conv.keep_running and not rad.aborted
+                 and not conv.aborted)
+    dT = np.abs(T - flag_out.T_lay.cpu().numpy())
+    conv_it = conv.it if conv is not None else 0
+    conv_steps = conv.steps if conv is not None else 0
+    log(f"matrix path: flagship RCE run with flux_calc_method=matrix "
+        f"[{L_FLAG} layers x {NBIN_FLAG} bins x {NY_FLAG} y, fp64]: "
+        f"{'converged' if converged else 'DID NOT CONVERGE'} after "
+        f"{rad.it} radiation + {conv_it} convection iterations "
+        f"({conv_steps} convection steps; radiation loop aborted "
+        f"{rad.aborted}), {n} flux solves = "
+        f"{launch_counts['thomas_solve']} thomas_solve + "
+        f"{launch_counts['noniso_sweep']} noniso_sweep launches; wall "
+        f"{out.wall_seconds:.3f} s (radiation {out.rad_seconds:.3f} s = "
+        f"{rad.it / out.rad_seconds:.1f} it/s, convection "
+        f"{out.conv_seconds:.3f} s); T {T.min():.1f}..{T.max():.1f} K, max "
+        f"|T - T(path a)| {dT.max():.4f} K")
+
+    counts, _, rel = forward_cuda_vs_cpu(out.phys, out.arrays, out.T_lay)
+    check(counts == only(thomas_solve=1, noniso_sweep=1),
+          f"matrix forward_fluxes: launches {counts}, expected one "
+          "thomas_solve and one noniso_sweep")
+    up, down = float(rel["F_up_tot"].max()), float(rel["F_down_tot"].max())
+    down_boa = float(rel["F_down_tot"][0])
+    down_rest = float(rel["F_down_tot"][1:].max())
+    check(max(up, down_rest) <= 1e-10, f"matrix forward_fluxes cuda vs "
+          f"cpu: F_up_tot {up:.3e}, F_down_tot above the BOA "
+          f"{down_rest:.3e} > 1e-10")
+    check(down_boa <= 1e-6, f"matrix forward_fluxes cuda vs cpu: BOA "
+          f"F_down_tot {down_boa:.3e} > 1e-6")
+    log(f"matrix forward_fluxes at the flagship shape, cuda vs cpu: max rel "
+        f"difference F_up_tot {up:.3e}, F_down_tot {down:.3e} (above the "
+        f"BOA {down_rest:.3e}, limit 1e-10; at the BOA {down_boa:.3e}, limit "
+        f"1e-6: the elimination divides it by the albedo); launches per "
+        f"solve {counts}")
+    return dict(out=out, converged=converged, rad_it=rad.it,
+                conv_it=conv_it, dT_max=float(dT.max()),
+                wall_s=out.wall_seconds, fwd_rel_up=up, fwd_rel_down=down,
+                fwd_rel_down_boa=down_boa)
+
+
+def matrix_postprocessing_path(flag_out, launch_counts, toa_iteration):
+    """Path b's post-processing run with the matrix method: one Thomas
+    solve (and the single-pass absorption fallback) in place of the 1001
+    sweep passes."""
+    out, files, peak_mib = postprocessing_run(
+        flag_out.T_lay, flag_out.arrays,
+        dict(FLAGSHIP, flux_calc_method="matrix"), flagship_table(),
+        launch_counts)
+    check(launch_counts == only(thomas_solve=1, iso_sweep=1),
+          f"matrix post-processing: launches {launch_counts}, expected one "
+          "thomas_solve and one iso_sweep")
+    L = out.phys.nlayer
+    toa = out.totals.F_up_band[L]
+    rel = float(((toa - toa_iteration).abs() / toa_iteration.abs()).max())
+    log(f"matrix post-processing path [{L} layers x {NBIN_FLAG} bins x "
+        f"{NY_FLAG} y, fp64, beam, {THOMAS_ROWS['iso']} matrix rows]: wall "
+        f"{out.wall_seconds:.3f} s with {len(files)} output files; "
+        f"launches {launch_counts}; peak device memory {peak_mib:.0f} MiB; "
+        f"TOA spectrum max rel difference from path b's {PP_PASSES}-pass "
+        f"solve {rel:.3e}")
+    return dict(wall_s=out.wall_seconds, toa_rel_iteration=rel)
+
+
+OTF_WORKLOAD = dict(planet="manual", g=2140.0, a=0.03142, R_planet=1.138,
+                    R_star=0.805, T_star=5040.0, T_intern=100.0,
+                    scattering="yes", direct_beam="no", convection="no",
+                    run_type="iterative", iso_input="yes",
+                    opacity_mixing="on-the-fly", k_mixing_method="RO")
+
+
+def otf_inputs(device):
+    """The JAX package's on-the-fly workload (bench.py:329-354): the donor
+    table and the species set, built in memory, on ``device``."""
+    from helios_tpu_torch import chem
+    from helios_tpu_torch.io.opacity import synthetic_premixed_table
+
+    donor = synthetic_premixed_table(nbin=NBIN_FLAG, ny=NY_FLAG, ntemp=8,
+                                     npress=6, seed=1)
+    specs = [chem.SpeciesSpec("H2O", True, False, "1e-3"),
+             chem.SpeciesSpec("CO2", True, False, "1e-4"),
+             chem.SpeciesSpec("H2", False, True, "0.9"),
+             chem.SpeciesSpec("He", False, False, "0.1")]
+    sset = chem.build_species_set(
+        specs, ktemps=donor.temperatures, kpress=donor.pressures,
+        nbin=NBIN_FLAG, ny=NY_FLAG, nlayer=L_FLAG,
+        opacity_tables={"H2O": donor.kpoints, "CO2": donor.kpoints * 3.0},
+        scat_tables={"H2": 8.49e-45 / donor.wave_centers ** 4},
+        device=device)
+    return donor, sset
+
+
+def otf_path(launch_counts, pp_counts):
+    """On-the-fly Random Overlap mixing: ISO_RCE_ITERATIONS radiation
+    iterations of the JAX package's on-the-fly workload (one ro_mix per
+    cell refresh: two absorbers), one non-isothermal forward_fluxes of
+    the same species on the card against the CPU, and the post-processing
+    run of the final profile with the output files."""
+    from helios_tpu_torch.config import HeliosConfig
+    from helios_tpu_torch.forward import build_model
+    from helios_tpu_torch.rce import radiative
+
+    donor, sset = otf_inputs(DEVICE)
+    phys, arrays = build_model(HeliosConfig(**OTF_WORKLOAD).finalize(),
+                               donor, device=DEVICE)
+    check(phys.iso == 1 and phys.nlayer == L_FLAG and phys.ro_method == 1
+          and phys.opacity_mixing == "on-the-fly",
+          "on-the-fly RCE: not the isothermal on-the-fly flagship shape")
+    T0 = torch.as_tensor(np.linspace(1800.0, 600.0, phys.nlayer + 1),
+                         dtype=torch.float64, device=DEVICE)
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    rad = radiative.radiation_loop(phys, arrays, None, T0,
+                                   max_steps=ISO_RCE_ITERATIONS, sset=sset)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launch_counts.update(read_counts())
+    refreshes = 1 + (rad.it + 9) // 10      # init, then it = 0, 10, ...
+    check(bool(torch.isfinite(rad.T_lay).all()),
+          "on-the-fly RCE: non-finite temperatures")
+    check(rad.it == ISO_RCE_ITERATIONS or not bool(rad.keep_running),
+          f"on-the-fly RCE: stopped at {rad.it} iterations")
+    check(launch_counts == only(iso_sweep=rad.it, ro_mix=refreshes),
+          f"on-the-fly RCE: launches {launch_counts} for {rad.it} "
+          f"iterations and {refreshes} cell refreshes")
+    log(f"on-the-fly RCE path [{L_FLAG} layers x {NBIN_FLAG} bins x "
+        f"{NY_FLAG} y, fp64, RO of 2 absorbers]: {rad.it} radiation "
+        f"iterations, {refreshes} cell refreshes; launches {launch_counts}; "
+        f"{wall:.3f} s ({rad.it / wall:.1f} it/s, model and species build "
+        f"excluded); T {float(rad.T_lay.min()):.1f}.."
+        f"{float(rad.T_lay.max()):.1f} K")
+    res = time_breakdown("on-the-fly RCE", phys, arrays, T0,
+                         ("iso_sweep", "ro_mix"), sset=sset)
+    res.update(it=rad.it, it_per_s=rad.it / wall, refreshes=refreshes)
+
+    # non-isothermal: layers and interfaces are mixed, two ro_mix launches
+    phys_n, arrays_n = build_model(
+        HeliosConfig(**dict(OTF_WORKLOAD, iso_input="no")).finalize(),
+        donor, device=DEVICE)
+    counts, _, rel = forward_cuda_vs_cpu(phys_n, arrays_n, rad.T_lay,
+                                         sset=sset,
+                                         sset_cpu=otf_inputs("cpu")[1])
+    check(counts == only(ro_mix=2, noniso_sweep=1),
+          f"on-the-fly forward_fluxes: launches {counts}, expected two "
+          "ro_mix and one noniso_sweep")
+    fwd_rel = max(float(r.max()) for r in rel.values())
+    check(fwd_rel <= 1e-10, f"on-the-fly forward_fluxes cuda vs cpu: "
+          f"{fwd_rel:.3e} > 1e-10")
+    log(f"on-the-fly forward_fluxes, non-isothermal, cuda vs cpu: max rel "
+        f"difference of the totals {fwd_rel:.3e} (limit 1e-10); launches "
+        f"{counts}")
+
+    out, files, peak_mib = postprocessing_run(rad.T_lay, arrays,
+                                              OTF_WORKLOAD, donor, pp_counts,
+                                              sset=sset)
+    check(pp_counts == only(iso_sweep=1, ro_mix=2),
+          f"on-the-fly post-processing: launches {pp_counts}, expected one "
+          "iso_sweep and two ro_mix (the solve's and the diagnostics' cell "
+          "refresh)")
+    log(f"on-the-fly post-processing path: wall {out.wall_seconds:.3f} s "
+        f"with {len(files)} output files; launches {pp_counts}; peak device "
+        f"memory {peak_mib:.0f} MiB")
+    res.update(fwd_rel=fwd_rel, pp_wall_s=out.wall_seconds)
     return res
 
 
@@ -536,6 +897,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     environment()
     build()
 
@@ -543,21 +905,37 @@ def main():
     log(f"device-to-device copy: {bandwidth / 1e12:.3f} TB/s")
     f64 = sweep_case(torch.float64, 1e-12, bandwidth)
     f32 = sweep_case(torch.float32, 1e-4, bandwidth)
-
     i64 = iso_case(torch.float64, 1e-12, bandwidth)
     i32 = iso_case(torch.float32, 1e-4, bandwidth)
+    t64 = thomas_case(torch.float64, 1e-12, bandwidth)
+    t32 = thomas_case(torch.float32, 1e-4, bandwidth)
+    r64 = ro_case(torch.float64, 1e-12, bandwidth)
+    r32 = ro_case(torch.float32, 1e-4, bandwidth)
 
-    counts = {"flagship_rce": {}, "post_processing": {}, "iso_rce": {}}
+    counts = {p: {} for p in ("flagship_rce", "post_processing", "iso_rce",
+                              "matrix_rce", "matrix_post_processing",
+                              "on_the_fly_rce",
+                              "on_the_fly_post_processing")}
     out, T_start = main_path(counts["flagship_rce"])
-    time_breakdown("flagship", out.phys, out.arrays,
-                   torch.as_tensor(T_start, dtype=out.T_lay.dtype,
-                                   device=DEVICE), "noniso_sweep")
-    postprocessing_path(out, counts["post_processing"], i64["ms_1001"])
+    T_start = torch.as_tensor(T_start, dtype=out.T_lay.dtype, device=DEVICE)
+    time_breakdown("flagship", out.phys, out.arrays, T_start,
+                   ("noniso_sweep",))
+    pp = postprocessing_path(out, counts["post_processing"], i64["ms_1001"])
     iso_rce_path(counts["iso_rce"])
+    mat = matrix_path(out, counts["matrix_rce"])
+    # the profiler names kernels by their CUDA symbol: thomas_kernel
+    time_breakdown("matrix flagship", mat["out"].phys, mat["out"].arrays,
+                   T_start, ("thomas", "noniso_sweep"))
+    matrix_postprocessing_path(out, counts["matrix_post_processing"],
+                               pp["toa"])
+    otf_path(counts["on_the_fly_rce"], counts["on_the_fly_post_processing"])
     for path, c in counts.items():
         log(f"launches on the {path} path: {c}")
 
     by_path = lambda name: {path: c[name] for path, c in counts.items()}
+    pick = lambda res, keys: {k: res[k] for k in keys}
+    base = ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "bound_ms_measured_bw")
     noniso = dict(
         name="noniso_sweep", route="cuda",
         source="helios_tpu_torch/csrc/noniso_sweep.cu",
@@ -570,9 +948,7 @@ def main():
         max_rel_err=f64["max_rel_err"],
         bound_ms_measured_bw=f64["bound_ms_measured_bw"],
         also_replaces="helios_tpu/kernels/sweep_pallas.py:162",
-        fp32={k: f32[k] for k in ("max_abs_err", "max_rel_err", "ms",
-                                  "plain_ms", "bound_ms", "bound_by",
-                                  "bound_ms_measured_bw")})
+        fp32=pick(f32, base))
     iso = dict(
         name="iso_sweep", route="cuda",
         source="helios_tpu_torch/csrc/iso_sweep.cu",
@@ -587,12 +963,41 @@ def main():
         ms_1001=i64["ms_1001"], bound_ms_1001=i64["bound_ms_1001"],
         bound_by_1001=i64["bound_by_1001"],
         also_replaces="helios_tpu/kernels/sweep_pallas.py:27",
-        fp32={k: i32[k] for k in (
-            "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "bound_ms_measured_bw", "ms_1001", "bound_ms_1001",
-            "bound_by_1001", "max_rel_err_vs_fp64_1001")})
-    kernels = [noniso, iso]
-    print(json.dumps({"kernels": kernels}), flush=True)
+        fp32=pick(i32, base + ("ms_1001", "bound_ms_1001", "bound_by_1001",
+                               "max_rel_err_vs_fp64_1001")))
+    tn, ti = t64["noniso"], t64["iso"]
+    thomas = dict(
+        name="thomas_solve", route="cuda",
+        source="helios_tpu_torch/csrc/thomas.cu",
+        replaces="helios_tpu/kernels/thomas_pallas.py:31",
+        launches=counts["matrix_rce"]["thomas_solve"],
+        max_abs_err=max(tn["max_abs_err"], ti["max_abs_err"]),
+        ms=tn["ms"], plain_ms=tn["plain_ms"], bound_ms=tn["bound_ms"],
+        bound_by=tn["bound_by"], library_ms=None,
+        library="none: no single PyTorch call solves a batched "
+                "tridiagonal system",
+        launches_by_path=by_path("thomas_solve"), rows=tn["n"],
+        max_rel_err=max(tn["max_rel_err"], ti["max_rel_err"]),
+        bound_ms_measured_bw=tn["bound_ms_measured_bw"],
+        iso=pick(ti, base + ("n",)),
+        fp32={k: pick(t32[k], base + ("n",)) for k in t32})
+    ro = dict(
+        name="ro_mix", route="cuda",
+        source="helios_tpu_torch/csrc/ro_mix.cu",
+        replaces="helios_tpu/kernels/ro_pallas.py:225",
+        launches=counts["on_the_fly_rce"]["ro_mix"],
+        max_abs_err=r64["max_abs_err"], ms=r64["ms"],
+        plain_ms=r64["plain_ms"], bound_ms=r64["bound_ms"],
+        bound_by=r64["bound_by"], library_ms=None,
+        library="none: torch.sort alone does not compute the function",
+        launches_by_path=by_path("ro_mix"), cells=r64["C"],
+        negligible_cells=r64["negligible_cells"],
+        max_rel_err=r64["max_rel_err"],
+        bound_ms_measured_bw=r64["bound_ms_measured_bw"],
+        fp32=pick(r32, base))
+    log(f"matrix flagship converged: {mat['converged']}; chip_smoke took "
+        f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [noniso, iso, thomas, ro]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

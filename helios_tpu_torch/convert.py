@@ -1,7 +1,8 @@
 """State carried across from the JAX package.
 
-HELIOS has no weights: its state is the model's static arrays and the
-loop state.  These functions take that state as numpy arrays (for example
+HELIOS has no weights: its state is the model's static arrays, the
+species set of on-the-fly mixing and the loop state.  These functions take
+that state as numpy arrays (for example
 ``{name: np.asarray(x)}`` of a :class:`helios_tpu.forward.ModelArrays`) and
 return the port's tensors, so both packages can start from the same
 mid-run state.  Nested states are mappings of the same form; the loop
@@ -10,11 +11,12 @@ counters and flags are plain numbers.
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from helios_tpu_torch import chem
 from helios_tpu_torch import fastpath as fp
 from helios_tpu_torch.forward import CellCache, FluxState, ModelArrays
 from helios_tpu_torch.ops.integrate import FluxTotals
@@ -80,3 +82,22 @@ def rad_state_from_numpy(d: Mapping[str, Any], *, device,
         goto_convection=torch.as_tensor(bool(d["goto_convection"]),
                                         device=device),
         aborted=bool(d["aborted"]))
+
+
+def species_set_from_numpy(specs: Sequence, data: Sequence[Mapping[str, Any]],
+                           ktemps, kpress, *, device,
+                           dtype=torch.float64) -> chem.SpeciesSet:
+    """The port's SpeciesSet from the parts of a JAX one: its species specs
+    (objects with the SpeciesSpec fields), its per-species device data as
+    mappings of numpy arrays (the SpeciesDeviceData fields), in the same
+    order, and the opacity table's T and P grids.  The order is kept: the
+    JAX set already holds an absorbing species first."""
+    return chem.SpeciesSet(
+        specs=[chem.SpeciesSpec(
+            name=s.name, absorbing=bool(s.absorbing),
+            scattering=bool(s.scattering), source_for_vmr=s.source_for_vmr,
+            weight=float(s.weight), fc_name=s.fc_name) for s in specs],
+        data=[_build(chem.SpeciesDeviceData, d, device, dtype)
+              for d in data],
+        ktemps=_tensor(ktemps, device, dtype),
+        kpress=_tensor(kpress, device, dtype))

@@ -1,15 +1,17 @@
 """The forward radiative-transfer model: T profile -> spectral fluxes
-(port of :mod:`helios_tpu.forward`, iterative flux method).
+(port of :mod:`helios_tpu.forward`).
 
 Per iteration of the reference's radiation loop (computation.py:856-888):
-temperature interpolation -> Planck lookup -> opacity interpolation ->
-half-layer cell quantities -> altitude -> direct beam -> flux solve ->
-integration.  Static physics scalars live in :class:`Phys`; tensors in
-:class:`ModelArrays`, on the device chosen in :func:`build_model`.
+temperature interpolation -> Planck lookup -> opacity interpolation (from
+the premixed table, or species mixed on the fly from a
+:class:`helios_tpu_torch.chem.SpeciesSet`) -> half-layer cell quantities
+-> altitude -> direct beam -> flux solve (iterative sweeps or the Thomas
+matrix method) -> integration.  Static physics scalars live in
+:class:`Phys`; tensors in :class:`ModelArrays`, on the device chosen in
+:func:`build_model`.
 
-Not ported yet (raise ``NotImplementedError``): the matrix flux method,
-clouds, on-the-fly opacity mixing, the geometric zenith-angle correction
-and the no-atmosphere mode.
+Not ported yet (raise ``NotImplementedError``): clouds, the geometric
+zenith-angle correction and the no-atmosphere mode.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from helios_tpu_torch import chem
 from helios_tpu_torch import constants as pc
 from helios_tpu_torch import fastpath as fp
 from helios_tpu_torch import grid as grid_mod
@@ -29,6 +32,7 @@ from helios_tpu_torch.device import resolve_device, torch_dtype
 from helios_tpu_torch.io.opacity import OpacityTable, gauss_legendre_ypoints
 from helios_tpu_torch.ops import integrate as int_ops
 from helios_tpu_torch.ops import interp as interp_ops
+from helios_tpu_torch.ops import thomas as thomas_ops
 
 
 @dataclass(frozen=True)
@@ -211,12 +215,8 @@ def init_flux_state(phys: Phys, dtype, device) -> FluxState:
 def _check_supported(phys: Phys):
     """Raise for the configurations this port does not cover yet."""
     missing = []
-    if phys.flux_calc_method != "iteration":
-        missing.append(f"flux_calc_method={phys.flux_calc_method!r}")
     if phys.clouds:
         missing.append("clouds")
-    if phys.opacity_mixing != "premixed":
-        missing.append(f"opacity_mixing={phys.opacity_mixing!r}")
     if phys.no_atmo:
         missing.append("planet_type='no_atmosphere'")
     if phys.dir_beam and phys.geom_zenith_corr:
@@ -228,8 +228,9 @@ def _check_supported(phys: Phys):
 
 def build_model(cfg: HeliosConfig, table: OpacityTable, *,
                 device="cuda") -> Tuple[Phys, ModelArrays]:
-    """Assemble (Phys, ModelArrays) from a finalized config and a premixed
-    opacity table, with the tensors on ``device`` (default CUDA; raises
+    """Assemble (Phys, ModelArrays) from a finalized config and an opacity
+    table (premixed, or with on-the-fly mixing the donor of the spectral,
+    T and P grids), with the tensors on ``device`` (default CUDA; raises
     if CUDA is absent).  The star is a blackbody (no stellar spectrum
     file) and the surface albedo the config's constant."""
     dev = resolve_device(device)
@@ -320,9 +321,19 @@ def altitude_z(phys: Phys, m: ModelArrays, T_lay, meanmolmass_lay):
 # per-cell quantities refresh (every 10th iteration in the reference)
 # --------------------------------------------------------------------------- #
 
-def _gas_properties(m: ModelArrays, T, p):
+def _gas_properties(phys: Phys, m: ModelArrays, T, p, sset):
     """(opacity [n, S], Rayleigh cross-section [n, B], mean molecular mass
-    [n]) on a T-P profile from the premixed table."""
+    [n]) on a T-P profile: premixed-table interpolation, or on-the-fly
+    species mixing from ``sset``."""
+    if phys.opacity_mixing == "on-the-fly":
+        if sset is None:
+            raise ValueError("on-the-fly opacity mixing needs a species "
+                             "set (sset)")
+        opac, scat, mmm = chem.mixed_opacities(
+            sset, T, p, m.lambda_centers, m.gauss_weight, m.gauss_y,
+            ro_method=phys.ro_method, scat=phys.scat)
+        # [n, B, Y] -> the flat [n, S]
+        return opac.reshape(opac.shape[0], -1), scat, mmm
     opac, scat = interp_ops.interpolate_opacity(
         m.ktable, m.scat_cross_table, m.ktemps, m.kpress, T, p)
     mmm = interp_ops.interpolate_meanmolmass(
@@ -330,14 +341,17 @@ def _gas_properties(m: ModelArrays, T, p):
     return opac, scat, mmm
 
 
-def compute_cells(phys: Phys, m: ModelArrays, T_lay, T_int) -> CellCache:
-    """Opacity interpolation + layer (iso) or half-layer (non-iso)
-    transmission + direct beam + sweep coefficient cache: the block the
-    reference refreshes every 10th iteration (computation.py:860-879)."""
+def compute_cells(phys: Phys, m: ModelArrays, T_lay, T_int,
+                  sset=None) -> CellCache:
+    """Opacity interpolation (or on-the-fly mixing of ``sset``) + layer
+    (iso) or half-layer (non-iso) transmission + direct beam + sweep
+    coefficient cache: the block the reference refreshes every 10th
+    iteration (computation.py:860-879)."""
     _check_supported(phys)
     L, Y = phys.nlayer, phys.ny
 
-    opac_lay, scat_lay, mmm_lay = _gas_properties(m, T_lay[:L], m.p_lay)
+    opac_lay, scat_lay, mmm_lay = _gas_properties(phys, m, T_lay[:L],
+                                                  m.p_lay, sset)
     delta_z, z_lay = altitude_z(phys, m, T_lay, mmm_lay)
 
     planckband_lay = planck_mod.planckband_layers(
@@ -386,7 +400,8 @@ def compute_cells(phys: Phys, m: ModelArrays, T_lay, T_int) -> CellCache:
         coeff = fp.iso_coeff_cache(cells, planck_star_flat, F_dir,
                                    alb_flat, **coeff_kw)
     else:
-        opac_int, scat_int, mmm_int = _gas_properties(m, T_int, m.p_int)
+        opac_int, scat_int, mmm_int = _gas_properties(phys, m, T_int,
+                                                      m.p_int, sset)
         ray_int = scat_int if phys.scat else torch.zeros_like(scat_int)
         g0_int = torch.full_like(scat_int, phys.g_0)
 
@@ -445,9 +460,10 @@ def compute_cells(phys: Phys, m: ModelArrays, T_lay, T_int) -> CellCache:
 
 def solve_fluxes(phys: Phys, m: ModelArrays, cache: CellCache, T_lay,
                  flux_state: FluxState) -> FluxState:
-    """One iterative flux solve: Planck lookups, source assembly from the
-    coefficient cache, then the iso or non-iso sweep (the CUDA kernel on
-    the card)."""
+    """One flux solve: Planck lookups, then either the source assembly
+    from the coefficient cache and the iso or non-iso sweep (iterative
+    method), or the row assembly and the Thomas solve (matrix method); the
+    CUDA kernels on the card."""
     _check_supported(phys)
     L, Y = phys.nlayer, phys.ny
     planckband_lay = planck_mod.planckband_layers(
@@ -455,7 +471,17 @@ def solve_fluxes(phys: Phys, m: ModelArrays, cache: CellCache, T_lay,
         dim=phys.plancktable_dim, step=phys.plancktable_step)
     B_lay_flat = fp.band_to_flat(planckband_lay[:L], Y)
     B_surf_flat = fp.band_to_flat(planckband_lay[L + 1], Y)
+    matrix = phys.flux_calc_method == "matrix"
+    common = dict(scat_corr=phys.scat_corr,
+                  i2s_transition=phys.i2s_transition, epsi=phys.epsi,
+                  mu_star=phys.mu_star, dir_beam=phys.dir_beam,
+                  f_factor=phys.f_factor, R_star=phys.R_star, a=phys.a)
 
+    if phys.iso and matrix:
+        F_down, F_up = thomas_ops.fband_matrix_iso(
+            cache.cells_or_upper, planckband_lay, cache.F_dir,
+            m.surf_albedo, cache.scat_trigger, **common)
+        return flux_state._replace(F_down=F_down, F_up=F_up)
     if phys.iso:
         C = fp.iso_coeffs_from_cache(cache.coeff, B_lay_flat, B_surf_flat)
         F_down, F_up = fp.fband_iso_flat(C, cache.F_dir[0], flux_state.F_up,
@@ -466,6 +492,14 @@ def solve_fluxes(phys: Phys, m: ModelArrays, cache: CellCache, T_lay,
     planckband_int = planck_mod.planckband_interfaces(
         m.planck_grid, T_int, dim=phys.plancktable_dim,
         step=phys.plancktable_step)
+    if matrix:
+        F_down, F_up, Fc_down, Fc_up = thomas_ops.fband_matrix_noniso(
+            cache.cells_or_upper, cache.lower, planckband_lay,
+            planckband_int, cache.F_dir, cache.Fc_dir, m.surf_albedo,
+            cache.scat_trigger, delta_tau_limit=phys.delta_tau_limit,
+            **common)
+        return FluxState(F_down=F_down, F_up=F_up, Fc_down=Fc_down,
+                         Fc_up=Fc_up)
     B_int_flat = fp.band_to_flat(planckband_int, Y)
     C = fp.noniso_coeffs_from_cache(
         cache.coeff, B_lay_flat, B_int_flat[:-1], B_int_flat[1:],
@@ -493,13 +527,14 @@ def integrate_flux_flat(phys: Phys, m: ModelArrays, flux_state: FluxState,
 
 
 def forward_fluxes(phys: Phys, m: ModelArrays, T_lay,
-                   flux_state: Optional[FluxState] = None
+                   flux_state: Optional[FluxState] = None, sset=None
                    ) -> Tuple[FluxState, int_ops.FluxTotals, CellCache]:
-    """Full forward model: temperatures [L+1] -> integrated fluxes."""
+    """Full forward model: temperatures [L+1] -> integrated fluxes.
+    ``sset``: the species set of on-the-fly opacity mixing."""
     if flux_state is None:
         flux_state = init_flux_state(phys, T_lay.dtype, T_lay.device)
     T_int = interp_ops.interface_temperatures(T_lay)
-    cache = compute_cells(phys, m, T_lay, T_int)
+    cache = compute_cells(phys, m, T_lay, T_int, sset)
     flux_state = solve_fluxes(phys, m, cache, T_lay, flux_state)
     totals = integrate_flux_flat(phys, m, flux_state, cache.F_dir)
     return flux_state, totals, cache

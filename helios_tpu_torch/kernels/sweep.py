@@ -11,91 +11,24 @@ kernel launches.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import operator
-
 import torch
 
-from helios_tpu_torch.kernels import _build
-
-_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
-_INT_MAX = 2**31 - 1
-
-
-@functools.lru_cache(maxsize=None)
-def _library(name: str, n_tensors: int) -> ctypes.CDLL:
-    """``csrc/<name>.cu`` built and loaded, with the argument types of its
-    entry points ``<name>_f64`` / ``<name>_f32``: n_tensors pointers, then
-    L, S, n_passes and the stream."""
-    lib = _build.load(name)
-    for suffix in _SUFFIX.values():
-        fn = getattr(lib, f"{name}_{suffix}")
-        fn.argtypes = ([ctypes.c_void_p] * n_tensors
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    lib.helios_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.helios_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _sweep_shape(first, name):
-    """(L, S) of the [L, S] first argument."""
-    if not isinstance(first, torch.Tensor) or first.dim() != 2:
-        shape = tuple(first.shape) if isinstance(first, torch.Tensor) else None
-        raise ValueError(f"{name} must be an [L, S] tensor, got shape {shape}")
-    L, S = first.shape
-    if L < 1 or S < 1:
-        raise ValueError(f"empty sweep shape {(L, S)}")
-    return L, S
+from helios_tpu_torch.kernels import _launch
 
 
 def _check(args, want, n_passes) -> int:
-    """Validate the inputs against their expected shapes: one dtype
-    (float32/float64), one device, contiguous.  Returns n_passes as an int;
-    nothing is adjusted."""
-    first = args[0]
-    for k, (t, shape) in enumerate(zip(args, want)):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"argument {k} is not a tensor")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"argument {k} has shape {tuple(t.shape)}, "
-                             f"expected {shape}")
-        if t.dtype != first.dtype:
-            raise TypeError(f"argument {k} is {t.dtype}, argument 0 is "
-                            f"{first.dtype}: all must share one dtype")
-        if t.device != first.device:
-            raise ValueError(f"argument {k} is on {t.device}, argument 0 on "
-                             f"{first.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"argument {k} is not contiguous")
-    if first.dtype not in _SUFFIX:
-        raise TypeError(f"unsupported dtype {first.dtype} "
-                        "(float32 or float64)")
-    n = operator.index(n_passes)
-    if not 1 <= n <= _INT_MAX:
-        raise ValueError(f"n_passes must be in [1, {_INT_MAX}], got {n}")
-    return n
+    """Validate the inputs (shape, one dtype and device, contiguous) and
+    return n_passes as an int in [1, 2**31 - 1]; nothing is adjusted."""
+    _launch.check_tensors(args, want)
+    return _launch.check_count("n_passes", n_passes)
 
 
-def _launch(name, args, out_shapes, L, S, n_passes):
-    """Launch ``<name>`` on the current stream of the inputs' CUDA device;
-    returns the outputs, allocated here.  Raises on any other device and on
-    a failed launch."""
-    dev = args[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
-    dtype = args[0].dtype
-    outs = tuple(torch.empty(shape, dtype=dtype, device=dev)
-                 for shape in out_shapes)
-    lib = _library(name, len(args) + len(outs))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, f"{name}_{_SUFFIX[dtype]}")(
-            *(t.data_ptr() for t in args + outs), L, S, n_passes, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           + lib.helios_cuda_error_string(rc).decode())
+def _run(name, args, out_shapes, L, S, n_passes):
+    """Launch ``<name>`` on the inputs' CUDA device; returns the outputs,
+    allocated here."""
+    outs = tuple(torch.empty(shape, dtype=args[0].dtype,
+                             device=args[0].device) for shape in out_shapes)
+    _launch.launch(name, args + outs, (L, S, n_passes))
     return outs
 
 
@@ -116,12 +49,12 @@ def noniso_sweep(a_up, b_up, src_up_down, src_up_up, a_low, b_low,
     args = (a_up, b_up, src_up_down, src_up_up, a_low, b_low, src_low_down,
             src_low_up, toa, boa_refl, boa_emis, F_dir0, F_up_prev,
             Fc_up_prev)
-    L, S = _sweep_shape(a_up, "a_up")
+    L, S = _launch.matrix_shape(a_up, "a_up", "[L, S]")
     n = _check(args, [(L, S)] * 8 + [(S,)] * 4 + [(L + 1, S), (L, S)],
                n_passes)
     if a_up.device.type == "cpu":
         return noniso_sweep_reference(*args, n_passes=n)
-    outs = _launch("noniso_sweep", args, [(L + 1, S)] * 2 + [(L, S)] * 2,
+    outs = _run("noniso_sweep", args, [(L + 1, S)] * 2 + [(L, S)] * 2,
                    L, S, n)
     noniso_sweep.launches += 1
     return outs
@@ -174,11 +107,11 @@ def iso_sweep(a, b_nm, src_down, src_up, toa, boa_refl, boa_emis, F_dir0,
     """
     args = (a, b_nm, src_down, src_up, toa, boa_refl, boa_emis, F_dir0,
             F_up_prev)
-    L, S = _sweep_shape(a, "a")
+    L, S = _launch.matrix_shape(a, "a", "[L, S]")
     n = _check(args, [(L, S)] * 4 + [(S,)] * 4 + [(L + 1, S)], n_passes)
     if a.device.type == "cpu":
         return iso_sweep_reference(*args, n_passes=n)
-    outs = _launch("iso_sweep", args, [(L + 1, S)] * 2, L, S, n)
+    outs = _run("iso_sweep", args, [(L + 1, S)] * 2, L, S, n)
     iso_sweep.launches += 1
     return outs
 

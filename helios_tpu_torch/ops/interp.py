@@ -69,6 +69,12 @@ def interpolate_opacity(ktable, scat_cross_table, temps, press, T, p):
     return opac, scat
 
 
+def interpolate_species_opacity(ktable, temps, press, T, p):
+    """Per-species opacity interpolation (opac_species_interpol,
+    kernels.cu:3209-3259; clamps to [0, n-1] instead of [0.001, ...])."""
+    return bilinear_tp(ktable, temps, press, T, p, clamp_lo=0.0)
+
+
 def interpolate_meanmolmass(meanmass_table, temps, press, T, p):
     """Mean molecular mass interpolation (kernels.cu:649-698)."""
     return bilinear_tp(meanmass_table, temps, press, T, p)

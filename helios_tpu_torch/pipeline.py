@@ -2,17 +2,19 @@
 the run_helios equivalent, helios.py:35-137): config -> model -> radiation
 loop -> convection loop -> diagnostics -> output files.
 
-Covered: the un-monitored, un-sharded premixed path of an iterative run
-(isothermal or non-isothermal layers) and of a post-processing run, started
-from the grid's initial profile or from a TP file ("helios", "TP" or "PT"
-format), with or without the output files.  Monitoring, checkpoints,
-coupling, the Koll f-factor, meshes, clouds, real-gas thermodynamics (kappa
-from a file), stellar spectra from files, extra heating and physical
-timestepping raise ``NotImplementedError``.
+Covered: the un-monitored, un-sharded path of an iterative run
+(isothermal or non-isothermal layers) and of a post-processing run, with a
+premixed opacity table or species mixed on the fly, with the iterative or
+the matrix flux method, started from the grid's initial profile or from a
+TP file ("helios", "TP" or "PT" format), with or without the output files.
+Monitoring, checkpoints, coupling, the Koll f-factor, meshes, clouds,
+real-gas thermodynamics (kappa from a file), stellar spectra from files,
+extra heating and physical timestepping raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -20,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from helios_tpu_torch import chem
 from helios_tpu_torch import fastpath as fp
 from helios_tpu_torch import grid as grid_mod
 from helios_tpu_torch import planck as planck_mod
@@ -129,14 +132,16 @@ def _check_run_supported(cfg: HeliosConfig):
 # final-state diagnostics
 # --------------------------------------------------------------------------- #
 
-def post_process(phys: Phys, m: ModelArrays, T_lay, flux_state: FluxState):
+def post_process(phys: Phys, m: ModelArrays, T_lay, flux_state: FluxState,
+                 sset=None):
     """Final-state diagnostics (computation.py:1176-1296): band-integrated
     optical depth/transmission, contribution function, mean opacities,
-    beam flux.  Tensors stay on the model's device."""
+    beam flux.  Tensors stay on the model's device.  ``sset``: the species
+    set of on-the-fly opacity mixing."""
     Y = phys.ny
     cube = lambda x: fp.flat_to_cube(x, Y)
     T_int = interp_ops.interface_temperatures(T_lay)
-    cache = compute_cells(phys, m, T_lay, T_int)
+    cache = compute_cells(phys, m, T_lay, T_int, sset)
     totals = integrate_flux_flat(phys, m, flux_state, cache.F_dir)
     if phys.iso:
         cells = cache.cells_or_upper
@@ -243,6 +248,66 @@ def collect_result(cfg: HeliosConfig, phys: Phys, m: ModelArrays, final_T,
     return r
 
 
+def build_species_set_from_files(cfg: HeliosConfig, *, device="cuda"):
+    """On-the-fly inputs from the configured file paths (helios.py:51-55):
+    the species file, one opacity file per absorbing species, the Rayleigh
+    cross sections, the VMR file and the FastChem tables.
+
+    Returns (SpeciesSet on ``device``, donor OpacityTable carrying the
+    spectral/T/P grids from the first absorbing species file)."""
+    specs = chem.parse_species_file(cfg.species_path)
+
+    donor = None
+    opacity_tables = {}
+    for spec in specs:
+        if not spec.absorbing:
+            continue
+        for suffix in ("_opac_ip_kdistr.h5", "_opac_ip.h5",
+                       "_opac_ip_sampling.h5"):
+            path = os.path.join(cfg.species_opacity_dir,
+                                spec.name + suffix)
+            if os.path.exists(path):
+                t = load_opacity_file(path, premixed=False)
+                opacity_tables[spec.name] = t.kpoints
+                if donor is None:
+                    donor = t
+                break
+        else:
+            raise IOError(f"No opacity file found for {spec.name} in "
+                          f"{cfg.species_opacity_dir}")
+
+    scat_tables = {}
+    scat_path = os.path.join(cfg.species_opacity_dir,
+                             "scat_cross_sections.h5")
+    if os.path.exists(scat_path):
+        import h5py
+        with h5py.File(scat_path, "r") as f:
+            for spec in specs:
+                key = "rayleigh_" + spec.name
+                if spec.scattering and spec.name != "H2O" and key in f:
+                    scat_tables[spec.name] = np.asarray(f[key][:], float)
+
+    vmr_table = vmr_press = None
+    if any(s.source_for_vmr == "file" for s in specs):
+        vmr_table = np.genfromtxt(cfg.vmr_file_path, names=True, dtype=None,
+                                  skip_header=cfg.vmr_file_header_lines)
+        vmr_press = np.asarray(vmr_table[cfg.vmr_file_press_name], float)
+        if cfg.vmr_file_press_unit == "Pa":
+            vmr_press = vmr_press * 10.0
+        elif cfg.vmr_file_press_unit == "bar":
+            vmr_press = vmr_press * 1e6
+
+    g = grid_mod.build_grid(cfg.p_boa, cfg.p_toa, cfg.nlayer, cfg.g)
+    sset = chem.build_species_set(
+        specs, ktemps=donor.temperatures, kpress=donor.pressures,
+        nbin=donor.nbin, ny=donor.ny, nlayer=cfg.nlayer,
+        opacity_tables=opacity_tables, scat_tables=scat_tables,
+        vmr_file_table=vmr_table, vmr_file_press=vmr_press,
+        fastchem_dir=cfg.fastchem_dir, p_lay=g.p_lay, p_int=g.p_int,
+        dtype=cfg.np_dtype, device=device)
+    return sset, donor
+
+
 # --------------------------------------------------------------------------- #
 # the run
 # --------------------------------------------------------------------------- #
@@ -272,19 +337,23 @@ class RunOutput:
 
 
 def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
-        write_output: bool = False, device="cuda") -> RunOutput:
+        write_output: bool = False, sset=None, device="cuda") -> RunOutput:
     """One run of one atmosphere: the radiation loop (one flux solve in a
     post-processing run), then the convection loop when convection is on
     and the layers are non-isothermal, then the final-state diagnostics,
     and with ``write_output`` the output files under
-    ``cfg.output_dir/cfg.name``.  ``device`` defaults to CUDA and raises
-    without it; ``device="cpu"`` runs the plain versions of the kernels on
-    the CPU.  The times end after the device has finished."""
+    ``cfg.output_dir/cfg.name``.  With on-the-fly opacity mixing, ``sset``
+    is the species set and ``table`` donates the grids; when neither is
+    given both come from the config's files.  ``device`` defaults to CUDA
+    and raises without it; ``device="cpu"`` runs the plain versions of the
+    kernels on the CPU.  The times end after the device has finished."""
     t0 = time.perf_counter()
     dev = resolve_device(device)
     if not cfg._finalized:
         cfg = cfg.finalize()
     _check_run_supported(cfg)
+    if cfg.opacity_mixing == "on-the-fly" and sset is None and table is None:
+        sset, table = build_species_set_from_files(cfg, device=dev)
     if table is None:
         table = load_opacity_file(cfg.opacity_path)
 
@@ -299,12 +368,12 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
         return time.perf_counter()
 
     t_rad = clock()
-    rad = radiation_loop(phys, arrays, thermo, T0)
+    rad = radiation_loop(phys, arrays, thermo, T0, sset=sset)
     t_conv = clock()
     conv = None
     final = rad
     if phys.convection and not phys.singlewalk and not phys.iso:
-        conv = convection_loop(phys, arrays, thermo, rad)
+        conv = convection_loop(phys, arrays, thermo, rad, sset=sset)
         final = conv
     t_end = clock()
 
@@ -317,7 +386,7 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
     else:
         kappa_lay = c_p_lay = conv_unstable = None
 
-    post = post_process(phys, arrays, final.T_lay, final.flux)
+    post = post_process(phys, arrays, final.T_lay, final.flux, sset)
     final_limit = final.local_limit
     result = collect_result(
         cfg, phys, arrays, final.T_lay, post, conv_unstable=conv_unstable,

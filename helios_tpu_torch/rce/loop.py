@@ -93,8 +93,8 @@ def conv_temp_step(phys: Phys, m: ModelArrays, totals: int_ops.FluxTotals,
 
 
 def _one_convection_iteration(phys: Phys, m: ModelArrays,
-                              thermo: ThermoProps,
-                              s: ConvLoopState) -> ConvLoopState:
+                              thermo: ThermoProps, s: ConvLoopState,
+                              sset=None) -> ConvLoopState:
     """Body of the convection loop (computation.py:1030-1164)."""
     # --- convective adjustment (uses the previous iteration's fluxes) ---
     kappa_lay, c_p_lay = kappa_cp_lay(thermo, s.T_lay, m.p_lay)
@@ -111,7 +111,7 @@ def _one_convection_iteration(phys: Phys, m: ModelArrays,
     # --- flux calculation with the adjusted profile ---
     T_int = interp_ops.interface_temperatures(T_adj)
     if s.it % 10 == 0:
-        cache = compute_cells(phys, m, T_adj, T_int)
+        cache = compute_cells(phys, m, T_adj, T_int, sset)
     else:
         cache = s.cache
     flux = solve_fluxes(phys, m, cache, T_adj, s.flux)
@@ -159,6 +159,7 @@ def _one_convection_iteration(phys: Phys, m: ModelArrays,
 def convection_loop(phys: Phys, m: ModelArrays, thermo: ThermoProps,
                     rad: Optional[RadLoopState],
                     max_steps: Optional[int] = None,
+                    sset=None,
                     state0: Optional[ConvLoopState] = None) -> ConvLoopState:
     """Run the radiative-convective interplay to equilibrium.
 
@@ -166,7 +167,8 @@ def convection_loop(phys: Phys, m: ModelArrays, thermo: ThermoProps,
     loop runs only when convection is on, the layers are non-isothermal
     and an instability is present (or the radiation loop hit the surface
     overheat), computation.py:996-1009.  ``max_steps`` caps the counter
-    (relative to entry); ``state0`` continues a previous state instead.
+    (relative to entry); ``sset`` is the species set of on-the-fly opacity
+    mixing; ``state0`` continues a previous state instead.
     """
     if phys.physical_tstep != 0.0:
         raise NotImplementedError("physical timestepping is not ported")
@@ -198,5 +200,5 @@ def convection_loop(phys: Phys, m: ModelArrays, thermo: ThermoProps,
 
     while (state.keep_running
            and (max_steps is None or state.it - start_it < max_steps)):
-        state = _one_convection_iteration(phys, m, thermo, state)
+        state = _one_convection_iteration(phys, m, thermo, state, sset)
     return state

@@ -164,12 +164,12 @@ class RadLoopState(NamedTuple):
 
 
 def _one_radiation_iteration(phys: Phys, m: ModelArrays,
-                             s: RadLoopState) -> RadLoopState:
+                             s: RadLoopState, sset=None) -> RadLoopState:
     """Body of the radiation loop (computation.py:851-981)."""
     L = phys.nlayer
     if s.it % 10 == 0:
         T_int = interp_ops.interface_temperatures(s.T_lay)
-        cache = compute_cells(phys, m, s.T_lay, T_int)
+        cache = compute_cells(phys, m, s.T_lay, T_int, sset)
     else:
         cache = s.cache
 
@@ -219,11 +219,12 @@ def _one_radiation_iteration(phys: Phys, m: ModelArrays,
         goto_convection=goto_conv, aborted=s.aborted or hit_cap)
 
 
-def init_rad_state(phys: Phys, m: ModelArrays, T_lay0) -> RadLoopState:
+def init_rad_state(phys: Phys, m: ModelArrays, T_lay0,
+                   sset=None) -> RadLoopState:
     L = phys.nlayer
     kw = dict(dtype=T_lay0.dtype, device=T_lay0.device)
     T_int = interp_ops.interface_temperatures(T_lay0)
-    cache = compute_cells(phys, m, T_lay0, T_int)
+    cache = compute_cells(phys, m, T_lay0, T_int, sset)
     flux = init_flux_state(phys, T_lay0.dtype, T_lay0.device)
     totals = integrate_flux_flat(phys, m, flux, cache.F_dir)
     return RadLoopState(
@@ -240,12 +241,14 @@ def init_rad_state(phys: Phys, m: ModelArrays, T_lay0) -> RadLoopState:
 
 def radiation_loop(phys: Phys, m: ModelArrays, thermo: Optional[ThermoProps],
                    T_lay0, max_steps: Optional[int] = None,
+                   sset=None,
                    state0: Optional[RadLoopState] = None) -> RadLoopState:
     """Run the radiative-equilibrium iteration to convergence
     (computation.py:827-990), reading back one flag per iteration.
 
-    ``max_steps`` caps this call; ``state0`` continues from a prior state
-    instead of initializing from ``T_lay0``.  ``thermo`` is unused by the
+    ``max_steps`` caps this call; ``sset`` is the species set of on-the-fly
+    opacity mixing; ``state0`` continues from a prior state instead of
+    initializing from ``T_lay0``.  ``thermo`` is unused by the
     adaptive-timestep iteration (kept for the JAX package's signature).
     A post-processing run (``phys.singlewalk``) makes one flux solve with
     1000*scat+1 sweep passes and no temperature step
@@ -253,7 +256,8 @@ def radiation_loop(phys: Phys, m: ModelArrays, thermo: Optional[ThermoProps],
     """
     if phys.physical_tstep != 0.0:
         raise NotImplementedError("physical timestepping is not ported")
-    state = state0 if state0 is not None else init_rad_state(phys, m, T_lay0)
+    state = (state0 if state0 is not None
+             else init_rad_state(phys, m, T_lay0, sset))
     if phys.singlewalk:
         flux = solve_fluxes(phys, m, state.cache, state.T_lay, state.flux)
         totals = integrate_flux_flat(phys, m, flux, state.cache.F_dir)
@@ -261,5 +265,5 @@ def radiation_loop(phys: Phys, m: ModelArrays, thermo: Optional[ThermoProps],
     start_it = state.it
     while ((max_steps is None or state.it - start_it < max_steps)
            and bool(state.keep_running)):
-        state = _one_radiation_iteration(phys, m, state)
+        state = _one_radiation_iteration(phys, m, state, sset)
     return state

@@ -19,9 +19,12 @@ from helios_tpu_torch import pipeline as torch_pipeline
 from helios_tpu_torch.config import HeliosConfig
 from helios_tpu_torch.device import resolve_device, torch_dtype
 from helios_tpu_torch.io.opacity import synthetic_premixed_table
+from helios_tpu_torch.kernels.ro import ro_mix, ro_mix_reference
 from helios_tpu_torch.kernels.sweep import (iso_sweep, iso_sweep_reference,
                                             noniso_sweep,
                                             noniso_sweep_reference)
+from helios_tpu_torch.kernels.thomas import (thomas_solve,
+                                             thomas_solve_reference)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "helios_tpu_torch").rglob("*.py")) + [
@@ -66,9 +69,10 @@ def test_default_device_raises_without_cuda(no_cuda):
 
 def test_unported_paths_raise(tmp_path):
     table = synthetic_premixed_table(nbin=4, ny=2, ntemp=4, npress=4)
-    for kw, what in ((dict(flux_calc_method="matrix"), "flux_calc_method"),
-                     (dict(nr_cloud_decks=1), "clouds"),
-                     (dict(opacity_mixing="on-the-fly"), "opacity_mixing")):
+    for kw, what in ((dict(nr_cloud_decks=1), "clouds"),
+                     (dict(planet_type="no_atmosphere"), "no_atmosphere"),
+                     (dict(direct_beam="yes", geom_zenith_corr="yes"),
+                      "zenith")):
         cfg = HeliosConfig(nlayer=6, **kw).finalize()
         with pytest.raises(NotImplementedError, match=what):
             tf.build_model(cfg, table, device="cpu")
@@ -142,3 +146,48 @@ def test_cuda_iso_kernel_matches_plain(cuda_device):
     want = iso_sweep_reference(*ts, n_passes=4)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-12, atol=0.0)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-4)])
+def test_cuda_thomas_kernel_matches_plain(cuda_device, dtype, rtol):
+    """The CUDA Thomas solve against its plain version on the card, on a
+    diagonally dominant M-matrix system with a positive solution (so that
+    relative errors are defined) at the non-iso matrix size of 12 layers,
+    and one counted launch per call."""
+    rng = np.random.default_rng(5)
+    n, S = 50, 300
+    mk = lambda lo, hi: torch.tensor(rng.uniform(lo, hi, (n, S)),
+                                     dtype=dtype, device=cuda_device)
+    b, c, d = mk(2.0, 3.0), mk(-0.9, -0.1), mk(1.0, 1e3)
+    before = thomas_solve.launches
+    got = thomas_solve(b, c, d)
+    torch.cuda.synchronize()
+    assert thomas_solve.launches == before + 1
+    torch.testing.assert_close(got, thomas_solve_reference(b, c, d),
+                               rtol=rtol, atol=0.0)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-4)])
+def test_cuda_ro_kernel_matches_plain(cuda_device, dtype, rtol):
+    """The CUDA Random Overlap against its plain version on the card, at
+    ny = 20 and ny = 32 (the largest the kernel takes), with tied and
+    negligible cells, and one counted launch per call."""
+    from helios_tpu_torch.io.opacity import gauss_legendre_ypoints
+    for ny in (20, 32):
+        rng = np.random.default_rng(ny)
+        C = 500
+        m = np.sort(10.0 ** rng.uniform(-4, 1, (C, ny)), axis=1)
+        n = np.sort(10.0 ** rng.uniform(-3, 0.5, (C, ny)), axis=1)
+        n[::5] = m[::5]                    # exact ties
+        n[1::5] *= 1e-7                    # negligible
+        y, w = gauss_legendre_ypoints(ny)
+        ts = [torch.tensor(np.asarray(x), dtype=dtype, device=cuda_device)
+              for x in (m, n, w, y)]
+        before = ro_mix.launches
+        got = ro_mix(*ts)
+        torch.cuda.synchronize()
+        assert ro_mix.launches == before + 1
+        torch.testing.assert_close(got, ro_mix_reference(*ts), rtol=rtol,
+                                   atol=0.0)
