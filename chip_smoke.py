@@ -12,9 +12,11 @@ Phases (any failure exits non-zero before the last line is printed):
      at 4 passes, the iso sweep at 4 and 31 passes (and fp32 against fp64
      at 1001 passes), the Thomas solve at the iso and non-iso matrix sizes
      (212 and 422 rows), the Random Overlap mix of 105 x 385 cells of 20
-     Gauss points; error, CUDA-event times (the iso sweep also at the
-     post-processing run's 1001 passes), the card's copy bandwidth and
-     each kernel's bound;
+     Gauss points; error, CUDA-event times of back-to-back launches (the
+     iso sweep also at the post-processing run's 1001 passes), the card's
+     copy bandwidth and
+     each kernel's bound; and the two ring kernels (non-iso sweep, Thomas)
+     at ragged shapes, shorter than their ring and with odd S;
   4. the paths, each with every launch count set to 0 just before it and
      read just after:
      a. the flagship RCE run (105 layers x 385 bins x 20 Gauss points,
@@ -131,8 +133,11 @@ def build():
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------- #
 
-def cuda_ms(fn, reps, warmup):
-    """Median CUDA-event time of fn() in milliseconds."""
+def cuda_ms(fn, reps, warmup, per_event=1):
+    """Median CUDA-event time of one fn() in milliseconds, over `reps`
+    samples of `per_event` back-to-back calls each: with several calls
+    between the events, the host's time to launch the next call overlaps
+    the device's work on the last one and is not counted."""
     for _ in range(warmup):
         fn()
     times = []
@@ -140,10 +145,11 @@ def cuda_ms(fn, reps, warmup):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(per_event):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / per_event)
     return statistics.median(times)
 
 
@@ -153,7 +159,7 @@ def copy_bandwidth():
     n = 1 << 28
     src = torch.empty(n, dtype=torch.float64, device=DEVICE).fill_(1.0)
     dst = torch.empty_like(src)
-    ms = cuda_ms(lambda: dst.copy_(src), reps=10, warmup=2)
+    ms = cuda_ms(lambda: dst.copy_(src), reps=10, warmup=2, per_event=5)
     del src, dst
     return 2 * n * 8 / (ms * 1e-3)
 
@@ -180,9 +186,8 @@ def only(**counts):
     return {name: counts.get(name, 0) for name in kernel_counters()}
 
 
-def sweep_inputs(dtype, seed=0):
+def sweep_inputs(dtype, seed=0, L=L_FLAG, S=NBIN_FLAG * NY_FLAG):
     rng = np.random.default_rng(seed)
-    L, S = L_FLAG, NBIN_FLAG * NY_FLAG
     mk = lambda lo, hi, *s: torch.tensor(rng.uniform(lo, hi, s),
                                          dtype=dtype, device=DEVICE)
     return [mk(0.8, 1.0, L, S), mk(0.0, 0.02, L, S), mk(1e2, 1e4, L, S),
@@ -212,7 +217,8 @@ def sweep_case(dtype, rtol, bandwidth):
           "noniso_sweep: non-finite output")
     check(max_rel <= rtol, f"noniso_sweep {dtype}: max relative error "
           f"{max_rel:.3e} > {rtol:.0e}")
-    ms = cuda_ms(lambda: noniso_sweep(*args, n_passes=PASSES), 30, 3)
+    ms = cuda_ms(lambda: noniso_sweep(*args, n_passes=PASSES), 10, 3,
+                 per_event=20)
     plain_ms = cuda_ms(lambda: noniso_sweep_reference(*args,
                                                       n_passes=PASSES), 20, 1)
     size = args[0].element_size()
@@ -273,7 +279,8 @@ def iso_case(dtype, rtol, bandwidth):
             f"err {ab:.3e}")
         res["max_rel_err"] = max(res["max_rel_err"], rel)
         res["max_abs_err"] = max(res["max_abs_err"], ab)
-    res["ms"] = cuda_ms(lambda: iso_sweep(*args, n_passes=PASSES), 30, 3)
+    res["ms"] = cuda_ms(lambda: iso_sweep(*args, n_passes=PASSES), 10, 3,
+                        per_event=20)
     res["ms_1001"] = cuda_ms(
         lambda: iso_sweep(*args, n_passes=PP_PASSES), 5, 1)
     res["plain_ms"] = cuda_ms(
@@ -304,12 +311,11 @@ def iso_case(dtype, rtol, bandwidth):
     return res
 
 
-def thomas_inputs(dtype, n, seed):
+def thomas_inputs(dtype, n, seed, S=NBIN_FLAG * NY_FLAG):
     """A diagonally dominant M-matrix system (b in [2, 3], c in
     [-0.9, -0.1], sub-diagonal c_{i-1}) with d > 0: its solution is
     positive, so relative errors are well defined."""
     rng = np.random.default_rng(seed)
-    S = NBIN_FLAG * NY_FLAG
     mk = lambda lo, hi: torch.tensor(rng.uniform(lo, hi, (n, S)),
                                      device=DEVICE).to(dtype)
     return [mk(2.0, 3.0), mk(-0.9, -0.1), mk(1.0, 1e3)]
@@ -342,7 +348,8 @@ def thomas_case(dtype, rtol, bandwidth):
         check(rel <= rtol, f"thomas_solve {name} n={n}: max relative error "
               f"{rel:.3e} > {rtol:.0e}")
         r = dict(n=n, max_rel_err=rel, max_abs_err=ab,
-                 ms=cuda_ms(lambda: thomas_solve(*args), 30, 3),
+                 ms=cuda_ms(lambda: thomas_solve(*args), 10, 3,
+                            per_event=20),
                  plain_ms=cuda_ms(lambda: thomas_solve_reference(*args), 5,
                                   1))
         r["bound_ms"], r["bound_by"] = thomas_bound_ms(dtype, n, S)
@@ -358,6 +365,46 @@ def thomas_case(dtype, rtol, bandwidth):
             "call solves a batched tridiagonal system)")
         res[label] = r
     return res
+
+
+# shapes shorter than the ring kernels' 16-step ring (L = 1, n = 2) and
+# row lengths S that are odd or leave a block part-filled
+RAGGED_SWEEP = [(L, S) for L in (1, 12) for S in (1, 37, 257)]
+RAGGED_THOMAS = [(n, S) for n in (2, 50) for S in (1, 37, 257)]
+
+
+def ragged_case(dtype, rtol):
+    """The non-iso sweep (4 passes) and the Thomas solve against their
+    plain versions at RAGGED_SWEEP / RAGGED_THOMAS; returns each one's
+    largest relative error."""
+    from helios_tpu_torch.kernels.sweep import (noniso_sweep,
+                                                noniso_sweep_reference)
+    from helios_tpu_torch.kernels.thomas import (thomas_solve,
+                                                 thomas_solve_reference)
+    name = str(dtype).split(".")[-1]
+    worst = dict(noniso_sweep=0.0, thomas_solve=0.0)
+    runs = [("noniso_sweep", (L, S), sweep_inputs(dtype, 10 * L + S, L, S),
+             lambda a: noniso_sweep(*a, n_passes=PASSES),
+             lambda a: noniso_sweep_reference(*a, n_passes=PASSES))
+            for L, S in RAGGED_SWEEP]
+    runs += [("thomas_solve", (n, S), thomas_inputs(dtype, n, n + S, S),
+              lambda a: [thomas_solve(*a)],
+              lambda a: [thomas_solve_reference(*a)])
+             for n, S in RAGGED_THOMAS]
+    for kernel, shape, args, fn, plain in runs:
+        got = fn(args)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"{kernel} {name} {shape}: non-finite output")
+        rel, _ = max_errors(got, plain(args))
+        check(rel <= rtol, f"{kernel} {name} at {shape}: max relative error "
+              f"{rel:.3e} > {rtol:.0e}")
+        worst[kernel] = max(worst[kernel], rel)
+    log(f"ragged shapes, {name}: noniso_sweep at (L, S) in {RAGGED_SWEEP}, "
+        f"{PASSES} passes: max rel err {worst['noniso_sweep']:.3e}; "
+        f"thomas_solve at (n, S) in {RAGGED_THOMAS}: max rel err "
+        f"{worst['thomas_solve']:.3e} (limit {rtol:.0e})")
+    return worst
 
 
 def ro_inputs(dtype, seed=2):
@@ -405,7 +452,8 @@ def ro_case(dtype, rtol, bandwidth):
     check(rel <= rtol, f"ro_mix {name}: max relative error {rel:.3e} > "
           f"{rtol:.0e}")
     r = dict(C=C, ny=ny, negligible_cells=neg, max_rel_err=rel,
-             max_abs_err=ab, ms=cuda_ms(lambda: ro_mix(*args), 20, 3),
+             max_abs_err=ab, ms=cuda_ms(lambda: ro_mix(*args), 10, 3,
+                                        per_event=10),
              plain_ms=cuda_ms(lambda: ro_mix_reference(*args), 5, 1))
     r["bound_ms"], r["bound_by"] = ro_bound_ms(dtype, C, ny, neg)
     r["bound_ms_measured_bw"] = ro_bound_ms(dtype, C, ny, neg, bandwidth)[0]
@@ -909,6 +957,8 @@ def main():
     i32 = iso_case(torch.float32, 1e-4, bandwidth)
     t64 = thomas_case(torch.float64, 1e-12, bandwidth)
     t32 = thomas_case(torch.float32, 1e-4, bandwidth)
+    g64 = ragged_case(torch.float64, 1e-12)
+    g32 = ragged_case(torch.float32, 1e-4)
     r64 = ro_case(torch.float64, 1e-12, bandwidth)
     r32 = ro_case(torch.float32, 1e-4, bandwidth)
 
@@ -948,6 +998,8 @@ def main():
         max_rel_err=f64["max_rel_err"],
         bound_ms_measured_bw=f64["bound_ms_measured_bw"],
         also_replaces="helios_tpu/kernels/sweep_pallas.py:162",
+        ragged_max_rel_err=dict(fp64=g64["noniso_sweep"],
+                                fp32=g32["noniso_sweep"]),
         fp32=pick(f32, base))
     iso = dict(
         name="iso_sweep", route="cuda",
@@ -980,6 +1032,8 @@ def main():
         max_rel_err=max(tn["max_rel_err"], ti["max_rel_err"]),
         bound_ms_measured_bw=tn["bound_ms_measured_bw"],
         iso=pick(ti, base + ("n",)),
+        ragged_max_rel_err=dict(fp64=g64["thomas_solve"],
+                                fp32=g32["thomas_solve"]),
         fp32={k: pick(t32[k], base + ("n",)) for k in t32})
     ro = dict(
         name="ro_mix", route="cuda",

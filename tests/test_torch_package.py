@@ -105,14 +105,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
-                                        (torch.float32, 1e-4)])
-def test_cuda_kernel_matches_plain(cuda_device, dtype, rtol):
+DTYPES = [(torch.float64, 1e-12), (torch.float32, 1e-4)]
+
+
+@pytest.mark.parametrize("L,S", [(L, S) for L in (1, 12)
+                                 for S in (1, 37, 257)])
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+def test_cuda_kernel_matches_plain(cuda_device, dtype, rtol, L, S):
     """The CUDA sweep against its plain version on the card, 4 passes
     (nvcc's fma contraction rules out a bitwise match), and one counted
-    launch per call."""
+    launch per call; L = 1 is shorter than the kernel's ring, S = 1, 37 and
+    257 are odd and leave a block part-filled."""
     rng = np.random.default_rng(3)
-    L, S = 12, 300
     mk = lambda lo, hi, *s: torch.tensor(rng.uniform(lo, hi, s), dtype=dtype,
                                          device=cuda_device)
     ts = ([mk(0.8, 1.0, L, S), mk(0.0, 0.02, L, S), mk(1e2, 1e4, L, S),
@@ -148,15 +152,16 @@ def test_cuda_iso_kernel_matches_plain(cuda_device):
         torch.testing.assert_close(g, w, rtol=1e-12, atol=0.0)
 
 
-@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
-                                        (torch.float32, 1e-4)])
-def test_cuda_thomas_kernel_matches_plain(cuda_device, dtype, rtol):
+@pytest.mark.parametrize("n,S", [(n, S) for n in (2, 50)
+                                 for S in (1, 37, 257)])
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+def test_cuda_thomas_kernel_matches_plain(cuda_device, dtype, rtol, n, S):
     """The CUDA Thomas solve against its plain version on the card, on a
     diagonally dominant M-matrix system with a positive solution (so that
-    relative errors are defined) at the non-iso matrix size of 12 layers,
-    and one counted launch per call."""
+    relative errors are defined), at n = 50 (the non-iso matrix size of 12
+    layers) and n = 2 (shorter than the kernel's ring), and one counted
+    launch per call."""
     rng = np.random.default_rng(5)
-    n, S = 50, 300
     mk = lambda lo, hi: torch.tensor(rng.uniform(lo, hi, (n, S)),
                                      dtype=dtype, device=cuda_device)
     b, c, d = mk(2.0, 3.0), mk(-0.9, -0.1), mk(1.0, 1e3)
@@ -168,8 +173,7 @@ def test_cuda_thomas_kernel_matches_plain(cuda_device, dtype, rtol):
                                rtol=rtol, atol=0.0)
 
 
-@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
-                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
 def test_cuda_ro_kernel_matches_plain(cuda_device, dtype, rtol):
     """The CUDA Random Overlap against its plain version on the card, at
     ny = 20 and ny = 32 (the largest the kernel takes), with tied and
