@@ -15,8 +15,14 @@ Phases (any failure exits non-zero before the last line is printed):
      Gauss points; error, CUDA-event times of back-to-back launches (the
      iso sweep also at the post-processing run's 1001 passes), the card's
      copy bandwidth and
-     each kernel's bound; and the two ring kernels (non-iso sweep, Thomas)
-     at ragged shapes, shorter than their ring and with odd S;
+     each kernel's bound; the sweeps and the Thomas solve at ragged
+     shapes, shorter than their rings and blocks and with odd S (the iso
+     sweep at 1, 4 and 7 passes and at L = 1000, the narrowest blocks its
+     shared memory allows; both sweeps at 1001 passes at L = 12, the
+     non-iso sweep also at 7); and the chained-pass identity of both
+     sweeps at the flagship shape (one call of n passes equals n
+     single-pass calls fed each other's upward fluxes, bit for bit, at n =
+     7 and 1001);
   4. the paths, each with every launch count set to 0 just before it and
      read just after:
      a. the flagship RCE run (105 layers x 385 bins x 20 Gauss points,
@@ -239,10 +245,9 @@ def sweep_case(dtype, rtol, bandwidth):
     return res
 
 
-def iso_inputs(dtype, seed=1):
+def iso_inputs(dtype, seed=1, L=L_FLAG, S=NBIN_FLAG * NY_FLAG):
     """Random iso sweep inputs; the fp32 set is the fp64 set rounded."""
     rng = np.random.default_rng(seed)
-    L, S = L_FLAG, NBIN_FLAG * NY_FLAG
     mk = lambda lo, hi, *s: torch.tensor(rng.uniform(lo, hi, s),
                                          device=DEVICE).to(dtype)
     return [mk(0.8, 1.0, L, S), mk(0.0, 0.02, L, S), mk(1e2, 1e4, L, S),
@@ -367,26 +372,44 @@ def thomas_case(dtype, rtol, bandwidth):
     return res
 
 
-# shapes shorter than the ring kernels' 16-step ring (L = 1, n = 2) and
-# row lengths S that are odd or leave a block part-filled
+# shapes shorter than the ring kernels' rings and the iso sweep's blocks
+# (L = 1, n = 2) and row lengths S that are odd or leave a block part-filled
 RAGGED_SWEEP = [(L, S) for L in (1, 12) for S in (1, 37, 257)]
 RAGGED_THOMAS = [(n, S) for n in (2, 50) for S in (1, 37, 257)]
+# the iso sweep at a depth where only 4 fp64 columns fit a block
+ISO_DEEP = (1000, 37)
 
 
 def ragged_case(dtype, rtol):
-    """The non-iso sweep (4 passes) and the Thomas solve against their
-    plain versions at RAGGED_SWEEP / RAGGED_THOMAS; returns each one's
-    largest relative error."""
-    from helios_tpu_torch.kernels.sweep import (noniso_sweep,
+    """The sweeps and the Thomas solve against their plain versions at
+    ragged shapes: the non-iso sweep at RAGGED_SWEEP (4 passes) and at L =
+    12 with 7 and 1001 passes, the iso sweep at RAGGED_SWEEP and ISO_DEEP
+    with 1, 4 and 7 passes and at L = 12 with 1001, the Thomas solve at
+    RAGGED_THOMAS; returns each one's largest relative error."""
+    from helios_tpu_torch.kernels.sweep import (iso_sweep,
+                                                iso_sweep_reference,
+                                                noniso_sweep,
                                                 noniso_sweep_reference)
     from helios_tpu_torch.kernels.thomas import (thomas_solve,
                                                  thomas_solve_reference)
     name = str(dtype).split(".")[-1]
-    worst = dict(noniso_sweep=0.0, thomas_solve=0.0)
-    runs = [("noniso_sweep", (L, S), sweep_inputs(dtype, 10 * L + S, L, S),
-             lambda a: noniso_sweep(*a, n_passes=PASSES),
-             lambda a: noniso_sweep_reference(*a, n_passes=PASSES))
+    worst = dict(noniso_sweep=0.0, noniso_sweep_7_1001=0.0, iso_sweep=0.0,
+                 thomas_solve=0.0)
+    noniso = lambda n: (lambda a: noniso_sweep(*a, n_passes=n),
+                        lambda a: noniso_sweep_reference(*a, n_passes=n))
+    iso = lambda n: (lambda a: iso_sweep(*a, n_passes=n),
+                     lambda a: iso_sweep_reference(*a, n_passes=n))
+    runs = [("noniso_sweep", (L, S, PASSES),
+             sweep_inputs(dtype, 10 * L + S, L, S), *noniso(PASSES))
             for L, S in RAGGED_SWEEP]
+    runs += [("noniso_sweep_7_1001", (12, S, n),
+              sweep_inputs(dtype, 10 * n + S, 12, S), *noniso(n))
+             for S in (37, 257) for n in (7, PP_PASSES)]
+    runs += [("iso_sweep", (L, S, n), iso_inputs(dtype, 10 * L + S, L, S),
+              *iso(n))
+             for L, S in RAGGED_SWEEP + [ISO_DEEP] for n in (1, PASSES, 7)]
+    runs += [("iso_sweep", (12, S, PP_PASSES), iso_inputs(dtype, S, 12, S),
+              *iso(PP_PASSES)) for S in (37, 257)]
     runs += [("thomas_solve", (n, S), thomas_inputs(dtype, n, n + S, S),
               lambda a: [thomas_solve(*a)],
               lambda a: [thomas_solve_reference(*a)])
@@ -400,11 +423,43 @@ def ragged_case(dtype, rtol):
         check(rel <= rtol, f"{kernel} {name} at {shape}: max relative error "
               f"{rel:.3e} > {rtol:.0e}")
         worst[kernel] = max(worst[kernel], rel)
-    log(f"ragged shapes, {name}: noniso_sweep at (L, S) in {RAGGED_SWEEP}, "
-        f"{PASSES} passes: max rel err {worst['noniso_sweep']:.3e}; "
-        f"thomas_solve at (n, S) in {RAGGED_THOMAS}: max rel err "
-        f"{worst['thomas_solve']:.3e} (limit {rtol:.0e})")
+    log(f"ragged shapes, {name} (limit {rtol:.0e}): noniso_sweep at (L, S) "
+        f"in {RAGGED_SWEEP}, {PASSES} passes: max rel err "
+        f"{worst['noniso_sweep']:.3e}, at L = 12, S in (37, 257), 7 and "
+        f"{PP_PASSES} passes: {worst['noniso_sweep_7_1001']:.3e}; iso_sweep "
+        f"at (L, S) in {RAGGED_SWEEP + [ISO_DEEP]}, 1, {PASSES} and 7 "
+        f"passes, and at L = 12, {PP_PASSES} passes: "
+        f"{worst['iso_sweep']:.3e}; thomas_solve at (n, S) in "
+        f"{RAGGED_THOMAS}: {worst['thomas_solve']:.3e}")
     return worst
+
+
+def chained_case(dtype):
+    """The chained-pass identity of both sweeps at the flagship shape: one
+    call of n passes equals n single-pass calls, each fed the previous
+    call's F_up (and Fc_up), bit for bit, for n = 7 and PP_PASSES."""
+    from helios_tpu_torch.kernels.sweep import iso_sweep, noniso_sweep
+    name = str(dtype).split(".")[-1]
+    res = {}
+    for fn, args, n_state in ((iso_sweep, iso_inputs(dtype), 1),
+                              (noniso_sweep, sweep_inputs(dtype), 2)):
+        fixed = args[:len(args) - n_state]
+        for n in (7, PP_PASSES):
+            whole = fn(*args, n_passes=n)
+            state = args[len(args) - n_state:]
+            for _ in range(n):
+                out = fn(*fixed, *state, n_passes=1)
+                state = out[1::2]       # F_up (and Fc_up)
+            torch.cuda.synchronize()
+            same = all(torch.equal(w, o) for w, o in zip(whole, out))
+            diff = max(float((w - o).abs().max()) for w, o in zip(whole, out))
+            check(same, f"{fn.__name__} {name}: {n} passes in one call differ "
+                  f"from {n} single-pass calls by up to {diff:.3e}")
+            res.setdefault(fn.__name__, {})[n] = same
+    log(f"chained passes, {name}, flagship shape: one call of n passes "
+        f"equals n single-pass calls bit for bit, n in (7, {PP_PASSES}): "
+        f"{res}")
+    return res
 
 
 def ro_inputs(dtype, seed=2):
@@ -518,7 +573,7 @@ def main_path(launch_counts):
         cfg, table = flagship(tmpdir)
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        out = pipeline.run(cfg, table, device=DEVICE)
+        out = pipeline.run(cfg, table, write_output=False, device=DEVICE)
         launch_counts.update(read_counts())
         T_start = pipeline.initial_temperatures(cfg, out.phys, out.arrays)
 
@@ -765,7 +820,7 @@ def matrix_path(flag_out, launch_counts):
         cfg, table = flagship(tmpdir, flux_calc_method="matrix")
         torch.cuda.synchronize()
         reset_counts()
-        out = pipeline.run(cfg, table, device=DEVICE)
+        out = pipeline.run(cfg, table, write_output=False, device=DEVICE)
         launch_counts.update(read_counts())
     rad, conv, n = out.rad, out.conv, out.n_flux_solves
     T = out.T_lay.cpu().numpy()
@@ -959,6 +1014,8 @@ def main():
     t32 = thomas_case(torch.float32, 1e-4, bandwidth)
     g64 = ragged_case(torch.float64, 1e-12)
     g32 = ragged_case(torch.float32, 1e-4)
+    c64 = chained_case(torch.float64)
+    c32 = chained_case(torch.float32)
     r64 = ro_case(torch.float64, 1e-12, bandwidth)
     r32 = ro_case(torch.float32, 1e-4, bandwidth)
 
@@ -1000,6 +1057,10 @@ def main():
         also_replaces="helios_tpu/kernels/sweep_pallas.py:162",
         ragged_max_rel_err=dict(fp64=g64["noniso_sweep"],
                                 fp32=g32["noniso_sweep"]),
+        max_rel_err_7_1001_passes=dict(fp64=g64["noniso_sweep_7_1001"],
+                                       fp32=g32["noniso_sweep_7_1001"]),
+        chained_passes_bitwise=dict(fp64=c64["noniso_sweep"],
+                                    fp32=c32["noniso_sweep"]),
         fp32=pick(f32, base))
     iso = dict(
         name="iso_sweep", route="cuda",
@@ -1015,6 +1076,9 @@ def main():
         ms_1001=i64["ms_1001"], bound_ms_1001=i64["bound_ms_1001"],
         bound_by_1001=i64["bound_by_1001"],
         also_replaces="helios_tpu/kernels/sweep_pallas.py:27",
+        ragged_max_rel_err=dict(fp64=g64["iso_sweep"], fp32=g32["iso_sweep"]),
+        chained_passes_bitwise=dict(fp64=c64["iso_sweep"],
+                                    fp32=c32["iso_sweep"]),
         fp32=pick(i32, base + ("ms_1001", "bound_ms_1001", "bound_by_1001",
                                "max_rel_err_vs_fp64_1001")))
     tn, ti = t64["noniso"], t64["iso"]

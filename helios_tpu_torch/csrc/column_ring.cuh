@@ -1,4 +1,6 @@
-// Per-thread staging ring of the column kernels (noniso_sweep.cu, thomas.cu).
+// cp.async staging of the column kernels: the copy primitives (also used by
+// iso_sweep.cu) and the per-thread staging ring of noniso_sweep.cu and
+// thomas.cu.
 //
 // Both kernels give each thread one spectral column and walk its rows in a
 // serial chain.  Each step of the chain reads one value of its own column
@@ -36,10 +38,31 @@
 
 namespace helios {
 
-template <typename T, int Depth, int Fields, int Width>
-class ColumnRing {
+// Start copying the 4- or 8-byte value *src (global memory) into *dst
+// (shared memory).
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
   static_assert(sizeof(T) == 4 || sizeof(T) == 8,
                 "cp.async copies 4 or 8 bytes per value");
+  const unsigned smem = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem),
+               "l"(src), "n"(static_cast<int>(sizeof(T)))
+               : "memory");
+}
+
+// Close the group of the copies started since the last commit.
+__device__ __forceinline__ void commit_group() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `Pending` of the newest groups are still in flight.
+template <int Pending>
+__device__ __forceinline__ void wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+template <typename T, int Depth, int Fields, int Width>
+class ColumnRing {
   static_assert(Depth >= 2, "a ring of one stage loads nothing ahead");
 
  public:
@@ -56,22 +79,14 @@ class ColumnRing {
 
   // start copying *src into (stage, field)
   __device__ void load(int stage, int field, const T* src) const {
-    const unsigned dst = static_cast<unsigned>(
-        __cvta_generic_to_shared(&(*this)(stage, field)));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
-                 "l"(src), "n"(static_cast<int>(sizeof(T)))
-                 : "memory");
+    copy_async(&(*this)(stage, field), src);
   }
 
   // close the group of one stage's copies
-  __device__ static void commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  }
+  __device__ static void commit() { commit_group(); }
 
   // wait until the oldest of the Depth stages in flight has landed
-  __device__ static void wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(Depth - 1) : "memory");
-  }
+  __device__ static void wait() { wait_group<Depth - 1>(); }
 
   // the stage `ahead` (0 <= ahead < Depth) steps after `stage`
   __device__ static int advance(int stage, int ahead) {

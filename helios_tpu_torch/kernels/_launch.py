@@ -4,7 +4,8 @@ launch of a ``csrc/<name>.cu`` entry point through ctypes.
 Each source exports ``<name>_f64`` and ``<name>_f32``, which take the
 tensors' data pointers, then some ints, then the CUDA stream, launch on
 that stream without synchronising and return ``cudaGetLastError()``; and
-``helios_cuda_error_string``.
+``helios_cuda_error_string``.  A source whose launch can refuse a shape
+also exports ``helios_launch_error_detail``, which says why.
 """
 
 from __future__ import annotations
@@ -34,6 +35,9 @@ def _library(name: str, n_tensors: int, n_ints: int) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.helios_cuda_error_string.argtypes = [ctypes.c_int]
     lib.helios_cuda_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "helios_launch_error_detail"):
+        lib.helios_launch_error_detail.argtypes = []
+        lib.helios_launch_error_detail.restype = ctypes.c_char_p
     return lib
 
 
@@ -94,5 +98,9 @@ def launch(name: str, tensors: Sequence[torch.Tensor],
         rc = getattr(lib, f"{name}_{SUFFIX[tensors[0].dtype]}")(
             *(t.data_ptr() for t in tensors), *ints, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           + lib.helios_cuda_error_string(rc).decode())
+        msg = f"{name} launch failed: " + lib.helios_cuda_error_string(
+            rc).decode()
+        if hasattr(lib, "helios_launch_error_detail"):
+            detail = lib.helios_launch_error_detail().decode()
+            msg += f" ({detail})" if detail else ""
+        raise RuntimeError(msg)

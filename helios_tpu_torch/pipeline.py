@@ -25,6 +25,7 @@ import torch
 from helios_tpu_torch import chem
 from helios_tpu_torch import fastpath as fp
 from helios_tpu_torch import grid as grid_mod
+from helios_tpu_torch import host_physics as hp
 from helios_tpu_torch import planck as planck_mod
 from helios_tpu_torch.config import HeliosConfig
 from helios_tpu_torch.device import resolve_device, torch_dtype
@@ -337,14 +338,16 @@ class RunOutput:
 
 
 def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
-        write_output: bool = False, sset=None, device="cuda") -> RunOutput:
+        write_output: bool = True, sset=None, device="cuda") -> RunOutput:
     """One run of one atmosphere: the radiation loop (one flux solve in a
     post-processing run), then the convection loop when convection is on
     and the layers are non-isothermal, then the final-state diagnostics,
-    and with ``write_output`` the output files under
-    ``cfg.output_dir/cfg.name``.  With on-the-fly opacity mixing, ``sset``
-    is the species set and ``table`` donates the grids; when neither is
-    given both come from the config's files.  ``device`` defaults to CUDA
+    and with ``write_output`` (the default, as in helios_tpu) the output
+    files under ``cfg.output_dir/cfg.name`` (with ``approx_f`` also the
+    tau_lw / tau_sw / f-factor file); pass ``write_output=False`` for no
+    files.  With on-the-fly opacity mixing, ``sset`` is the species set
+    and ``table`` donates the grids; when neither is given both come from
+    the config's files.  ``device`` defaults to CUDA
     and raises without it; ``device="cpu"`` runs the plain versions of the
     kernels on the CPU.  The times end after the device has finished."""
     t0 = time.perf_counter()
@@ -400,6 +403,15 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
         writers.write_all(result)
         if final.aborted:
             writers.write_abort_file(result)
+        # tau_lw / tau_sw estimate for the Koll f approximation
+        # (helios.py:133-134)
+        if cfg.approx_f:
+            tau_lw, tau_sw = hp.calc_tau_lw_sw(
+                result.delta_tau_band, result.opac_wave,
+                result.opac_deltawave, result.T_lay[phys.nlayer],
+                phys.T_star)
+            hp.write_tau_lw_sw_file(cfg.output_dir, cfg.name, tau_lw,
+                                    tau_sw, phys.f_factor)
 
     return RunOutput(phys=phys, arrays=arrays, rad=rad, conv=conv,
                      T_lay=final.T_lay, flux=final.flux,

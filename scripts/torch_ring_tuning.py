@@ -1,24 +1,35 @@
-"""Time the ring kernels of helios_tpu_torch (``csrc/noniso_sweep.cu``,
-``csrc/thomas.cu``) at other ring depths and steady block lengths, on one
-CUDA card.
+"""Time variants of the staged kernels of helios_tpu_torch
+(``csrc/noniso_sweep.cu``, ``csrc/thomas.cu``, ``csrc/iso_sweep.cu``) on
+one CUDA card.
 
-    python3 scripts/torch_ring_tuning.py [--depths 8,12,16,24]
-        [--steady 2,4,8] [--rounds 5] [--reference-csrc DIR] [--out FILE]
+    python3 scripts/torch_ring_tuning.py
+        [--kernels noniso_sweep,thomas,iso_sweep]
+        [--depths 8,12,16,24] [--steady 2,4,8]
+        [--iso-variants 0:8:3:32,1:8:3:32,1:8:5:30] [--iso-columns 32,4224]
+        [--rounds 5] [--reference-csrc DIR] [--out FILE]
 
-A variant is the source with its ring depth ``kRingDepth`` (the steps whose
-loads are in flight; both precisions' where the source sets one for each)
-and the length ``kSteady`` of its blocks of straight-line steps replaced,
-built with the port's nvcc flags into
-``helios_tpu_torch/_build/tuning/`` and loaded with ctypes.  Every variant
-runs on the inputs of ``chip_smoke.py`` phase 3 (the non-iso sweep at 105 x
-7700 and 4 passes, the Thomas solve at 212 and 422 rows x 7700), fp64 and
-fp32, and is compared bit for bit with the source as it is (the "shipped"
-build), which is itself held against its plain PyTorch version at
-chip_smoke's limits.  Times are CUDA-event medians of back-to-back launches
-taken in turns (every build once per round), so all builds see the same
-card.
+A variant is the source with some of its ``constexpr int`` constants
+replaced (both precisions' where the source sets one for each), built with
+the port's nvcc flags into ``helios_tpu_torch/_build/tuning/`` and loaded
+with ctypes.  The ring kernels vary their ring depth ``kRingDepth`` (the
+steps whose loads are in flight) and the length ``kSteady`` of their
+blocks of straight-line steps; the iso sweep varies ``kStreamSourceUp``
+(s_up streamed through a ring, 1, or resident in shared memory, 0), its
+``kSteady``, its ring's ``kRingBlocks`` and its widest block
+``kMaxWidth``, given as stream:steady:ring_blocks:width.  Every variant
+runs on the inputs of ``chip_smoke.py`` phase 3 (the non-iso sweep at 105
+x 7700 and 4 passes, the Thomas solve at 212 and 422 rows x 7700, the iso
+sweep at 105 x 7700 and 4, 31 and 1001 passes), fp64 and fp32, and is
+compared bit for bit with the source as it is (the
+"shipped" build), which is itself held against its plain PyTorch version
+at chip_smoke's limits (the iso sweep at 4 and 31 passes).  Times are
+CUDA-event medians of back-to-back launches taken in turns (every build
+once per round), so all builds see the same card.  ``--iso-columns`` adds
+the shipped iso sweep at 1001 passes on the first S columns only: a time
+that does not fall with S is set by one column's chain, not by the SM's
+throughput.
 
-``--reference-csrc DIR`` adds the ``noniso_sweep.cu`` and ``thomas.cu`` of
+``--reference-csrc DIR`` adds the sources of the selected kernels from
 another directory (another version of the kernels, with the same C
 interface), built as they are: the script times them and reports whether
 they agree with the shipped build bit for bit, and their largest
@@ -30,6 +41,7 @@ then one JSON line.  Needs a CUDA card and nvcc.
 
 import argparse
 import ctypes
+import itertools
 import json
 import re
 import statistics
@@ -44,11 +56,14 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (phase-3 inputs, timing, nvidia-smi)
 from helios_tpu_torch.kernels import _build, _launch  # noqa: E402
-from helios_tpu_torch.kernels.sweep import noniso_sweep_reference  # noqa: E402
+from helios_tpu_torch.kernels.sweep import (  # noqa: E402
+    iso_sweep_reference, noniso_sweep_reference)
 from helios_tpu_torch.kernels.thomas import thomas_solve_reference  # noqa: E402
 
 TUNING_DIR = _build.BUILD_DIR / "tuning"
-KERNELS = ("noniso_sweep", "thomas")
+KERNELS = ("noniso_sweep", "thomas", "iso_sweep")
+# pointers and ints of each entry point
+ARITY = {"noniso_sweep": (18, 3), "thomas": (5, 2), "iso_sweep": (11, 3)}
 
 
 def variant_source(name, **constants):
@@ -58,11 +73,10 @@ def variant_source(name, **constants):
     src = (_build.CSRC / f"{name}.cu").read_text()
     for const, value in constants.items():
         src, count = re.subn(rf"constexpr int {const}(64|32)? = \d+;",
-                             rf"constexpr int {const}\1 = {value};", src)
+                             rf"constexpr int {const}\g<1> = {value};", src)
         if count == 0:
             raise RuntimeError(f"{name}.cu does not define {const}")
     return src
-
 
 
 def build(jobs):
@@ -109,38 +123,67 @@ def entry(lib_path, name, dtype, n_tensors, n_ints):
     return call
 
 
-def cases():
-    """(label, kernel, dtype, inputs, run(call) -> outputs, plain() ->
-    outputs, rtol) at chip_smoke's phase-3 shapes."""
+def _outputs(args, shapes):
+    return [torch.empty(shape, dtype=args[0].dtype, device="cuda")
+            for shape in shapes]
+
+
+def cases(kernels, iso_columns):
+    """(label, kernel, dtype, run(call) -> outputs, plain() -> outputs or
+    None, rtol, timing (reps, per_event), shipped build only) at
+    chip_smoke's phase-3 shapes."""
     out = []
     for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
         name = str(dtype).split(".")[-1]
-        args = chip_smoke.sweep_inputs(dtype)
-        L, S = args[0].shape
+        if "noniso_sweep" in kernels:
+            args = chip_smoke.sweep_inputs(dtype)
+            L, S = args[0].shape
 
-        def sweep(call, args=args, L=L, S=S):
-            outs = [torch.empty(shape, dtype=args[0].dtype, device="cuda")
-                    for shape in [(L + 1, S)] * 2 + [(L, S)] * 2]
-            call(list(args) + outs, (L, S, chip_smoke.PASSES))
-            return outs
+            def sweep(call, args=args, L=L, S=S):
+                outs = _outputs(args, [(L + 1, S)] * 2 + [(L, S)] * 2)
+                call(list(args) + outs, (L, S, chip_smoke.PASSES))
+                return outs
 
-        out.append((f"noniso_sweep {name} [{L} x {S}, {chip_smoke.PASSES} "
-                    "passes]", "noniso_sweep", dtype, sweep,
-                    lambda args=args: noniso_sweep_reference(
-                        *args, n_passes=chip_smoke.PASSES), rtol))
-        for n in sorted(chip_smoke.THOMAS_ROWS.values()):
-            b, c, d = chip_smoke.thomas_inputs(dtype, n, seed=n)
+            out.append((f"noniso_sweep {name} [{L} x {S}, "
+                        f"{chip_smoke.PASSES} passes]", "noniso_sweep", dtype,
+                        sweep, lambda args=args: noniso_sweep_reference(
+                            *args, n_passes=chip_smoke.PASSES), rtol, (5, 10),
+                        False))
+        if "thomas" in kernels:
+            for n in sorted(chip_smoke.THOMAS_ROWS.values()):
+                b, c, d = chip_smoke.thomas_inputs(dtype, n, seed=n)
 
-            def thomas(call, b=b, c=c, d=d, n=n):
-                x, dp = torch.empty_like(b), torch.empty_like(b)
-                call([b, c, d, x, dp], (n, b.shape[1]))
-                return [x]
+                def thomas(call, b=b, c=c, d=d, n=n):
+                    x, dp = torch.empty_like(b), torch.empty_like(b)
+                    call([b, c, d, x, dp], (n, b.shape[1]))
+                    return [x]
 
-            out.append((f"thomas {name} [{n} x {b.shape[1]}]", "thomas",
-                        dtype, thomas,
-                        lambda b=b, c=c, d=d: [thomas_solve_reference(b, c,
-                                                                      d)],
-                        rtol))
+                out.append((f"thomas {name} [{n} x {b.shape[1]}]", "thomas",
+                            dtype, thomas,
+                            lambda b=b, c=c, d=d: [thomas_solve_reference(
+                                b, c, d)], rtol, (5, 10), False))
+        if "iso_sweep" in kernels:
+            full = chip_smoke.iso_inputs(dtype)
+            runs = [(full, n) for n in (chip_smoke.PASSES, 31,
+                                        chip_smoke.PP_PASSES)]
+            runs += [([t[..., :S].contiguous() for t in full],
+                      chip_smoke.PP_PASSES) for S in iso_columns]
+            for k, (args, n) in enumerate(runs):
+                L, S = args[0].shape
+
+                def iso(call, args=args, L=L, S=S, n=n):
+                    outs = _outputs(args, [(L + 1, S)] * 2)
+                    call(list(args) + outs, (L, S, n))
+                    return outs
+
+                plain = None
+                if n < chip_smoke.PP_PASSES:
+                    plain = lambda args=args, n=n: iso_sweep_reference(
+                        *args, n_passes=n)
+                out.append((f"iso_sweep {name} [{L} x {S}, {n} passes]",
+                            "iso_sweep", dtype, iso, plain, rtol,
+                            (3, 2) if n == chip_smoke.PP_PASSES else (5, 10),
+                            k >= 3))
     return out
 
 
@@ -148,10 +191,33 @@ def max_abs_diff(got, want):
     return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
 
+def variants(name, opt):
+    """{label suffix: constants} of one kernel's variant grid."""
+    if name == "iso_sweep":
+        names = ("kStreamSourceUp", "kSteady", "kRingBlocks", "kMaxWidth")
+        combos = [ints(v.replace(":", ",")) for v in opt.iso_variants]
+    else:
+        names = ("kRingDepth", "kSteady")
+        combos = itertools.product(opt.depths, opt.steady)
+    out = {}
+    for values in combos:
+        consts = dict(zip(names, values))
+        out["_".join(f"{k}{v}" for k, v in consts.items())] = consts
+    return out
+
+
+def ints(text):
+    return [int(x) for x in text.split(",") if x]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--depths", default="8,12,16,24")
-    ap.add_argument("--steady", default="2,4,8")
+    ap.add_argument("--kernels", default=",".join(KERNELS))
+    ap.add_argument("--depths", type=ints, default="8,12,16,24")
+    ap.add_argument("--steady", type=ints, default="2,4,8")
+    ap.add_argument("--iso-variants", type=lambda t: t.split(","),
+                    default="0:8:3:32,1:8:3:32,1:8:5:30")
+    ap.add_argument("--iso-columns", type=ints, default="")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reference-csrc", type=Path)
     ap.add_argument("--out", type=Path)
@@ -159,18 +225,20 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("torch_ring_tuning: CUDA is not available", file=sys.stderr)
         return 1
-    depths = [int(x) for x in opt.depths.split(",")]
-    steadies = [int(x) for x in opt.steady.split(",")]
+    kernels = opt.kernels.split(",")
+    unknown = set(kernels) - set(KERNELS)
+    if unknown:
+        ap.error(f"unknown kernels {sorted(unknown)}")
 
-    jobs = {}
-    for name in KERNELS:
-        jobs[f"{name}"] = ((_build.CSRC / f"{name}.cu").read_text(),
-                           _build.CSRC, TUNING_DIR / "shipped")
-        for depth in depths:
-            for steady in steadies:
-                jobs[f"{name}_d{depth}_s{steady}"] = (
-                    variant_source(name, kRingDepth=depth, kSteady=steady),
-                    _build.CSRC, TUNING_DIR / "ring")
+    jobs, constants = {}, {}
+    for name in kernels:
+        jobs[name] = ((_build.CSRC / f"{name}.cu").read_text(), _build.CSRC,
+                      TUNING_DIR / "shipped")
+        for suffix, consts in variants(name, opt).items():
+            label = f"{name}_{suffix}"
+            jobs[label] = (variant_source(name, **consts), _build.CSRC,
+                           TUNING_DIR / "variants")
+            constants[label] = consts
         if opt.reference_csrc is not None:
             jobs[f"{name}_reference"] = (
                 (opt.reference_csrc / f"{name}.cu").read_text(),
@@ -181,36 +249,36 @@ def main(argv=None):
             print(f"ptxas {label}: {line}")
 
     results = []
-    for label, kernel, dtype, run, plain, rtol in cases():
-        n_tensors, n_ints = (18, 3) if kernel == "noniso_sweep" else (5, 2)
-        builds = {lab: entry(lib, kernel, dtype, n_tensors, n_ints)
+    for (label, kernel, dtype, run, plain, rtol, (reps, per_event),
+         shipped_only) in cases(kernels, opt.iso_columns):
+        builds = {lab: entry(lib, kernel, dtype, *ARITY[kernel])
                   for lab, (lib, _) in built.items()
-                  if lab == kernel or lab.startswith(kernel + "_")}
+                  if lab == kernel or (not shipped_only
+                                       and lab.startswith(kernel + "_"))}
         shipped = run(builds[kernel])
         torch.cuda.synchronize()
-        want = plain()
-        rel = max(float(((g - w).abs() / w.abs()).max())
-                  for g, w in zip(shipped, want))
-        chip_smoke.check(rel <= rtol, f"{label}: shipped build {rel:.3e} "
-                         f"from its plain version > {rtol:.0e}")
+        rel = None
+        if plain is not None:
+            want = plain()
+            rel = max(float(((g - w).abs() / w.abs()).max())
+                      for g, w in zip(shipped, want))
+            chip_smoke.check(rel <= rtol, f"{label}: shipped build "
+                             f"{rel:.3e} from its plain version > {rtol:.0e}")
         times = {lab: [] for lab in builds}
         for _ in range(opt.rounds):
             for lab, call in builds.items():
                 times[lab].append(chip_smoke.cuda_ms(
-                    lambda call=call: run(call), reps=5, warmup=2,
-                    per_event=10))
+                    lambda call=call: run(call), reps=reps, warmup=2,
+                    per_event=per_event))
         for lab, call in builds.items():
             got = run(call)
             torch.cuda.synchronize()
             bitwise = all(torch.equal(g, s) for g, s in zip(got, shipped))
-            m = re.search(r"_d(\d+)_s(\d+)$", lab)
-            r = dict(case=label, build=lab,
-                     depth=int(m.group(1)) if m else None,
-                     steady=int(m.group(2)) if m else None,
+            r = dict(case=label, build=lab, constants=constants.get(lab),
                      ms=statistics.median(times[lab]),
                      ms_rounds=times[lab], bitwise_vs_shipped=bitwise,
                      max_abs_diff_vs_shipped=max_abs_diff(got, shipped))
-            if lab == kernel:
+            if lab == kernel and rel is not None:
                 r["max_rel_err_vs_plain"] = rel
             results.append(r)
             print(f"{label} {lab}: {r['ms']:.4f} ms (rounds "

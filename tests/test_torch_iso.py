@@ -377,7 +377,8 @@ def test_small_iso_run_matches_jax_pipeline(tmp_path, monkeypatch):
                temp_format="helios", temp_path=str(tp))
     table = H.small_table()
 
-    got = torch_pipeline.run(TorchConfig(**cfg), table, device="cpu")
+    got = torch_pipeline.run(TorchConfig(**cfg), table, write_output=False,
+                             device="cpu")
     assert got.conv is None
     assert not bool(got.rad.keep_running) and not got.rad.aborted
     assert got.n_flux_solves == got.rad.it > 100

@@ -349,7 +349,8 @@ def test_small_matrix_run_matches_jax_pipeline(tmp_path, monkeypatch):
                temp_format="helios", temp_path=str(tp))
     table = H.small_table(16)
 
-    got = torch_pipeline.run(TorchConfig(**cfg), table, device="cpu")
+    got = torch_pipeline.run(TorchConfig(**cfg), table, write_output=False,
+                             device="cpu")
     assert got.phys.flux_calc_method == "matrix"
     assert got.conv is not None and got.conv.steps > 0
     assert not got.conv.keep_running and not got.conv.aborted

@@ -368,7 +368,7 @@ def test_baseline_config3_matches_jax_pipeline(monkeypatch, k_mixing):
                k_mixing_method=k_mixing, **BASE)
 
     got = torch_pipeline.run(TorchConfig(**cfg), donor, sset=tset,
-                             device="cpu")
+                             write_output=False, device="cpu")
     assert got.phys.opacity_mixing == "on-the-fly" and got.conv is None
     assert bool(got.rad.abort.all()) and not got.rad.aborted
     mmm = got.result.meanmolmass_lay
@@ -439,6 +439,6 @@ def test_species_set_from_files_matches_jax(tmp_path):
     assert tset.data[-2].scat_cross.abs().max() > 0     # H2 from the file
 
     # run() builds the same set from the config's files when none is given
-    got = torch_pipeline.run(TorchConfig(**kw),
+    got = torch_pipeline.run(TorchConfig(**kw), write_output=False,
                              device="cpu")
     assert got.phys.nbin == 8 and bool(torch.isfinite(got.T_lay).all())

@@ -84,7 +84,7 @@ def test_unported_paths_raise(tmp_path):
     cfg = HeliosConfig(nlayer=6, force_start_tp_from_file="yes",
                        temp_format="csv", temp_path=str(tp)).finalize()
     with pytest.raises(ValueError, match="unknown TP format"):
-        torch_pipeline.run(cfg, table, device="cpu")
+        torch_pipeline.run(cfg, table, write_output=False, device="cpu")
 
 
 def test_dtype_policy():
@@ -106,50 +106,100 @@ def cuda_device():
 
 
 DTYPES = [(torch.float64, 1e-12), (torch.float32, 1e-4)]
+# shapes shorter than the kernels' blocks and rings (L = 1) and row lengths
+# S that are odd or leave a block part-filled
+RAGGED = [(L, S) for L in (1, 12) for S in (1, 37, 257)]
 
 
-@pytest.mark.parametrize("L,S", [(L, S) for L in (1, 12)
-                                 for S in (1, 37, 257)])
-@pytest.mark.parametrize("dtype,rtol", DTYPES)
-def test_cuda_kernel_matches_plain(cuda_device, dtype, rtol, L, S):
-    """The CUDA sweep against its plain version on the card, 4 passes
-    (nvcc's fma contraction rules out a bitwise match), and one counted
-    launch per call; L = 1 is shorter than the kernel's ring, S = 1, 37 and
-    257 are odd and leave a block part-filled."""
-    rng = np.random.default_rng(3)
+def _sweep_inputs(rng, dtype, device, L, S, iso):
+    """Random sweep inputs: for the iso sweep a, b_nm, s_down, s_up [L, S],
+    four [S] boundary rows and F_up_prev [L+1, S]; for the non-iso sweep
+    the eight [L, S] coefficients and sources, the boundary rows,
+    F_up_prev and Fc_up_prev [L, S]."""
     mk = lambda lo, hi, *s: torch.tensor(rng.uniform(lo, hi, s), dtype=dtype,
-                                         device=cuda_device)
-    ts = ([mk(0.8, 1.0, L, S), mk(0.0, 0.02, L, S), mk(1e2, 1e4, L, S),
-           mk(1e2, 1e4, L, S)] * 2
-          + [mk(0.0, 1e3, S), mk(0.0, 0.4, S), mk(1e2, 1e4, S),
-             mk(0.0, 1e3, S), mk(0.0, 1e3, L + 1, S), mk(0.0, 1e3, L, S)])
+                                         device=device)
+    coeffs = lambda: [mk(0.8, 1.0, L, S), mk(0.0, 0.02, L, S),
+                      mk(1e2, 1e4, L, S), mk(1e2, 1e4, L, S)]
+    ts = coeffs() if iso else coeffs() + coeffs()
+    ts += [mk(0.0, 1e3, S), mk(0.0, 0.4, S), mk(1e2, 1e4, S), mk(0.0, 1e3, S),
+           mk(0.0, 1e3, L + 1, S)]
+    return ts if iso else ts + [mk(0.0, 1e3, L, S)]
+
+
+@pytest.mark.parametrize("L,S,n_passes",
+                         [(L, S, 4) for L, S in RAGGED]
+                         + [(12, S, n) for S in (37, 257) for n in (7, 1001)])
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+def test_cuda_kernel_matches_plain(cuda_device, dtype, rtol, L, S, n_passes):
+    """The CUDA sweep against its plain version on the card (nvcc's fma
+    contraction rules out a bitwise match), and one counted launch per
+    call; L = 1 is shorter than the kernel's ring, S = 1, 37 and 257 are
+    odd and leave a block part-filled; 7 and 1001 passes carry the ring's
+    state across passes, as the post-processing run with non-isothermal
+    layers does."""
+    ts = _sweep_inputs(np.random.default_rng(3), dtype, cuda_device, L, S,
+                       iso=False)
     before = noniso_sweep.launches
-    got = noniso_sweep(*ts, n_passes=4)
+    got = noniso_sweep(*ts, n_passes=n_passes)
     torch.cuda.synchronize()
     assert noniso_sweep.launches == before + 1
-    want = noniso_sweep_reference(*ts, n_passes=4)
+    want = noniso_sweep_reference(*ts, n_passes=n_passes)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=rtol, atol=0.0)
 
 
-def test_cuda_iso_kernel_matches_plain(cuda_device):
-    """The CUDA iso sweep against its plain version on the card, fp64 at
-    rtol 1e-12, 4 passes, and one counted launch per call."""
-    rng = np.random.default_rng(4)
-    L, S = 12, 300
-    mk = lambda lo, hi, *s: torch.tensor(rng.uniform(lo, hi, s),
-                                         dtype=torch.float64,
-                                         device=cuda_device)
-    ts = [mk(0.8, 1.0, L, S), mk(0.0, 0.02, L, S), mk(1e2, 1e4, L, S),
-          mk(1e2, 1e4, L, S), mk(0.0, 1e3, S), mk(0.0, 0.4, S),
-          mk(1e2, 1e4, S), mk(0.0, 1e3, S), mk(0.0, 1e3, L + 1, S)]
+@pytest.mark.parametrize("L,S,n_passes",
+                         [(L, S, n) for L, S in RAGGED + [(12, 300), (1000, 37)]
+                          for n in (1, 4, 7)]
+                         + [(12, S, 1001) for S in (37, 257)])
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+def test_cuda_iso_kernel_matches_plain(cuda_device, dtype, rtol, L, S,
+                                       n_passes):
+    """The CUDA iso sweep against its plain version on the card, and one
+    counted launch per call: L = 1 is shorter than a straight-line block,
+    L = 1000 runs the narrowest blocks the shared memory allows, odd S
+    leaves a block part-filled, and 1001 passes are the post-processing
+    run's."""
+    ts = _sweep_inputs(np.random.default_rng(4), dtype, cuda_device, L, S,
+                       iso=True)
     before = iso_sweep.launches
-    got = iso_sweep(*ts, n_passes=4)
+    got = iso_sweep(*ts, n_passes=n_passes)
     torch.cuda.synchronize()
     assert iso_sweep.launches == before + 1
-    want = iso_sweep_reference(*ts, n_passes=4)
+    want = iso_sweep_reference(*ts, n_passes=n_passes)
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=1e-12, atol=0.0)
+        torch.testing.assert_close(g, w, rtol=rtol, atol=0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_iso_kernel_refuses_a_column_too_deep(cuda_device, dtype):
+    """A column whose state does not fit one block's shared memory is
+    refused with the limit in the message, not run."""
+    ts = _sweep_inputs(np.random.default_rng(6), dtype, cuda_device, 20000,
+                       1, iso=True)
+    with pytest.raises(RuntimeError, match=r"iso_sweep launch failed: .*"
+                       r"takes L up to \d+"):
+        iso_sweep(*ts, n_passes=1)
+
+
+@pytest.mark.parametrize("n_passes", [7, 1001])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_sweeps_chain_passes_bitwise(cuda_device, dtype, n_passes):
+    """One call of n passes equals n single-pass calls, each fed the last
+    call's F_up (and Fc_up), bit for bit, for both sweeps: what a call
+    carries from one pass to the next is exactly its outputs."""
+    L, S = 12, 257
+    for iso, fn in ((True, iso_sweep), (False, noniso_sweep)):
+        ts = _sweep_inputs(np.random.default_rng(7), dtype, cuda_device, L,
+                           S, iso)
+        whole = fn(*ts, n_passes=n_passes)
+        state = ts[-1:] if iso else ts[-2:]
+        for _ in range(n_passes):
+            out = fn(*ts[:len(ts) - len(state)], *state, n_passes=1)
+            state = [out[1]] if iso else [out[1], out[3]]
+        torch.cuda.synchronize()
+        for w, o in zip(whole, out):
+            assert torch.equal(w, o), fn.__name__
 
 
 @pytest.mark.parametrize("n,S", [(n, S) for n in (2, 50)

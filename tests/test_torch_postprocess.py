@@ -13,6 +13,7 @@ are residues of a cancellation; every non-numeric token must be equal.
 """
 
 import dataclasses
+import inspect
 import os
 
 import numpy as np
@@ -325,3 +326,36 @@ def test_small_rce_run_writes_the_files_of_jax(tmp_path, monkeypatch):
                         scale_atol=1e-12, net_atol=1e-10)
     assert_same_files(tmp_path / "torch" / "rce", tmp_path / "jax" / "rce")
     assert "rce_tp.dat" in os.listdir(tmp_path / "torch" / "rce")
+
+
+def test_run_writes_output_by_default_as_jax():
+    """Both packages' run() default to write_output=True."""
+    def default(fn):
+        return inspect.signature(fn).parameters["write_output"].default
+    assert default(torch_pipeline.run) is default(jax_pipeline.run) is True
+
+
+def test_approx_f_gas_planet_writes_the_tau_file_of_jax(tmp_path,
+                                                        monkeypatch):
+    """approx_f on a gas planet with write_output=True (the post-processing
+    run of test_postprocessing_run_matches_jax): the port writes the file
+    set of the native-fp64-Planck JAX run, the tau_lw / tau_sw / f-factor
+    file included, and every file's numbers agree within their printed
+    digits."""
+    _pt_file(tmp_path / "profile.dat", "PT")
+    kw = dict(HOT, name="kf", run_type="post-processing", temp_format="PT",
+              temp_path=str(tmp_path / "profile.dat"), convection="no",
+              approx_f="yes")
+    table = H.small_table()
+    table.kpoints *= 1e-8   # thin enough that tau = -log(mean transmission)
+    torch_pipeline.run(
+        TorchConfig(**kw, output_dir=str(tmp_path / "torch") + "/"),
+        table, write_output=True, device="cpu")
+    _native_build(monkeypatch)
+    jax_pipeline.run(JaxConfig(**kw, output_dir=str(tmp_path / "jax") + "/"),
+                     table=table, write_output=True)
+    tau_file = "kf_tau_lw_tau_sw_f_factor.dat"
+    assert tau_file in os.listdir(tmp_path / "torch" / "kf")
+    rows = _rows(os.path.join(tmp_path, "torch", "kf", tau_file))
+    assert all(np.isfinite(_number(t)) for t in rows[-1])
+    assert_same_files(tmp_path / "torch" / "kf", tmp_path / "jax" / "kf")

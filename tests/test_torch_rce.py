@@ -226,7 +226,8 @@ def test_small_run_matches_jax_pipeline(tmp_path, monkeypatch):
                temp_format="helios", temp_path=str(tp))
     table = H.small_table()
 
-    got = torch_pipeline.run(TorchConfig(**cfg), table, device="cpu")
+    got = torch_pipeline.run(TorchConfig(**cfg), table, write_output=False,
+                             device="cpu")
     assert got.conv is not None and got.conv.steps > 0
     assert not got.conv.keep_running and not got.conv.aborted
     assert not bool(got.rad.keep_running) and not got.rad.aborted
