@@ -22,7 +22,11 @@ Phases (any failure exits non-zero before the last line is printed):
      non-iso sweep also at 7); and the chained-pass identity of both
      sweeps at the flagship shape (one call of n passes equals n
      single-pass calls fed each other's upward fluxes, bit for bit, at n =
-     7 and 1001);
+     7 and 1001); the Random Overlap mix bit for bit with its plain
+     version, at the flagship shape and at ragged ny (2 to 126) on cells
+     of ties, gray cells, unsorted and infinite entries and negligible
+     overlap, with the cells its kernel sends through its general branch
+     counted;
   4. the paths, each with every launch count set to 0 just before it and
      read just after:
      a. the flagship RCE run (105 layers x 385 bins x 20 Gauss points,
@@ -48,7 +52,9 @@ Phases (any failure exits non-zero before the last line is printed):
         Rayleigh, He; isothermal), 200 radiation iterations and their time
         breakdown; one non-isothermal forward_fluxes of the same species on
         the card against the CPU; the post-processing run of the final
-        profile with the output files;
+        profile with the output files; and the cells of its ro_mix calls
+        that take the kernel's general branch (forward solves at the
+        start and final profiles);
   5. a JSON line of the kernels, the nvidia-smi line, and the result line.
 
 Needs one CUDA card; exits non-zero without one.  Imports neither JAX nor
@@ -493,33 +499,124 @@ def ro_bound_ms(dtype, C, ny, n_negligible, bandwidth=HBM_BYTES_PER_S):
             "bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def ro_case(dtype, rtol, bandwidth):
-    from helios_tpu_torch.kernels.ro import ro_mix, ro_mix_reference
+def row_mismatches(got, want):
+    """(rows of ``got`` not bit for bit equal to ``want``'s, NaN equal to
+    NaN; the largest absolute difference where both are finite)."""
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    both = torch.isfinite(got) & torch.isfinite(want)
+    diff = float((got - want)[both].abs().max()) if bool(both.any()) else 0.0
+    return int((~same.all(dim=1)).sum()), diff
+
+
+def ro_case(dtype, bandwidth):
+    from helios_tpu_torch.kernels.ro import (ro_general_cells, ro_mix,
+                                             ro_mix_occupancy,
+                                             ro_mix_reference)
     from helios_tpu_torch.ops.mixing import negligible_overlap
     name = str(dtype).split(".")[-1]
     args = ro_inputs(dtype)
     C, ny = args[0].shape
     neg = int(negligible_overlap(args[0], args[1]).sum())
+    general = int(ro_general_cells(*args).sum())
     got = ro_mix(*args)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), f"ro_mix {name}: non-finite")
-    rel, ab = max_errors([got], [ro_mix_reference(*args)])
-    check(rel <= rtol, f"ro_mix {name}: max relative error {rel:.3e} > "
-          f"{rtol:.0e}")
-    r = dict(C=C, ny=ny, negligible_cells=neg, max_rel_err=rel,
-             max_abs_err=ab, ms=cuda_ms(lambda: ro_mix(*args), 10, 3,
-                                        per_event=10),
+    want = ro_mix_reference(*args)
+    bad, ab = row_mismatches(got, want)
+    rel, _ = max_errors([got], [want])
+    check(bad == 0, f"ro_mix {name}: {bad} cells differ from the plain "
+          f"version (max abs {ab:.3e}); it must match bit for bit")
+    r = dict(C=C, ny=ny, negligible_cells=neg, general_cells=general,
+             max_rel_err=rel, max_abs_err=ab,
+             ms=cuda_ms(lambda: ro_mix(*args), 10, 3, per_event=10),
              plain_ms=cuda_ms(lambda: ro_mix_reference(*args), 5, 1))
     r["bound_ms"], r["bound_by"] = ro_bound_ms(dtype, C, ny, neg)
     r["bound_ms_measured_bw"] = ro_bound_ms(dtype, C, ny, neg, bandwidth)[0]
-    log(f"ro_mix {name} [{C} cells x {ny}, {neg} negligible]: max rel err "
-        f"{rel:.3e} (limit {rtol:.0e}), max abs err {ab:.3e}; kernel "
+    occ = ro_mix_occupancy(dtype, ny)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    r.update(occ, waves=-(-C // occ["threads"]) / (occ["blocks_per_sm"] * sms))
+    log(f"ro_mix {name} [{C} cells x {ny}, {neg} negligible, {general} in "
+        f"the general branch]: blocks of {occ['threads']} cells, "
+        f"{occ['smem_bytes']} B of shared memory, {occ['blocks_per_sm']} "
+        f"blocks per SM, {r['waves']:.2f} waves on {sms} SMs; bit for bit "
+        f"with the plain version (max rel "
+        f"err {rel:.3e}, max abs err {ab:.3e}); kernel "
         f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms; bound "
         f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
         f"{r['bound_ms_measured_bw']:.4f} ms at the measured "
         f"{bandwidth / 1e12:.3f} TB/s; library: none (torch.sort alone does "
         "not compute the function)")
     return r
+
+
+# ny of the ragged Random Overlap checks: small and odd counts, powers of
+# two and one past them, and the largest the kernel takes
+RO_RAGGED_NY = (2, 3, 4, 5, 16, 17, 20, 32, 33, 64, 126)
+
+
+def ro_ragged_inputs(dtype, ny, C, seed):
+    """[C, ny] cells of every kind the kernel's branches meet: ascending
+    random cells, exact ties (new == mixed), gray cells (all sums tie),
+    ties across rows among unequal weights, unsorted new (the general
+    branch), unsorted mixed (still the stream), an infinite entry (the
+    general branch), negligible overlap and a +0 sum tied with a later -0
+    sum; C is not a multiple of the kernel's block."""
+    from helios_tpu_torch.io.opacity import gauss_legendre_ypoints
+    rng = np.random.default_rng(seed)
+    m = np.sort(10.0 ** rng.uniform(-4, 1, (C, ny)), axis=1)
+    n = np.sort(10.0 ** rng.uniform(-3, 0.5, (C, ny)), axis=1)
+    n[0::9] = m[0::9]
+    m[1::9], n[1::9] = 0.3, 0.05
+    m[2::9] = 0.5 * np.arange(ny) + 1.0
+    n[2::9] = 1.0 * np.arange(ny) + 2.0
+    n[3::9] = rng.permuted(n[3::9], axis=1)
+    m[4::9] = rng.permuted(m[4::9], axis=1)
+    n[5::9, -1] = np.inf
+    n[6::9] *= 1e-7
+    m[7::9, :2] = [0.0, -0.0]              # +0 and -0 sums tie
+    n[7::9, 0] = -0.0
+    y, w = gauss_legendre_ypoints(ny)
+    return [torch.tensor(np.asarray(x), device=DEVICE).to(dtype)
+            for x in (m, n, w, y)]
+
+
+def ro_ragged_case(dtype):
+    """ro_mix bit for bit against its plain version at every ny of
+    RO_RAGGED_NY on ro_ragged_inputs (C = 1000 + ny), and at ny = 20 also
+    with the last Gauss node past the last yg, with a weight too small for
+    the stream (every live cell general), an all-negligible batch and a
+    single cell."""
+    from helios_tpu_torch.kernels.ro import (ro_general_cells, ro_mix,
+                                             ro_mix_reference)
+    from helios_tpu_torch.ops.mixing import negligible_overlap
+    name = str(dtype).split(".")[-1]
+    runs = [(f"ny={ny}", ro_ragged_inputs(dtype, ny, 1000 + ny, ny))
+            for ny in RO_RAGGED_NY]
+    m, n, w, y = ro_ragged_inputs(dtype, 20, 1020, 20)
+    past_end, tiny = y.clone(), w.clone()
+    past_end[-1] = 1 - 1e-7
+    tiny[0] = 1e-30
+    quiet_m = torch.where(m == 0, torch.ones_like(m), m)
+    quiet_n = torch.where(torch.isfinite(n), n, torch.ones_like(n)) * 1e-9
+    runs += [("ny=20, node past the last yg", [m, n, w, past_end]),
+             ("ny=20, tiny weight", [m, n, tiny, y]),
+             ("ny=20, all negligible", [quiet_m, quiet_n, w, y]),
+             ("ny=20, one cell", [m[:1], n[:1], w, y])]
+    general = 0
+    for label, args in runs:
+        got = ro_mix(*args)
+        torch.cuda.synchronize()
+        bad, ab = row_mismatches(got, ro_mix_reference(*args))
+        check(bad == 0, f"ro_mix {name} {label}: {bad} cells differ from "
+              f"the plain version (max abs {ab:.3e})")
+        general += int(ro_general_cells(*args).sum())
+    neg = negligible_overlap(quiet_m, quiet_n)
+    check(bool(neg.all()), "ro_mix all-negligible batch is not")
+    log(f"ro_mix {name} ragged: bit for bit with the plain version in "
+        f"{len(runs)} batches (ny in {RO_RAGGED_NY}, C = 1000 + ny; at ny = "
+        f"20 a node past the last yg, a tiny weight, all negligible, one "
+        f"cell); {general} cells in the general branch")
+    return dict(batches=len(runs), bitwise=True, general_cells=general)
 
 
 # --------------------------------------------------------------------------- #
@@ -921,6 +1018,36 @@ def otf_inputs(device):
     return donor, sset
 
 
+def otf_general_cells(runs, sset):
+    """(cells of the ro_mix launches that the kernel sends through its
+    general branch, cells mixed, launches) over one forward_fluxes of each
+    (phys, arrays, T) in ``runs``: every ro_mix launch is seen on its way to
+    the card (ro_general_cells launches nothing)."""
+    from helios_tpu_torch.forward import forward_fluxes
+    from helios_tpu_torch.kernels import _launch
+    from helios_tpu_torch.kernels.ro import ro_general_cells
+
+    seen = [0, 0, 0]
+    real = _launch.launch
+
+    def seeing(name, tensors, ints):
+        if name == "ro_mix":
+            general = ro_general_cells(*tensors[:4])
+            seen[0] += int(general.sum())
+            seen[1] += general.numel()
+            seen[2] += 1
+        return real(name, tensors, ints)
+
+    _launch.launch = seeing
+    try:
+        for phys, arrays, T in runs:
+            forward_fluxes(phys, arrays, T, sset=sset)
+        torch.cuda.synchronize()
+    finally:
+        _launch.launch = real
+    return tuple(seen)
+
+
 def otf_path(launch_counts, pp_counts):
     """On-the-fly Random Overlap mixing: ISO_RCE_ITERATIONS radiation
     iterations of the JAX package's on-the-fly workload (one ro_mix per
@@ -993,6 +1120,15 @@ def otf_path(launch_counts, pp_counts):
         f"with {len(files)} output files; launches {pp_counts}; peak device "
         f"memory {peak_mib:.0f} MiB")
     res.update(fwd_rel=fwd_rel, pp_wall_s=out.wall_seconds)
+
+    general, cells, calls = otf_general_cells(
+        [(phys, arrays, T0), (phys, arrays, rad.T_lay),
+         (phys_n, arrays_n, rad.T_lay)], sset)
+    log(f"on-the-fly workload, forward solves at the start and the final "
+        f"profile (iso) and the final profile (non-iso): {general} of "
+        f"{cells} cells in {calls} ro_mix calls take the kernel's general "
+        "branch")
+    res.update(general_cells=general, general_cells_of=cells)
     return res
 
 
@@ -1016,8 +1152,10 @@ def main():
     g32 = ragged_case(torch.float32, 1e-4)
     c64 = chained_case(torch.float64)
     c32 = chained_case(torch.float32)
-    r64 = ro_case(torch.float64, 1e-12, bandwidth)
-    r32 = ro_case(torch.float32, 1e-4, bandwidth)
+    r64 = ro_case(torch.float64, bandwidth)
+    r32 = ro_case(torch.float32, bandwidth)
+    q64 = ro_ragged_case(torch.float64)
+    q32 = ro_ragged_case(torch.float32)
 
     counts = {p: {} for p in ("flagship_rce", "post_processing", "iso_rce",
                               "matrix_rce", "matrix_post_processing",
@@ -1035,7 +1173,8 @@ def main():
                    T_start, ("thomas", "noniso_sweep"))
     matrix_postprocessing_path(out, counts["matrix_post_processing"],
                                pp["toa"])
-    otf_path(counts["on_the_fly_rce"], counts["on_the_fly_post_processing"])
+    otf = otf_path(counts["on_the_fly_rce"],
+                   counts["on_the_fly_post_processing"])
     for path, c in counts.items():
         log(f"launches on the {path} path: {c}")
 
@@ -1112,6 +1251,11 @@ def main():
         negligible_cells=r64["negligible_cells"],
         max_rel_err=r64["max_rel_err"],
         bound_ms_measured_bw=r64["bound_ms_measured_bw"],
+        bitwise_vs_plain=True,
+        ragged=dict(ny=RO_RAGGED_NY, fp64=q64, fp32=q32),
+        general_cells=dict(flagship_inputs=r64["general_cells"],
+                           on_the_fly=otf["general_cells"],
+                           on_the_fly_of=otf["general_cells_of"]),
         fp32=pick(r32, base))
     log(f"matrix flagship converged: {mat['converged']}; chip_smoke took "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -1,11 +1,13 @@
 """Time variants of the staged kernels of helios_tpu_torch
-(``csrc/noniso_sweep.cu``, ``csrc/thomas.cu``, ``csrc/iso_sweep.cu``) on
+(``csrc/noniso_sweep.cu``, ``csrc/thomas.cu``, ``csrc/iso_sweep.cu``), and
+another version of them or of ``csrc/ro_mix.cu`` beside the shipped one, on
 one CUDA card.
 
     python3 scripts/torch_ring_tuning.py
-        [--kernels noniso_sweep,thomas,iso_sweep]
+        [--kernels noniso_sweep,thomas,iso_sweep,ro_mix]
         [--depths 8,12,16,24] [--steady 2,4,8]
         [--iso-variants 0:8:3:32,1:8:3:32,1:8:5:30] [--iso-columns 32,4224]
+        [--ro-warps 1,4] [--ro-cells 8448,16896]
         [--rounds 5] [--reference-csrc DIR] [--out FILE]
 
 A variant is the source with some of its ``constexpr int`` constants
@@ -27,7 +29,13 @@ CUDA-event medians of back-to-back launches taken in turns (every build
 once per round), so all builds see the same card.  ``--iso-columns`` adds
 the shipped iso sweep at 1001 passes on the first S columns only: a time
 that does not fall with S is set by one column's chain, not by the SM's
-throughput.
+throughput.  ``ro_mix`` varies its block width ``kBlockWarps`` (warps of
+32 cells per block); it runs on chip_smoke's flagship cells (40425 x 20)
+and on its ragged cells at ny = 32 (ties, gray, unsorted and infinite
+entries), and is held bit for bit against its plain version.
+``--ro-cells`` adds ``ro_mix`` on the first C flagship cells only: a time
+that does not grow with C while the blocks fit on the SMs at once is set
+by one cell's chain.
 
 ``--reference-csrc DIR`` adds the sources of the selected kernels from
 another directory (another version of the kernels, with the same C
@@ -56,14 +64,16 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (phase-3 inputs, timing, nvidia-smi)
 from helios_tpu_torch.kernels import _build, _launch  # noqa: E402
+from helios_tpu_torch.kernels.ro import ro_mix_reference  # noqa: E402
 from helios_tpu_torch.kernels.sweep import (  # noqa: E402
     iso_sweep_reference, noniso_sweep_reference)
 from helios_tpu_torch.kernels.thomas import thomas_solve_reference  # noqa: E402
 
 TUNING_DIR = _build.BUILD_DIR / "tuning"
-KERNELS = ("noniso_sweep", "thomas", "iso_sweep")
+KERNELS = ("noniso_sweep", "thomas", "iso_sweep", "ro_mix")
 # pointers and ints of each entry point
-ARITY = {"noniso_sweep": (18, 3), "thomas": (5, 2), "iso_sweep": (11, 3)}
+ARITY = {"noniso_sweep": (18, 3), "thomas": (5, 2), "iso_sweep": (11, 3),
+         "ro_mix": (5, 2)}
 
 
 def variant_source(name, **constants):
@@ -128,7 +138,7 @@ def _outputs(args, shapes):
             for shape in shapes]
 
 
-def cases(kernels, iso_columns):
+def cases(kernels, iso_columns, ro_cells=()):
     """(label, kernel, dtype, run(call) -> outputs, plain() -> outputs or
     None, rtol, timing (reps, per_event), shipped build only) at
     chip_smoke's phase-3 shapes."""
@@ -184,16 +194,41 @@ def cases(kernels, iso_columns):
                             "iso_sweep", dtype, iso, plain, rtol,
                             (3, 2) if n == chip_smoke.PP_PASSES else (5, 10),
                             k >= 3))
+        if "ro_mix" in kernels:
+            full = chip_smoke.ro_inputs(dtype)
+            runs = [("flagship", full),
+                    ("ragged ny=32",
+                     chip_smoke.ro_ragged_inputs(dtype, 32, 1032, 32))]
+            runs += [(f"first {C} cells", [full[0][:C].contiguous(),
+                                          full[1][:C].contiguous()]
+                      + full[2:]) for C in ro_cells]
+            for label, args in runs:
+                C, ny = args[0].shape
+
+                def ro(call, args=args, C=C, ny=ny):
+                    out = torch.empty_like(args[0])
+                    call(list(args) + [out], (C, ny))
+                    return [out]
+
+                # bit for bit with the plain version: rtol 0
+                out.append((f"ro_mix {name} {label} [{C} x {ny}]", "ro_mix",
+                            dtype, ro,
+                            lambda args=args: [ro_mix_reference(*args)], 0.0,
+                            (5, 10), False))
     return out
 
 
 def max_abs_diff(got, want):
-    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+    """The largest difference where both values are finite."""
+    return max(chip_smoke.row_mismatches(g, w)[1] for g, w in zip(got, want))
 
 
 def variants(name, opt):
     """{label suffix: constants} of one kernel's variant grid."""
-    if name == "iso_sweep":
+    if name == "ro_mix":
+        names = ("kBlockWarps",)
+        combos = [(w,) for w in opt.ro_warps]
+    elif name == "iso_sweep":
         names = ("kStreamSourceUp", "kSteady", "kRingBlocks", "kMaxWidth")
         combos = [ints(v.replace(":", ",")) for v in opt.iso_variants]
     else:
@@ -218,6 +253,8 @@ def main(argv=None):
     ap.add_argument("--iso-variants", type=lambda t: t.split(","),
                     default="0:8:3:32,1:8:3:32,1:8:5:30")
     ap.add_argument("--iso-columns", type=ints, default="")
+    ap.add_argument("--ro-warps", type=ints, default="")
+    ap.add_argument("--ro-cells", type=ints, default="")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reference-csrc", type=Path)
     ap.add_argument("--out", type=Path)
@@ -247,10 +284,20 @@ def main(argv=None):
     for label, (_, ptxas) in built.items():
         for line in ptxas:
             print(f"ptxas {label}: {line}")
+    occupancy = {}
+    for label, (lib, _) in built.items():
+        query = getattr(ctypes.CDLL(str(lib)), "ro_mix_occupancy", None)
+        for bits in (64, 32) if query is not None else ():
+            shape = (ctypes.c_int * 3)()
+            if query(bits, chip_smoke.NY_FLAG, shape) == 0:
+                occupancy[f"{label} fp{bits}"] = list(shape)
+                print(f"{label} fp{bits} at ny = {chip_smoke.NY_FLAG}: "
+                      f"blocks of {shape[0]}, {shape[1]} B of shared "
+                      f"memory, {shape[2]} blocks per SM")
 
     results = []
     for (label, kernel, dtype, run, plain, rtol, (reps, per_event),
-         shipped_only) in cases(kernels, opt.iso_columns):
+         shipped_only) in cases(kernels, opt.iso_columns, opt.ro_cells):
         builds = {lab: entry(lib, kernel, dtype, *ARITY[kernel])
                   for lab, (lib, _) in built.items()
                   if lab == kernel or (not shipped_only
@@ -258,7 +305,13 @@ def main(argv=None):
         shipped = run(builds[kernel])
         torch.cuda.synchronize()
         rel = None
-        if plain is not None:
+        if plain is not None and kernel == "ro_mix":
+            bad, diff = chip_smoke.row_mismatches(shipped[0], plain()[0])
+            chip_smoke.check(bad == 0, f"{label}: shipped build differs from "
+                             f"its plain version in {bad} cells (max abs "
+                             f"{diff:.3e})")
+            rel = 0.0
+        elif plain is not None:
             want = plain()
             rel = max(float(((g - w).abs() / w.abs()).max())
                       for g, w in zip(shipped, want))
@@ -273,7 +326,9 @@ def main(argv=None):
         for lab, call in builds.items():
             got = run(call)
             torch.cuda.synchronize()
-            bitwise = all(torch.equal(g, s) for g, s in zip(got, shipped))
+            bitwise = all(torch.equal(g, s) or (
+                kernel == "ro_mix" and chip_smoke.row_mismatches(g, s)[0] == 0)
+                for g, s in zip(got, shipped))
             r = dict(case=label, build=lab, constants=constants.get(lab),
                      ms=statistics.median(times[lab]),
                      ms_rounds=times[lab], bitwise_vs_shipped=bitwise,
@@ -288,6 +343,7 @@ def main(argv=None):
     card = chip_smoke.nvidia_smi_line()
     print(card)
     line = json.dumps({"card": card, "results": results,
+                       "occupancy": occupancy,
                        "ptxas": {k: v for k, (_, v) in built.items()}})
     if opt.out is not None:
         opt.out.parent.mkdir(parents=True, exist_ok=True)

@@ -30,7 +30,8 @@ from helios_tpu_torch import convert
 from helios_tpu_torch import forward as tf
 from helios_tpu_torch import pipeline as torch_pipeline
 from helios_tpu_torch.config import HeliosConfig as TorchConfig
-from helios_tpu_torch.kernels.ro import MAX_NY, ro_mix, ro_mix_reference
+from helios_tpu_torch.kernels.ro import (MAX_NY, ro_general_cells, ro_mix,
+                                         ro_mix_reference, stream_weights_ok)
 from helios_tpu_torch.ops import mixing as tmix
 
 import reference_mixing as refm
@@ -158,11 +159,224 @@ RO_BAD_ARGUMENTS = [
                          ids=[b[0] for b in RO_BAD_ARGUMENTS])
 def test_ro_wrapper_rejects_bad_arguments(spoil, exc, match):
     """Shapes, dtypes, devices, layouts and an ny outside what the kernel
-    takes (2..32) raise, on any device; nothing is adjusted."""
+    takes (2..126) raise, on any device; nothing is adjusted."""
     ts = _ro_args()
     spoil(ts)
     with pytest.raises(exc, match=match):
         ro_mix(*ts)
+
+
+# --------------------------------------------------------------------------- #
+# the kernel's per-cell algorithm (csrc/ro_mix.cu), transcribed
+# --------------------------------------------------------------------------- #
+
+_TAG_BITS = 8
+
+
+def _interpolate(k_lo, yg_lo, k_hi, yg_hi, g):
+    return (k_lo * (yg_hi - g) + k_hi * (g - yg_lo)) / (yg_hi - yg_lo)
+
+
+def _stream_cell(m, n, hw, gy):
+    """The kernel's streaming branch for one cell, in numpy scalars of the
+    cell's dtype: the loser-tree merge of the ny rows (node q at [q], leaf
+    i at q = ny + i; tag i << 8 | j, (i + ny) << 8 once row i is used up),
+    the weight sum in pop order, and the streaming rebin with its queue of
+    known nodes (head y_out with w_head, w consecutive behind it).  Returns
+    (out, flat indices in pop order, nodes past the last yg)."""
+    ny = len(m)
+    n2 = ny * ny
+    dt = m.dtype.type
+    key, tag = [None] * ny, [0] * ny
+
+    def node(c):
+        if c >= ny:
+            return m[c - ny] + n[0], (c - ny) << _TAG_BITS
+        return key[c], tag[c]
+
+    def before(a, b):
+        return a[0] < b[0] or (a[0] == b[0] and a[1] < b[1])
+
+    for q in range(ny - 1, 0, -1):              # winners, bottom-up
+        left, right = node(2 * q), node(2 * q + 1)
+        key[q], tag[q] = right if before(right, left) else left
+    win = key[1], tag[1]
+    for q in range(1, ny):                      # losers, top-down
+        left, right = node(2 * q), node(2 * q + 1)
+        key[q], tag[q] = left if before(right, left) else right
+
+    out = np.full(ny, np.nan, m.dtype)
+    order = []
+    acc = prev_k = prev_yg = dt(0)
+    y_next = y_out = w_last = w_head = past = 0
+    for t in range(n2):
+        r, j = win[1] >> _TAG_BITS, win[1] & ((1 << _TAG_BITS) - 1)
+        order.append(r * ny + j)
+        wgt = hw[r] * hw[j]
+        acc = acc + wgt
+        yg = acc - dt(0.5) * wgt
+        while y_next < ny and (yg > gy[y_next] or t == n2 - 1):
+            past += not yg > gy[y_next]
+            w_last = min(max(t, w_last + 1), n2 - 1)
+            if y_next == y_out:
+                w_head = w_last
+            y_next += 1
+        while y_out < y_next and w_head == t:
+            out[y_out] = _interpolate(prev_k, prev_yg, win[0], yg, gy[y_out])
+            y_out += 1
+            w_head = min(w_head + 1, n2 - 1)
+        prev_k, prev_yg = win[0], yg
+        j1 = j + 1
+        carry = ((m[r] + n[j1], r << _TAG_BITS | j1) if j1 < ny
+                 else (dt(np.inf), (r + ny) << _TAG_BITS))
+        q = (ny + r) >> 1
+        while q >= 1:                           # replay the leaf's path
+            if before((key[q], tag[q]), carry):
+                (key[q], tag[q]), carry = carry, (key[q], tag[q])
+            q >>= 1
+        win = carry
+    assert y_out == ny
+    return out, order, past
+
+
+def _general_cell(m, n, hw, gy):
+    """The kernel's general branch for one cell: each flat index ranked
+    against all others in (key, index) order with NaN last, the weight sum
+    along that permutation, first_y = #(yg <= g_y), the w recurrence and
+    the interpolation."""
+    ny = len(m)
+    n2 = ny * ny
+    dt = m.dtype.type
+    keys = (m[:, None] + n[None, :]).ravel()
+    idx = np.arange(n2)
+    ka, kb = keys[:, None], keys[None, :]
+    na, nb = np.isnan(ka), np.isnan(kb)
+    lower = idx[:, None] < idx[None, :]
+    before = np.where(na | nb, ~na | (nb & lower),
+                      (ka < kb) | ((ka == kb) & lower))
+    perm = np.empty(n2, int)
+    perm[before.sum(axis=0)] = idx
+    wgt = hw[perm // ny] * hw[perm % ny]
+    yg = np.empty(n2, m.dtype)
+    acc = dt(0)
+    for t in range(n2):
+        acc = acc + wgt[t]
+        yg[t] = acc - dt(0.5) * wgt[t]
+    first = (yg[:, None] <= gy[None, :]).sum(axis=0)
+    out = np.empty(ny, m.dtype)
+    w_prev = 0
+    for y in range(ny):
+        w = min(max(int(first[y]), w_prev + 1), n2 - 1)
+        out[y] = _interpolate(keys[perm[w - 1]], yg[w - 1], keys[perm[w]],
+                              yg[w], gy[y])
+        w_prev = w
+    return out
+
+
+def _kernel_cells(mixed, new, gauss_weight, gauss_y):
+    """The kernel's choice of branch and its result, cell by cell: the plain
+    sum where the overlap is negligible; the stream where new is
+    non-decreasing, mixed and new are finite and the weights pass the
+    launch's check; else the general branch.  Returns (out, branch names,
+    {cell: pop order}, nodes past the last yg)."""
+    dt = mixed.dtype.type
+    hw = dt(0.5) * gauss_weight
+    weights_ok = stream_weights_ok(torch.from_numpy(gauss_weight),
+                                   torch.from_numpy(gauss_y))
+    out = np.empty_like(mixed)
+    branch, orders, past = [], {}, 0
+    for c, (m, n) in enumerate(zip(mixed, new)):
+        if dt(0.01) * m[0] > n[-1] or dt(0.01) * n[0] > m[-1]:
+            out[c] = m + n
+            branch.append("negligible")
+        elif (weights_ok and np.isfinite(m).all() and np.isfinite(n).all()
+              and (n[1:] >= n[:-1]).all()):
+            out[c], orders[c], p = _stream_cell(m, n, hw, gauss_y)
+            past += p
+            branch.append("stream")
+        else:
+            out[c] = _general_cell(m, n, hw, gauss_y)
+            branch.append("general")
+    return out, branch, orders, past
+
+
+def _transcription_cells(rng, ny, dtype):
+    """One cell of each kind the transcription test needs, ascending unless
+    said: random; exact ties (new == mixed); gray (all sums tie); rounding
+    ties within a row (new spans less than half an ulp of mixed); ties
+    across rows among unequal weights (mixed and new arithmetic with steps
+    0.5 and 1); mixed unsorted (still the stream); new unsorted (the
+    general branch); non-finite (general); negligible either way; a +0 sum
+    tied with a later -0 sum."""
+    eps = np.finfo(dtype).eps
+    rand = lambda lo, hi: np.sort(10.0 ** rng.uniform(lo, hi, ny))
+    kinds = [
+        (rand(-4, 1), rand(-3, 0.5)),
+        (rand(-2, 1),) * 2,
+        (np.full(ny, 0.3), np.full(ny, 0.05)),
+        (1.0 + 1e-3 * np.arange(ny), np.sort(rng.uniform(0, eps / 4, ny))),
+        (0.5 * np.arange(ny) + 1.0, 1.0 * np.arange(ny) + 2.0),
+        (rng.permutation(rand(-4, 1)), rand(-3, 0.5)),
+        (rand(-4, 1), rng.permutation(rand(-3, 0.5))),
+        (np.where(np.arange(ny) == 1, np.nan, rand(-2, 0)), rand(-2, 0)),
+        (rand(-2, 0), np.where(np.arange(ny) == ny - 1, np.inf, rand(-2, 0))),
+        (rand(-4, -3), rand(0, 1)),
+        (rand(0, 1), rand(-4, -3)),
+        (np.r_[0.0, -0.0, rand(-2, 0)[2:]], np.r_[-0.0, rand(-2, 0)[1:]]),
+    ]
+    mixed = np.array([m for m, _ in kinds], dtype)
+    new = np.array([n for _, n in kinds], dtype)
+    return mixed, new
+
+
+def _assert_bitwise(got, want, msg):
+    ints = {np.dtype(np.float64): np.int64, np.dtype(np.float32): np.int32}
+    bad = (got.view(ints[got.dtype]) != want.view(ints[want.dtype])).any(-1)
+    assert not bad.any(), f"{msg}: cells {np.flatnonzero(bad)} differ"
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("ny", [2, 3, 4, 5, 16, 17, 20, 32])
+def test_ro_kernel_transcription_matches_plain_bitwise(ny, dtype):
+    """A transcription of csrc/ro_mix.cu's per-cell algorithm (the branch
+    choice, the loser-tree merge, the in-order weight sum, the streaming
+    rebin with its queue, the general branch) equals random_overlap_mix
+    (with negligible cells kept as the plain sum) bit for bit, rtol 0, on
+    ties, gray cells, rounding ties in a row, ties across rows, unsorted
+    and non-finite cells; the merge pops the sums in torch.sort's stable
+    order; ro_general_cells names the cells of the general branch.  Also
+    with the last Gauss node past the last yg, with nodes closer together
+    than a yg step (and two equal), and with a weight too small for the
+    stream (every live cell general)."""
+    y, w = (a.astype(dtype) for a in _gauss(ny))
+    rng = np.random.default_rng(ny)
+    mixed, new = _transcription_cells(rng, ny, dtype)
+    past_end = y.copy()
+    past_end[-1] = dtype(1 - 1e-7)
+    clustered = y.copy()
+    clustered[1::2] = clustered[0::2][:ny // 2] + dtype(1e-12)
+    clustered[-1] = clustered[-2]
+    tiny = w.copy()
+    tiny[0] = dtype(1e-30)
+    past = 0
+    for label, gw, gy in (("gauss", w, y), ("past the last yg", w, past_end),
+                          ("clustered", w, np.sort(clustered)),
+                          ("tiny weight", tiny, y)):
+        with np.errstate(invalid="ignore", over="ignore"):
+            got, branch, orders, p = _kernel_cells(mixed, new, gw, gy)
+        past += p if label == "past the last yg" else 0
+        ts = [torch.from_numpy(a) for a in (mixed, new, gw, gy)]
+        _assert_bitwise(got, ro_mix_reference(*ts).numpy(), label)
+        for c, order in orders.items():
+            keys = torch.from_numpy(np.add.outer(mixed[c], new[c]).ravel())
+            assert order == torch.sort(keys, stable=True)[1].tolist(), \
+                f"{label}: cell {c} merge order"
+        assert ro_general_cells(*ts).tolist() == [b == "general"
+                                                  for b in branch], label
+        want = ({"negligible", "general"} if label == "tiny weight"
+                else {"negligible", "stream", "general"})
+        assert set(branch) == want, (label, branch)
+    assert past > 0      # some node lies past the last yg
 
 
 def test_h2o_rayleigh_matches_jax():

@@ -223,25 +223,68 @@ def test_cuda_thomas_kernel_matches_plain(cuda_device, dtype, rtol, n, S):
                                rtol=rtol, atol=0.0)
 
 
-@pytest.mark.parametrize("dtype,rtol", DTYPES)
-def test_cuda_ro_kernel_matches_plain(cuda_device, dtype, rtol):
-    """The CUDA Random Overlap against its plain version on the card, at
-    ny = 20 and ny = 32 (the largest the kernel takes), with tied and
-    negligible cells, and one counted launch per call."""
+# ny of the Random Overlap card test: small and odd counts, the tables' 20,
+# powers of two and one past them, and the largest the kernel takes
+RO_NY = [2, 3, 4, 5, 16, 17, 20, 32, 33, 64, 126]
+
+
+def _ro_cells(rng, C, ny):
+    """[C, ny] mixed and new: ascending random k-distributions, with cells
+    of exact ties (new == mixed), gray cells (all sums tie), ties across
+    rows among unequal weights, unsorted new (the kernel's general
+    branch), unsorted mixed (still its stream), an infinite entry (general),
+    negligible overlap and a +0 sum tied with a later -0 sum."""
+    m = np.sort(10.0 ** rng.uniform(-4, 1, (C, ny)), axis=1)
+    n = np.sort(10.0 ** rng.uniform(-3, 0.5, (C, ny)), axis=1)
+    n[0::9] = m[0::9]
+    m[1::9], n[1::9] = 0.3, 0.05
+    m[2::9] = 0.5 * np.arange(ny) + 1.0
+    n[2::9] = 1.0 * np.arange(ny) + 2.0
+    n[3::9] = rng.permuted(n[3::9], axis=1)
+    m[4::9] = rng.permuted(m[4::9], axis=1)
+    n[5::9, -1] = np.inf
+    n[6::9] *= 1e-7
+    m[7::9, :2] = [0.0, -0.0]              # +0 and -0 sums tie
+    n[7::9, 0] = -0.0
+    return m, n
+
+
+@pytest.mark.parametrize("ny", RO_NY)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_ro_kernel_matches_plain(cuda_device, dtype, ny):
+    """The CUDA Random Overlap equals its plain version on the card bit for
+    bit (rtol 0, atol 0), fp64 and fp32, on 203 cells (not a multiple of
+    the kernel's block) of ties, gray cells, unsorted and infinite entries
+    and negligible overlap; on one cell; on an all-negligible batch; with
+    the last Gauss node past the last yg; and with a weight too small for
+    the kernel's stream (every live cell through its general branch).  One
+    counted launch per call."""
     from helios_tpu_torch.io.opacity import gauss_legendre_ypoints
-    for ny in (20, 32):
-        rng = np.random.default_rng(ny)
-        C = 500
-        m = np.sort(10.0 ** rng.uniform(-4, 1, (C, ny)), axis=1)
-        n = np.sort(10.0 ** rng.uniform(-3, 0.5, (C, ny)), axis=1)
-        n[::5] = m[::5]                    # exact ties
-        n[1::5] *= 1e-7                    # negligible
-        y, w = gauss_legendre_ypoints(ny)
-        ts = [torch.tensor(np.asarray(x), dtype=dtype, device=cuda_device)
-              for x in (m, n, w, y)]
+    from helios_tpu_torch.kernels.ro import ro_general_cells
+    from helios_tpu_torch.ops.mixing import negligible_overlap
+    rng = np.random.default_rng(ny)
+    y, w = (np.asarray(a) for a in gauss_legendre_ypoints(ny))
+    m, n = _ro_cells(rng, 203, ny)
+    past_end, tiny = y.copy(), w.copy()
+    past_end[-1] = 1 - 1e-7
+    tiny[0] = 1e-30
+    quiet = np.where(np.isfinite(n), n, 1.0) * 1e-9
+    cases = {"cells": (m, n, w, y), "one cell": (m[:1], n[:1], w, y),
+             "all negligible": (np.where(m == 0, 1.0, m), quiet, w, y),
+             "node past the last yg": (m, n, w, past_end),
+             "tiny weight": (m, n, tiny, y)}
+    for label, case in cases.items():
+        ts = [torch.tensor(x, dtype=dtype, device=cuda_device) for x in case]
         before = ro_mix.launches
         got = ro_mix(*ts)
         torch.cuda.synchronize()
         assert ro_mix.launches == before + 1
-        torch.testing.assert_close(got, ro_mix_reference(*ts), rtol=rtol,
-                                   atol=0.0)
+        torch.testing.assert_close(got, ro_mix_reference(*ts), rtol=0,
+                                   atol=0, equal_nan=True, msg=label)
+        general = ro_general_cells(*ts)
+        if label == "cells":
+            assert general.any() and not general.all()
+        if label == "all negligible":
+            assert negligible_overlap(ts[0], ts[1]).all()
+        if label == "tiny weight":
+            assert general.equal(~negligible_overlap(ts[0], ts[1]))
