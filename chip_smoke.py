@@ -55,6 +55,24 @@ Phases (any failure exits non-zero before the last line is printed):
         profile with the output files; and the cells of its ro_mix calls
         that take the kernel's general branch (forward solves at the
         start and final profiles);
+     f. cloud decks and the geometric zenith correction (BASELINE config
+        4): path a's flagship RCE run with the direct beam at 80 degrees
+        and one Mie cloud deck (a synthetic LX-Mie directory written into
+        a temporary directory), to convergence; one forward_fluxes on the
+        card against the CPU; its time breakdown;
+     g. the post-processing run of path f's converged profile with the
+        output files, the four cloud files among them (one solve of 1001
+        sweep passes); its TOA spectrum against the CPU;
+     h. a rocky surface (BASELINE config 5) at 105 layers x 385 x 20: the
+        surface albedo and additional heating from files, the Koll
+        f-factor, a physical timestep (exactly runtime_limit /
+        physical_tstep radiation iterations, then one convective
+        adjustment), with the output files; one forward_fluxes against the
+        CPU; its time breakdown;
+     i. the bare rock (planet_type="no_atmosphere", 2 layers x 385 x 20)
+        to convergence, against the analytic surface temperature;
+     j. one forward_fluxes of path f's workload with the matrix method on
+        the card against the CPU;
   5. a JSON line of the kernels, the nvidia-smi line, and the result line.
 
 Needs one CUDA card; exits non-zero without one.  Imports neither JAX nor
@@ -656,7 +674,7 @@ def flagship(tmpdir, **extra):
         f.write(f"BOA {float(T0[0])!r}\n")
         for i, t in enumerate(T0):
             f.write(f"{i} {float(t)!r}\n")
-    cfg = HeliosConfig(**kw, **extra, force_start_tp_from_file="yes",
+    cfg = HeliosConfig(**dict(kw, **extra), force_start_tp_from_file="yes",
                        temp_format="helios", temp_path=path).finalize()
     check(cfg.nlayer == L_FLAG, f"flagship has {cfg.nlayer} layers")
     return cfg, table
@@ -711,16 +729,18 @@ def main_path(launch_counts):
     return out, T_start
 
 
-def time_breakdown(label, phys, arrays, T0, kernels, n=20, sset=None):
+def time_breakdown(label, phys, arrays, T0, kernels, n=20, sset=None,
+                   thermo=None):
     """Where a radiation iteration's time goes: host wall per iteration
     (unprofiled) against the device's busy time per iteration and each
     named kernel's share of it (torch.profiler, CUDA kernels), over
-    iterations 10..10+n of a loop started from T0 (two cell refreshes)."""
+    iterations 10..10+n of a loop started from T0 (two cell refreshes).
+    ``thermo`` gives a physical timestep its c_p."""
     from torch.profiler import ProfilerActivity, profile
     from helios_tpu_torch.rce import radiative
 
     loop = lambda steps, s: radiative.radiation_loop(
-        phys, arrays, None, T0, max_steps=steps, sset=sset, state0=s)
+        phys, arrays, thermo, T0, max_steps=steps, sset=sset, state0=s)
     s = loop(10, radiative.init_rad_state(phys, arrays, T0, sset))
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -769,12 +789,12 @@ def write_pt_file(path, p_lay, p_int, T):
 
 
 def postprocessing_run(T_lay, arrays, cfg_kw, table, launch_counts,
-                       sset=None):
+                       sset=None, extra_files=()):
     """The post-processing run of an RCE run's final profile T_lay (on the
     grid of ``arrays``), read back from a "PT" file, with the direct beam
-    and the output files.  Returns (output, the files written, peak device
-    memory MiB); checks the run's shape, its files and its TOA
-    spectrum."""
+    and the output files (POSTPROC_FILES and ``extra_files``).  Returns
+    (output, the files written, peak device memory MiB); checks the run's
+    shape, its files and its TOA spectrum."""
     from helios_tpu_torch import pipeline
     from helios_tpu_torch.config import HeliosConfig
 
@@ -800,7 +820,9 @@ def postprocessing_run(T_lay, arrays, cfg_kw, table, launch_counts,
           and phys.n_sweep_passes == PP_PASSES,
           f"post-processing: singlewalk {phys.singlewalk}, iso {phys.iso}, "
           f"{phys.n_sweep_passes} passes")
-    check(files == POSTPROC_FILES, f"post-processing: files {files}")
+    want_files = sorted(POSTPROC_FILES + list(extra_files))
+    check(files == want_files, f"post-processing: files {files}, expected "
+          f"{want_files}")
     check(np.array_equal(out.T_lay.cpu().numpy(), T_final),
           "post-processing: the PT file did not give the profile back")
     toa = out.totals.F_up_band[L]
@@ -809,18 +831,21 @@ def postprocessing_run(T_lay, arrays, cfg_kw, table, launch_counts,
     return out, files, torch.cuda.max_memory_allocated() / 2**20
 
 
-def postprocessing_path(flag_out, launch_counts, kernel_ms_1001):
-    """The post-processing run of the converged flagship profile, with the
-    direct beam and the output files: one iso solve of 1001 passes."""
+def postprocessing_path(flag_out, launch_counts, kernel_ms_1001,
+                        cfg_kw=FLAGSHIP, extra_files=(),
+                        label="post-processing path"):
+    """The post-processing run of the converged flagship profile (of the
+    workload ``cfg_kw``), with the direct beam and the output files
+    (``extra_files`` besides POSTPROC_FILES): one iso solve of 1001
+    passes."""
     from helios_tpu_torch.forward import ModelArrays, forward_fluxes
 
     out, files, peak_mib = postprocessing_run(
-        flag_out.T_lay, flag_out.arrays, FLAGSHIP, flagship_table(),
-        launch_counts)
+        flag_out.T_lay, flag_out.arrays, cfg_kw, flagship_table(),
+        launch_counts, extra_files=extra_files)
     phys, L = out.phys, out.phys.nlayer
     check(launch_counts == only(iso_sweep=1),
-          f"post-processing: launches {launch_counts}, expected one "
-          "iso_sweep")
+          f"{label}: launches {launch_counts}, expected one iso_sweep")
     toa = out.totals.F_up_band[L]
     arrays_cpu = ModelArrays(*(t.cpu() for t in out.arrays))
     t = time.perf_counter()
@@ -828,9 +853,9 @@ def postprocessing_path(flag_out, launch_counts, kernel_ms_1001):
     cpu_s = time.perf_counter() - t
     rel = float(((toa.cpu() - cpu.F_up_band[L]).abs()
                  / cpu.F_up_band[L].abs()).max())
-    check(rel <= 1e-10, f"post-processing TOA spectrum cuda vs cpu: "
-          f"{rel:.3e} > 1e-10")
-    log(f"post-processing path [{L} layers x {NBIN_FLAG} bins x {NY_FLAG} "
+    check(rel <= 1e-10, f"{label}: TOA spectrum cuda vs cpu {rel:.3e} > "
+          "1e-10")
+    log(f"{label} [{L} layers x {NBIN_FLAG} bins x {NY_FLAG} "
         f"y, fp64, beam, {PP_PASSES} passes]: wall {out.wall_seconds:.3f} s "
         f"with {len(files)} output files; {launch_counts['iso_sweep']} "
         f"iso_sweep launch ({kernel_ms_1001:.3f} ms at this shape in phase "
@@ -1132,6 +1157,313 @@ def otf_path(launch_counts, pp_counts):
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase 4, BASELINE configs 4 and 5: cloud decks with the geometric zenith
+# correction, solid surfaces, additional heating, the physical timestep
+# --------------------------------------------------------------------------- #
+
+# the files write_all adds for a run with clouds
+CLOUD_FILES = ["_" + n + ".dat" for n in (
+    "cloud_mixing_ratio", "cloud_opacities", "cloud_optdepth",
+    "cloud_scat_cross_sect")]
+ZENITH_DEG = 80.0           # above 70: geom_zenith_corr resolves to 1
+
+
+def write_mie_dir(path):
+    """A synthetic LX-Mie directory over the 51 radii of the clouds
+    module's R_VALUES_MICRON (the recipe of tests/test_clouds.py:74-90):
+    cross sections ~ r^2 with a Rayleigh-like fall-off."""
+    from helios_tpu_torch.clouds import R_VALUES_MICRON
+    os.makedirs(path)
+    lam_um = np.geomspace(0.3, 30.0, 50)
+    zero = np.zeros_like(lam_um)
+    for r in R_VALUES_MICRON:
+        x = 2 * np.pi * r / lam_um
+        rows = np.column_stack([
+            lam_um, zero, zero, 1e-8 * r ** 2 * np.minimum(x ** 4, 2.0),
+            1e-8 * r ** 2 * np.minimum(x, 1.0), zero,
+            np.clip(0.9 * np.minimum(x, 1.0), 0, 1)])
+        np.savetxt(os.path.join(path, "r{:.6f}.dat".format(r)), rows,
+                   fmt="%.6e", header="lam c2 c3 scat abs c5 g0")
+    return path
+
+
+def cloud_kw(mie_dir):
+    """The cloudy flagship's fields over path a's workload: the direct
+    beam at ZENITH_DEG and one manual Mie deck from 1 bar up."""
+    return dict(direct_beam="yes", zenith_angle_deg=ZENITH_DEG,
+                nr_cloud_decks=1, mie_dirs=[mie_dir],
+                cloud_radius_mode=[1.0], cloud_radius_geo_std=[1.5],
+                cloud_mixing_ratio_source="manual",
+                cloud_bottom_pressure=[1e6],
+                cloud_bottom_mixing_ratio=[1e-18],
+                cloud_to_gas_scale_height=[0.8])
+
+
+def rce_summary(label, out, launch_counts, kernel):
+    """Checks of a converged RCE run (finite T, converged, one ``kernel``
+    launch per flux solve) and its log line; returns its numbers."""
+    rad, conv = out.rad, out.conv
+    T = out.T_lay.cpu().numpy()
+    check(np.all(np.isfinite(T)), f"{label}: non-finite temperatures")
+    converged = (not bool(rad.keep_running) and not rad.aborted
+                 and (conv is None or not (conv.keep_running
+                                           or conv.aborted)))
+    check(converged, f"{label}: the run did not converge")
+    n = out.n_flux_solves
+    check(n > 0 and launch_counts == only(**{kernel: n}),
+          f"{label}: launches {launch_counts} for {n} flux solves")
+    conv_it = conv.it if conv is not None else 0
+    conv_steps = conv.steps if conv is not None else 0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"{label} [{out.phys.nlayer} layers x {NBIN_FLAG} bins x {NY_FLAG} "
+        f"y, fp64] converged: {rad.it} radiation + {conv_it} convection "
+        f"iterations ({conv_steps} convection steps), {n} flux solves = "
+        f"{launch_counts[kernel]} {kernel} launches; wall "
+        f"{out.wall_seconds:.3f} s (radiation loop {out.rad_seconds:.3f} s = "
+        f"{rad.it / out.rad_seconds:.1f} it/s, convection loop "
+        f"{out.conv_seconds:.3f} s); peak device memory {peak:.0f} MiB; T "
+        f"{T.min():.1f}..{T.max():.1f} K")
+    return dict(rad_it=rad.it, conv_it=conv_it, wall_s=out.wall_seconds,
+                rad_it_per_s=rad.it / out.rad_seconds, peak_mib=peak)
+
+
+def totals_cuda_vs_cpu(label, phys, arrays, T, expected):
+    """forward_cuda_vs_cpu with its checks: the ``expected`` launches and
+    the totals within 1e-10."""
+    counts, _, rel = forward_cuda_vs_cpu(phys, arrays, T)
+    check(counts == expected, f"{label} forward_fluxes: launches {counts}, "
+          f"expected {expected}")
+    worst = max(float(r.max()) for r in rel.values())
+    check(worst <= 1e-10, f"{label} forward_fluxes cuda vs cpu: {worst:.3e} "
+          "> 1e-10")
+    log(f"{label} forward_fluxes, cuda vs cpu: max rel difference of the "
+        f"totals {worst:.3e} (limit 1e-10); launches {counts}")
+    return worst
+
+
+def cloudy_path(tmpdir, launch_counts):
+    """Path f: the flagship RCE run of path a with the direct beam at
+    ZENITH_DEG (the geometric zenith correction) and one Mie cloud deck,
+    to convergence; one forward_fluxes on the card against the CPU; and
+    where a radiation iteration's time goes."""
+    from helios_tpu_torch import pipeline
+
+    extra = cloud_kw(write_mie_dir(os.path.join(tmpdir, "mie")))
+    cfg, table = flagship(tmpdir, **extra)
+    check(cfg.clouds == 1 and cfg.geom_zenith_corr == 1 and cfg.dir_beam == 1,
+          "cloudy flagship: clouds, beam or zenith correction off")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = pipeline.run(cfg, table, write_output=False, device=DEVICE)
+    launch_counts.update(read_counts())
+    res = rce_summary("cloudy path: flagship RCE run with a cloud deck and "
+                      f"the zenith-corrected beam at {ZENITH_DEG:.0f} deg",
+                      out, launch_counts, "noniso_sweep")
+    res["fwd_rel"] = totals_cuda_vs_cpu("cloudy", out.phys, out.arrays,
+                                        out.T_lay, only(noniso_sweep=1))
+    T0 = torch.as_tensor(pipeline.initial_temperatures(cfg, out.phys,
+                                                       out.arrays),
+                         dtype=out.T_lay.dtype, device=DEVICE)
+    res["breakdown"] = time_breakdown("cloudy flagship", out.phys,
+                                      out.arrays, T0, ("noniso_sweep",))
+    res.update(out=out, cfg_kw=dict(FLAGSHIP, **extra))
+    return res
+
+
+def matrix_ulp_sensitivity(phys, arrays_cpu, T):
+    """How far F_down_tot of a matrix-method solve on the CPU moves when M
+    of the upper half layers changes by one ulp: the conditioning of the
+    unpivoted elimination at this profile (max relative change)."""
+    from helios_tpu_torch import forward as tf
+    from helios_tpu_torch.ops import interp as interp_ops
+
+    cells = tf.compute_cells(phys, arrays_cpu, T,
+                             interp_ops.interface_temperatures(T))
+    up = cells.cells_or_upper
+    nudged = cells._replace(cells_or_upper=up._replace(
+        M=up.M * (1.0 + 2.0 ** -52)))
+    tot = [tf.integrate_flux_flat(phys, arrays_cpu, tf.solve_fluxes(
+        phys, arrays_cpu, c, T, tf.init_flux_state(phys, T.dtype, T.device)),
+        cells.F_dir).F_down_tot for c in (cells, nudged)]
+    return float(((tot[1] - tot[0]).abs() / tot[0].abs()).max())
+
+
+def cloudy_matrix_path(cl, launch_counts):
+    """Path j: one forward_fluxes of path f's workload with the matrix
+    method at albedo 0.3, at path f's final profile, on the card against
+    the CPU.  F_up_tot is held to 1e-10.  F_down_tot is held to 1e-10 or
+    to ten times the CPU solve's own change under a one-ulp change of M,
+    whichever is larger: with clouds, columns whose deep layers are opaque
+    (transmission 0, w0 ~ 0) take the matrix, and the unpivoted elimination
+    recovers their F_down by dividing by pivots ~ w0 (ROADMAP C)."""
+    from helios_tpu_torch import pipeline
+    from helios_tpu_torch.config import HeliosConfig
+    from helios_tpu_torch.forward import ModelArrays
+
+    cfg = HeliosConfig(**dict(cl["cfg_kw"], flux_calc_method="matrix",
+                              surf_albedo=0.3)).finalize()
+    phys, arrays, _ = pipeline.prepare_model(cfg, flagship_table(),
+                                             device=DEVICE)
+    T = cl["out"].T_lay
+    counts, _, rel = forward_cuda_vs_cpu(phys, arrays, T)
+    launch_counts.update(counts)
+    check(counts == only(thomas_solve=1, noniso_sweep=1),
+          f"cloudy matrix forward_fluxes: launches {counts}, expected one "
+          "thomas_solve and one noniso_sweep")
+    up, down = float(rel["F_up_tot"].max()), float(rel["F_down_tot"].max())
+    sens = matrix_ulp_sensitivity(
+        phys, ModelArrays(*(t.cpu() for t in arrays)), T.cpu())
+    limit = max(1e-10, 10 * sens)
+    check(up <= 1e-10, f"cloudy matrix forward_fluxes cuda vs cpu: F_up_tot "
+          f"{up:.3e} > 1e-10")
+    check(down <= limit, f"cloudy matrix forward_fluxes cuda vs cpu: "
+          f"F_down_tot {down:.3e} > {limit:.3e}")
+    log(f"cloudy matrix path [{L_FLAG} layers x {NBIN_FLAG} bins x "
+        f"{NY_FLAG} y, fp64, albedo 0.3]: forward_fluxes cuda vs cpu max rel "
+        f"difference F_up_tot {up:.3e} (limit 1e-10), F_down_tot {down:.3e} "
+        f"(limit {limit:.3e}: the cpu solve's F_down_tot moves {sens:.3e} "
+        f"under one ulp of M); launches {counts}")
+    return dict(fwd_rel_up=up, fwd_rel_down=down, ulp_sensitivity=sens)
+
+
+ROCKY_STEPS = 40            # runtime_limit / physical_tstep
+
+
+def rocky_path(launch_counts):
+    """Path h: BASELINE config 5 at the flagship's depth and widths: a rocky
+    planet with the surface albedo from a file, the Koll f-factor,
+    additional heating and a physical timestep, non-isothermal layers
+    from a super-adiabatic start, convection on, with the output files;
+    exactly ROCKY_STEPS radiation iterations and one convective
+    adjustment; one forward_fluxes on the card against the CPU, and where
+    a radiation iteration's time goes."""
+    from helios_tpu_torch import grid as grid_mod
+    from helios_tpu_torch import pipeline
+    from helios_tpu_torch.config import HeliosConfig
+    from helios_tpu_torch.rce import radiative
+
+    kw = dict(name="rocky", planet="manual", g=981.0, a=0.05, R_planet=0.09,
+              R_star=0.5, T_star=3500.0, T_intern=100.0, planet_type="rocky",
+              nlayer=L_FLAG, p_boa=1e6, p_toa=1e2, scattering="yes",
+              direct_beam="no", convection="yes", kappa_value=0.25,
+              run_type="iterative", iso_input="no", approx_f="yes",
+              physical_tstep=100.0, runtime_limit=100.0 * ROCKY_STEPS)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        # the albedo and heating files of tests/test_surface_modes.py:66-80
+        # and :117-126
+        lam_um = np.geomspace(0.3, 400.0, 30)
+        alb = 0.2 + 0.5 * np.exp(-((np.log10(lam_um) - 0.5) / 0.3) ** 2)
+        albedo = os.path.join(tmpdir, "albedo.dat")
+        np.savetxt(albedo, np.column_stack([lam_um, alb]), fmt="%.6e",
+                   header="header\nheader2\nWavelength Feldspathic",
+                   comments="")
+        p = np.geomspace(1e2, 1e6, 20)
+        heating = os.path.join(tmpdir, "heat.dat")
+        np.savetxt(heating, np.column_stack(
+            [p, np.where((p > 1e3) & (p < 1e5), 2e-2, 0.0)]), fmt="%.6e",
+            header="header\nheader2\nPressure heating", comments="")
+        p_lay = grid_mod.build_grid(kw["p_boa"], kw["p_toa"], L_FLAG,
+                                    kw["g"]).p_lay
+        T0 = 2500.0 * (p_lay / p_lay[0]) ** 0.35     # dlnT/dlnp > kappa
+        start = os.path.join(tmpdir, "start_tp.dat")
+        with open(start, "w") as f:
+            f.write("rocky start profile\nlayer T[K]\n")
+            f.write(f"BOA {float(T0[0])!r}\n")
+            for i, t in enumerate(T0):
+                f.write(f"{i} {float(t)!r}\n")
+        cfg = HeliosConfig(
+            **kw, surf_albedo="file", albedo_file=albedo,
+            albedo_file_header_lines=2, add_heating="yes",
+            add_heating_path=heating, add_heating_file_header_lines=2,
+            force_start_tp_from_file="yes", temp_format="helios",
+            temp_path=start, output_dir=tmpdir + "/").finalize()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out = pipeline.run(cfg, flagship_table(), write_output=True,
+                           device=DEVICE)
+        launch_counts.update(read_counts())
+        tau_file = os.path.join(tmpdir, "rocky",
+                                "rocky_tau_lw_tau_sw_f_factor.dat")
+        check(os.path.exists(tau_file), "rocky path: no tau_lw / tau_sw / "
+              "f-factor file")
+        n_files = len(os.listdir(os.path.join(tmpdir, "rocky")))
+    phys, rad, conv = out.phys, out.rad, out.conv
+    T = out.T_lay.cpu().numpy()
+    n = out.n_flux_solves
+    check(np.all(np.isfinite(T)), "rocky path: non-finite temperatures")
+    check(rad.it == ROCKY_STEPS, f"rocky path: {rad.it} radiation "
+          f"iterations, expected {ROCKY_STEPS}")
+    check(conv is not None and conv.steps == 1 and conv.it == 0,
+          "rocky path: not one convective adjustment")
+    check(launch_counts == only(noniso_sweep=n) and n == ROCKY_STEPS + 1,
+          f"rocky path: launches {launch_counts} for {n} flux solves")
+    check(0.25 < phys.f_factor < 2.0 / 3.0 and phys.planet_type == "rocky",
+          f"rocky path: f-factor {phys.f_factor}")
+    alb = out.arrays.surf_albedo.cpu().numpy()
+    heat = out.arrays.add_heat_dens.cpu().numpy()
+    check(alb.min() > 0.15 and alb.max() < 0.75 and heat.max() > 0,
+          "rocky path: no albedo file or heating in the model")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"rocky path [{L_FLAG} layers x {NBIN_FLAG} bins x {NY_FLAG} y, "
+        f"fp64, physical timestep {phys.physical_tstep:g} s]: {rad.it} "
+        f"radiation iterations + {conv.steps} convective adjustment, {n} "
+        f"flux solves = {launch_counts['noniso_sweep']} noniso_sweep "
+        f"launches; Koll f-factor {phys.f_factor:.6f}; surface albedo "
+        f"{alb.min():.3f}..{alb.max():.3f}; wall {out.wall_seconds:.3f} s "
+        f"(radiation loop {out.rad_seconds:.3f} s = "
+        f"{rad.it / out.rad_seconds:.1f} it/s) with {n_files} output files; "
+        f"peak device memory {peak:.0f} MiB; T {T.min():.1f}..{T.max():.1f}"
+        " K")
+    res = dict(rad_it=rad.it, wall_s=out.wall_seconds,
+               rad_it_per_s=rad.it / out.rad_seconds, peak_mib=peak,
+               f_factor=phys.f_factor)
+    res["fwd_rel"] = totals_cuda_vs_cpu("rocky", phys, out.arrays,
+                                        out.T_lay, only(noniso_sweep=1))
+    T_start = torch.as_tensor(np.append(T0, T0[0]), dtype=out.T_lay.dtype,
+                              device=DEVICE)
+    res["breakdown"] = time_breakdown(
+        "rocky", phys, out.arrays, T_start, ("noniso_sweep",),
+        thermo=radiative.make_const_thermo(0.25))
+    return res
+
+
+def bare_rock_path(launch_counts):
+    """Path i: the bare rock (planet_type="no_atmosphere", 2 layers by
+    definition) of tests/test_surface_modes.py:87-100 at the flagship's
+    widths, to convergence: both layers at 1.001 K and the surface within
+    0.5% of the analytic f^(1/4) (R*/a)^(1/2) T*."""
+    from helios_tpu_torch import pipeline
+    from helios_tpu_torch.config import HeliosConfig
+
+    cfg = HeliosConfig(
+        planet="manual", g=981.0, a=0.05, R_planet=0.09, R_star=0.5,
+        T_star=3500.0, T_intern=0.0, planet_type="no_atmosphere",
+        surf_albedo=0.1, f_factor=0.6667, scattering="no", direct_beam="no",
+        convection="no", run_type="iterative", iso_input="yes",
+        rad_convergence_limit=1e-6).finalize()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = pipeline.run(cfg, flagship_table(), write_output=False,
+                       device=DEVICE)
+    launch_counts.update(read_counts())
+    phys, T = out.phys, out.T_lay.cpu().numpy()
+    check(phys.no_atmo == 1 and phys.nlayer == 2, "bare rock: not 2 layers")
+    res = rce_summary("bare rock path", out, launch_counts, "iso_sweep")
+    T_eq = 0.6667 ** 0.25 * (phys.R_star / phys.a) ** 0.5 * phys.T_star
+    check(np.all(T[:2] == 1.001), f"bare rock: layers at {T[:2]}")
+    rel = abs(T[2] / T_eq - 1.0)
+    check(rel <= 0.005, f"bare rock: surface {T[2]:.3f} K, analytic "
+          f"{T_eq:.3f} K")
+    log(f"bare rock path: surface {T[2]:.4f} K against the analytic "
+        f"{T_eq:.4f} K ({100 * rel:.3f}%, limit 0.5%)")
+    res.update(T_surf=float(T[2]), T_eq=T_eq)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1160,7 +1492,9 @@ def main():
     counts = {p: {} for p in ("flagship_rce", "post_processing", "iso_rce",
                               "matrix_rce", "matrix_post_processing",
                               "on_the_fly_rce",
-                              "on_the_fly_post_processing")}
+                              "on_the_fly_post_processing", "cloudy_rce",
+                              "cloudy_post_processing", "rocky_rce",
+                              "bare_rock_rce", "cloudy_matrix_forward")}
     out, T_start = main_path(counts["flagship_rce"])
     T_start = torch.as_tensor(T_start, dtype=out.T_lay.dtype, device=DEVICE)
     time_breakdown("flagship", out.phys, out.arrays, T_start,
@@ -1175,6 +1509,15 @@ def main():
                                pp["toa"])
     otf = otf_path(counts["on_the_fly_rce"],
                    counts["on_the_fly_post_processing"])
+    with tempfile.TemporaryDirectory() as cloud_dir:
+        cl = cloudy_path(cloud_dir, counts["cloudy_rce"])
+        postprocessing_path(cl["out"], counts["cloudy_post_processing"],
+                            i64["ms_1001"], cfg_kw=cl["cfg_kw"],
+                            extra_files=CLOUD_FILES,
+                            label="cloudy post-processing path")
+        cloudy_matrix_path(cl, counts["cloudy_matrix_forward"])
+    rocky_path(counts["rocky_rce"])
+    bare_rock_path(counts["bare_rock_rce"])
     for path, c in counts.items():
         log(f"launches on the {path} path: {c}")
 

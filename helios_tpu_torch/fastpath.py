@@ -94,36 +94,59 @@ def _rev_cumsum_above(dtau):
     return torch.cat([rev, torch.zeros_like(dtau[:1])], dim=0)
 
 
+def mu_star_matrix(z_lay, mu_star, R_planet, ninterface: int):
+    """mu(i, j) [I, L]: the zenith cosine seen at interface i through layer
+    j with the geometric zenith-angle correction (ops/beam.py:26-41 of
+    helios_tpu; reference kernels.cu:1296-1303).  As in the reference,
+    interface i is paired with layer centre i (z has L entries, so the top
+    interface reuses the top layer's z; no layer lies above it).  mu* is
+    negative, and so is the root."""
+    z_i = torch.cat([z_lay, z_lay[-1:]])                 # [I]
+    ratio = (R_planet + z_i[:, None]) / (R_planet + z_lay[None, :])
+    return -torch.sqrt(1.0 - ratio ** 2 * (1.0 - mu_star ** 2))
+
+
 def fdir_iso_flat(planck_star_flat, delta_tau_tot, mu_weights, *,
                   mu_star, R_star, a, dir_beam):
-    """Flat isothermal direct beam: F_dir [I, S], plain mu* (cumulative
-    optical depth above each interface).  The geometric zenith-corrected
-    form (``mu_weights`` given) is not ported yet."""
-    if mu_weights is not None:
-        raise NotImplementedError(
-            "geometric zenith-angle correction (mu_weights) is not ported")
+    """Flat isothermal direct beam: F_dir [I, S].  ``mu_weights=None``:
+    plain mu*, the exponent a cumulative optical depth above each
+    interface.  ``mu_weights`` [I, L], the masked 1/mu(i, j) of the
+    geometric zenith correction: the exponent is one matrix product
+    mu_weights @ delta_tau (O(L^2 S), no [I, L, S] intermediate)."""
     I_dir = (R_star / a) ** 2 * pc.PI * planck_star_flat   # [S]
-    expo = _rev_cumsum_above(delta_tau_tot) / mu_star
+    if mu_weights is None:
+        expo = _rev_cumsum_above(delta_tau_tot) / mu_star
+    else:
+        expo = torch.matmul(mu_weights, delta_tau_tot)
     F0 = -dir_beam * mu_star * I_dir
     return F0[None, :] * torch.exp(expo)
 
 
 def fdir_noniso_flat(planck_star_flat, dtau_up, dtau_low, mu_weights,
                      mu_diag, *, mu_star, R_star, a, dir_beam):
-    """Flat non-isothermal direct beam: (F_dir [I,S], Fc_dir [L,S]), plain
-    mu* (cumulative optical depth above each interface).  The geometric
-    zenith-corrected form (``mu_weights`` given) is not ported yet."""
-    if mu_weights is not None or mu_diag is not None:
-        raise NotImplementedError(
-            "geometric zenith-angle correction (mu_weights) is not ported")
+    """Flat non-isothermal direct beam: (F_dir [I,S], Fc_dir [L,S]).
+    ``mu_weights=None``: plain mu*, cumulative optical depths.  Else
+    ``mu_weights`` [I, L] is the masked 1/mu(i, j) and ``mu_diag`` [L]
+    mu(i, i) of the geometric zenith correction, and the exponents are
+    matrix products as in fdir_iso_flat."""
     I_dir = (R_star / a) ** 2 * pc.PI * planck_star_flat
     dtau_full = dtau_up + dtau_low
     F0 = -dir_beam * mu_star * I_dir
-    above = _rev_cumsum_above(dtau_full)
-    F_dir = F0[None, :] * torch.exp(above / mu_star)
-    # Fc_dir[i]: full layers strictly above i + upper half of layer i
-    Fc_dir = F0[None, :] * torch.exp((above[1:] + dtau_up) / mu_star)
-    return F_dir, Fc_dir
+    if mu_weights is None:
+        above = _rev_cumsum_above(dtau_full)
+        F_dir = F0[None, :] * torch.exp(above / mu_star)
+        # Fc_dir[i]: full layers strictly above i + upper half of layer i
+        Fc_dir = F0[None, :] * torch.exp((above[1:] + dtau_up) / mu_star)
+        return F_dir, Fc_dir
+
+    F_dir = F0[None, :] * torch.exp(torch.matmul(mu_weights, dtau_full))
+    L = dtau_up.shape[0]
+    idx = torch.arange(L, device=dtau_up.device)
+    W_above = torch.where(idx[None, :] > idx[:, None], mu_weights[:L],
+                          torch.zeros_like(mu_weights[:L]))
+    expo_c = (torch.matmul(W_above, dtau_full)
+              + dtau_up / mu_diag[:, None])
+    return F_dir, F0[None, :] * torch.exp(expo_c)
 
 
 # --------------------------------------------------------------------------- #

@@ -5,13 +5,15 @@ Per iteration of the reference's radiation loop (computation.py:856-888):
 temperature interpolation -> Planck lookup -> opacity interpolation (from
 the premixed table, or species mixed on the fly from a
 :class:`helios_tpu_torch.chem.SpeciesSet`) -> half-layer cell quantities
--> altitude -> direct beam -> flux solve (iterative sweeps or the Thomas
-matrix method) -> integration.  Static physics scalars live in
-:class:`Phys`; tensors in :class:`ModelArrays`, on the device chosen in
-:func:`build_model`.
+-> altitude -> direct beam (with or without the geometric zenith-angle
+correction) -> flux solve (iterative sweeps or the Thomas matrix method)
+-> integration, with or without cloud decks, on a gas planet, a rocky
+surface or a bare rock (``planet_type="no_atmosphere"``).  Static physics
+scalars live in :class:`Phys`; tensors in :class:`ModelArrays`, on the
+device chosen in :func:`build_model`.
 
-Not ported yet (raise ``NotImplementedError``): clouds, the geometric
-zenith-angle correction and the no-atmosphere mode.
+Not ported yet (raises ``NotImplementedError``): a stellar spectrum from a
+file (``stellar_model="file"``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from helios_tpu_torch.io.opacity import OpacityTable, gauss_legendre_ypoints
 from helios_tpu_torch.ops import integrate as int_ops
 from helios_tpu_torch.ops import interp as interp_ops
 from helios_tpu_torch.ops import thomas as thomas_ops
+from helios_tpu_torch.ops import twostream as ts_ops
 
 
 @dataclass(frozen=True)
@@ -162,7 +165,7 @@ class ModelArrays(NamedTuple):
     planck_grid: torch.Tensor       # [dim+1, B]
     starflux: torch.Tensor          # [B]
     surf_albedo: torch.Tensor       # [B]
-    # clouds (zeros: clouds are not ported yet)
+    # clouds (zeros if inactive)
     cloud_abs_cross_lay: torch.Tensor   # [L, B]
     cloud_scat_cross_lay: torch.Tensor  # [L, B]
     g_0_cloud_lay: torch.Tensor         # [L, B]
@@ -214,25 +217,24 @@ def init_flux_state(phys: Phys, dtype, device) -> FluxState:
 
 def _check_supported(phys: Phys):
     """Raise for the configurations this port does not cover yet."""
-    missing = []
-    if phys.clouds:
-        missing.append("clouds")
-    if phys.no_atmo:
-        missing.append("planet_type='no_atmosphere'")
-    if phys.dir_beam and phys.geom_zenith_corr:
-        missing.append("geometric zenith-angle correction")
-    if missing:
+    if phys.real_star:
         raise NotImplementedError(
-            "not ported to helios_tpu_torch yet: " + ", ".join(missing))
+            "not ported to helios_tpu_torch yet: stellar_model='file'")
 
 
 def build_model(cfg: HeliosConfig, table: OpacityTable, *,
+                surf_albedo: Optional[np.ndarray] = None, cloud_result=None,
                 device="cuda") -> Tuple[Phys, ModelArrays]:
     """Assemble (Phys, ModelArrays) from a finalized config and an opacity
     table (premixed, or with on-the-fly mixing the donor of the spectral,
     T and P grids), with the tensors on ``device`` (default CUDA; raises
     if CUDA is absent).  The star is a blackbody (no stellar spectrum
-    file) and the surface albedo the config's constant."""
+    file).  ``surf_albedo`` [B] is the surface albedo per bin (default:
+    the config's constant, 0 when the config names a file, as in
+    helios_tpu); ``cloud_result`` a
+    :class:`helios_tpu_torch.clouds.CloudDeckResult` (default: no
+    clouds).  With ``planet_type="no_atmosphere"`` the gas opacity is
+    1e-30 (read.py:1014-1023)."""
     dev = resolve_device(device)
     phys = Phys.from_config(cfg, nbin=table.nbin, ny=table.ny)
     _check_supported(phys)
@@ -259,12 +261,14 @@ def build_model(cfg: HeliosConfig, table: OpacityTable, *,
                 real_star=phys.real_star, T_star=phys.T_star,
                 dim=phys.plancktable_dim))
 
-    if isinstance(cfg.surf_albedo, str):
-        raise NotImplementedError("surf_albedo='file' is not ported")
-    surf_albedo = np.full(table.nbin, cfg.surf_albedo, cfg.np_dtype)
+    if surf_albedo is None:
+        alb = cfg.surf_albedo if not isinstance(cfg.surf_albedo, str) else 0.0
+        surf_albedo = np.full(table.nbin, alb, cfg.np_dtype)
 
     L, B = phys.nlayer, phys.nbin
     kpoints = table.kpoints
+    if phys.no_atmo:
+        kpoints = np.full_like(kpoints, 1e-30)
     scat_tab = table.scat_cross
     mmm_tab = table.meanmolmass
     if scat_tab is None:
@@ -273,6 +277,8 @@ def build_model(cfg: HeliosConfig, table: OpacityTable, *,
         mmm_tab = np.full(kpoints.shape[:2], 2.3 * pc.AMU, cfg.np_dtype)
 
     zeros = lambda *shape: torch.zeros(shape, dtype=dt, device=dev)
+    cloud = lambda name, *shape: (zeros(*shape) if cloud_result is None
+                                  else t(getattr(cloud_result, name)))
     arrays = ModelArrays(
         p_lay=t(g.p_lay), p_int=t(g.p_int),
         delta_colmass=t(g.delta_colmass),
@@ -286,9 +292,12 @@ def build_model(cfg: HeliosConfig, table: OpacityTable, *,
         gauss_y=t(table.gauss_y), gauss_weight=t(gauss_w),
         planck_grid=planck_grid, starflux=starflux,
         surf_albedo=t(surf_albedo),
-        cloud_abs_cross_lay=zeros(L, B), cloud_scat_cross_lay=zeros(L, B),
-        g_0_cloud_lay=zeros(L, B), cloud_abs_cross_int=zeros(L + 1, B),
-        cloud_scat_cross_int=zeros(L + 1, B), g_0_cloud_int=zeros(L + 1, B),
+        cloud_abs_cross_lay=cloud("abs_cross_lay", L, B),
+        cloud_scat_cross_lay=cloud("scat_cross_lay", L, B),
+        g_0_cloud_lay=cloud("g_0_lay", L, B),
+        cloud_abs_cross_int=cloud("abs_cross_int", L + 1, B),
+        cloud_scat_cross_int=cloud("scat_cross_int", L + 1, B),
+        g_0_cloud_int=cloud("g_0_int", L + 1, B),
         add_heat_dens=zeros(L), star_corr_factor=star_corr)
     return phys, arrays
 
@@ -341,6 +350,14 @@ def _gas_properties(phys: Phys, m: ModelArrays, T, p, sset):
     return opac, scat, mmm
 
 
+def _effective_g0(phys: Phys, scat_band, cloud_scat, g0_cloud):
+    """The asymmetry per band: the config's g_0, or with clouds the
+    scattering-weighted mean of gas and clouds."""
+    if phys.clouds:
+        return ts_ops.g0_total(scat_band, g0_cloud, cloud_scat, phys.g_0)
+    return torch.full_like(scat_band, phys.g_0)
+
+
 def compute_cells(phys: Phys, m: ModelArrays, T_lay, T_int,
                   sset=None) -> CellCache:
     """Opacity interpolation (or on-the-fly mixing of ``sset``) + layer
@@ -367,7 +384,8 @@ def compute_cells(phys: Phys, m: ModelArrays, T_lay, T_int,
         ray_lay = torch.zeros_like(scat_lay)
         cld_scat_lay = torch.zeros_like(m.cloud_scat_cross_lay)
         cld_scat_int = torch.zeros_like(m.cloud_scat_cross_int)
-    g0_lay = torch.full_like(scat_lay, phys.g_0)
+    g0_lay = _effective_g0(phys, scat_lay, m.cloud_scat_cross_lay,
+                           m.g_0_cloud_lay)
 
     kw = dict(epsi=phys.epsi, epsi2=phys.epsi2, mu_star=phys.mu_star,
               w_0_limit=phys.w_0_limit, scat_corr=phys.scat_corr,
@@ -381,6 +399,17 @@ def compute_cells(phys: Phys, m: ModelArrays, T_lay, T_int,
     zeros = lambda *shape: torch.zeros(shape, dtype=opac_lay.dtype,
                                        device=opac_lay.device)
 
+    # the masked 1/mu(i, j) [I, L] only for the geometric zenith
+    # correction; the plain-mu* beam takes cumulative sums in fdir_*_flat
+    if phys.dir_beam and phys.geom_zenith_corr:
+        mu_mat = fp.mu_star_matrix(z_lay, phys.mu_star, phys.R_planet, nint)
+        idx = torch.arange(L, device=z_lay.device)
+        mask = idx[None, :] >= torch.arange(nint, device=z_lay.device)[:, None]
+        mu_weights = torch.where(mask, 1.0 / mu_mat, torch.zeros_like(mu_mat))
+        mu_diag = torch.diagonal(mu_mat[:L])
+    else:
+        mu_weights = mu_diag = None
+
     if phys.iso:
         cells = fp.cell_quantities_flat(
             opac_lay, mmm_lay, ray_lay, m.cloud_abs_cross_lay,
@@ -389,7 +418,7 @@ def compute_cells(phys: Phys, m: ModelArrays, T_lay, T_int,
             # the reference attenuates the direct beam through the gas-only
             # optical depth (delta_tau_wg, kernels.cu:1306)
             F_dir = fp.fdir_iso_flat(
-                planck_star_flat, cells.delta_tau, None,
+                planck_star_flat, cells.delta_tau, mu_weights,
                 mu_star=phys.mu_star, R_star=phys.R_star, a=phys.a,
                 dir_beam=phys.dir_beam)
         else:
@@ -403,7 +432,8 @@ def compute_cells(phys: Phys, m: ModelArrays, T_lay, T_int,
         opac_int, scat_int, mmm_int = _gas_properties(phys, m, T_int,
                                                       m.p_int, sset)
         ray_int = scat_int if phys.scat else torch.zeros_like(scat_int)
-        g0_int = torch.full_like(scat_int, phys.g_0)
+        g0_int = _effective_g0(phys, scat_int, m.cloud_scat_cross_int,
+                               m.g_0_cloud_int)
 
         # upper/lower half-layer averages (calc_trans_noniso,
         # kernels.cu:1171-1196)
@@ -429,10 +459,11 @@ def compute_cells(phys: Phys, m: ModelArrays, T_lay, T_int,
                         | torch.any(lower.w0 > phys.w_0_scat_limit, dim=0))
 
         if phys.dir_beam:
+            # the gas-only optical depths, as in the iso branch
             F_dir, Fc_dir = fp.fdir_noniso_flat(
-                planck_star_flat, upper.delta_tau, lower.delta_tau, None,
-                None, mu_star=phys.mu_star, R_star=phys.R_star, a=phys.a,
-                dir_beam=phys.dir_beam)
+                planck_star_flat, upper.delta_tau, lower.delta_tau,
+                mu_weights, mu_diag, mu_star=phys.mu_star,
+                R_star=phys.R_star, a=phys.a, dir_beam=phys.dir_beam)
         else:
             F_dir = zeros(nint, S)
             Fc_dir = zeros(L, S)

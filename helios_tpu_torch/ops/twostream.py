@@ -65,3 +65,11 @@ def _G_pm(w0, g0, epsi, epsi2, mu_star, scat_corr: int, i2s_transition,
 def G_limiter(G):
     """Clamp |G| <= 1e8 (kernels.cu:218-231)."""
     return torch.where(torch.abs(G) < 1e8, G, 1e8 * torch.sign(G))
+
+
+def g0_total(scat_cross, g_0_clouds, scat_cross_clouds, g_0: float):
+    """Scattering-weighted mean asymmetry of gas + clouds
+    (calc_total_g_0_of_gas_and_clouds, kernels.cu:472-492).  [L_or_I, B]."""
+    num = g_0 * scat_cross + g_0_clouds * scat_cross_clouds
+    denom = scat_cross + scat_cross_clouds
+    return num / denom

@@ -3,17 +3,21 @@ the run_helios equivalent, helios.py:35-137): config -> model -> radiation
 loop -> convection loop -> diagnostics -> output files.
 
 Covered: the un-monitored, un-sharded path of an iterative run
-(isothermal or non-isothermal layers) and of a post-processing run, with a
-premixed opacity table or species mixed on the fly, with the iterative or
-the matrix flux method, started from the grid's initial profile or from a
-TP file ("helios", "TP" or "PT" format), with or without the output files.
-Monitoring, checkpoints, coupling, the Koll f-factor, meshes, clouds,
-real-gas thermodynamics (kappa from a file), stellar spectra from files,
-extra heating and physical timestepping raise ``NotImplementedError``.
+(isothermal or non-isothermal layers, the adaptive or a physical timestep)
+and of a post-processing run, with a premixed opacity table or species
+mixed on the fly, with the iterative or the matrix flux method, with or
+without cloud decks and the geometric zenith-angle correction, on a gas
+planet, a rocky surface (the surface albedo a constant or from a file, the
+Koll f-factor) or a bare rock, with or without additional heating, started
+from the grid's initial profile or from a TP file ("helios", "TP" or "PT"
+format), with or without the output files.  Monitoring, checkpoints,
+coupling, meshes, real-gas thermodynamics (kappa from a file) and stellar
+spectra from files raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from dataclasses import dataclass
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from helios_tpu_torch import chem
+from helios_tpu_torch import clouds as clouds_mod
 from helios_tpu_torch import fastpath as fp
 from helios_tpu_torch import grid as grid_mod
 from helios_tpu_torch import host_physics as hp
@@ -109,14 +114,6 @@ def _check_run_supported(cfg: HeliosConfig):
     missing = []
     if cfg.stellar_model != "blackbody":
         missing.append(f"stellar_model={cfg.stellar_model!r}")
-    if isinstance(cfg.surf_albedo, str):
-        missing.append("surf_albedo='file'")
-    if cfg.add_heating:
-        missing.append("additional heating")
-    if cfg.physical_tstep != 0.0:
-        missing.append("physical timestepping")
-    if cfg.approx_f and cfg.planet_type == "rocky":
-        missing.append("the Koll f-factor approximation")
     if int(cfg.n_spectral_shards) > 1 or int(cfg.n_planet_batch) > 1:
         missing.append("meshes (n_spectral_shards / n_planet_batch)")
     if (cfg.checkpoint_every > 0 or cfg.realtime_plot or cfg.metrics_file
@@ -177,9 +174,11 @@ def post_process(phys: Phys, m: ModelArrays, T_lay, flux_state: FluxState,
 def collect_result(cfg: HeliosConfig, phys: Phys, m: ModelArrays, final_T,
                    post, *, conv_unstable=None, conv_layer=None,
                    F_smooth_sum=None, kappa_lay=None, c_p_lay=None,
-                   relaxed=0, final_limit=None) -> writers.RunResult:
+                   relaxed=0, final_limit=None,
+                   cloud_result=None) -> writers.RunResult:
     """Assemble the host-side RunResult snapshot: the device tensors are
-    moved to numpy here, at the end of the run."""
+    moved to numpy here, at the end of the run.  ``cloud_result``: the
+    run's cloud decks, whose fields the cloud files print."""
     L = phys.nlayer
     cache = post["cache"]
     totals = post["totals"]
@@ -231,7 +230,9 @@ def collect_result(cfg: HeliosConfig, phys: Phys, m: ModelArrays, final_T,
         planckband_int=h(planckband_int),
         opac_band_lay=h(means["opac_band_lay"]),
         scat_cross_lay=h(cache.scat_cross_lay),
-        g_0_tot_lay=np.full((L, phys.nbin), phys.g_0),
+        g_0_tot_lay=(h(cache.cells_or_upper.g0).reshape(
+            L, phys.nbin, phys.ny)[:, :, 0] if phys.clouds
+            else np.full((L, phys.nbin), phys.g_0)),
         trans_band=h(post["trans_band"]),
         delta_tau_band=h(post["dtau_band"]),
         contr_func_band=h(post["contr_band"]),
@@ -245,6 +246,14 @@ def collect_result(cfg: HeliosConfig, phys: Phys, m: ModelArrays, final_T,
         rad_convergence_limit=(float(final_limit) if final_limit is not None
                                else phys.rad_convergence_limit),
     )
+    if cloud_result is not None:
+        r.f_all_clouds_lay = cloud_result.f_lay
+        r.abs_cross_all_clouds_lay = cloud_result.abs_cross_lay
+        r.scat_cross_all_clouds_lay = cloud_result.scat_cross_lay
+        r.delta_tau_all_clouds = (
+            r.delta_colmass[:, None] * (cloud_result.abs_cross_lay
+                                        + cloud_result.scat_cross_lay)
+            / r.meanmolmass_lay[:, None])
     r.F_net_conv = writers.calculate_conv_flux(r)
     return r
 
@@ -309,6 +318,39 @@ def build_species_set_from_files(cfg: HeliosConfig, *, device="cuda"):
     return sset, donor
 
 
+def prepare_model(cfg: HeliosConfig, table: OpacityTable, *, device="cuda"):
+    """Input preprocessing and model assembly (helios.py:56-79): the Koll
+    f-factor of a rocky planet, the surface albedo, the cloud decks and
+    the additional heating.  Returns (phys, arrays on ``device``,
+    cloud_result or None).  The star stays a blackbody."""
+    if cfg.approx_f and cfg.planet_type == "rocky":
+        # Koll (2021) f-factor, from the tau_lw of an earlier run's file
+        # when there is one (helios.py:67-68)
+        tau_lw = hp.read_tau_lw_from_file(cfg.output_dir, cfg.name)
+        if tau_lw is None:
+            tau_lw = cfg.tau_lw
+        cfg = dataclasses.replace(cfg, tau_lw=tau_lw, f_factor=(
+            hp.approx_f_from_formula(tau_lw=tau_lw, p_boa=cfg.p_boa,
+                                     R_star=cfg.R_star, a=cfg.a,
+                                     T_star=cfg.T_star)))
+
+    surf_albedo = hp.load_surf_albedo(cfg, table.wave_centers)
+    cloud_result = None
+    if cfg.clouds:
+        g = grid_mod.build_grid(cfg.p_boa, cfg.p_toa, cfg.nlayer, cfg.g)
+        cloud_result = clouds_mod.cloud_pre_processing(
+            cfg, table.wave_centers, table.wave_edges, g.p_lay, g.p_int,
+            cfg.iso)
+
+    phys, arrays = build_model(cfg, table, surf_albedo=surf_albedo,
+                               cloud_result=cloud_result, device=device)
+    if cfg.add_heating:
+        heat = hp.load_additional_heating(cfg, arrays.p_lay.cpu().numpy())
+        arrays = arrays._replace(add_heat_dens=torch.as_tensor(
+            heat, dtype=arrays.p_lay.dtype, device=arrays.p_lay.device))
+    return phys, arrays, cloud_result
+
+
 # --------------------------------------------------------------------------- #
 # the run
 # --------------------------------------------------------------------------- #
@@ -360,7 +402,7 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
     if table is None:
         table = load_opacity_file(cfg.opacity_path)
 
-    phys, arrays = build_model(cfg, table, device=dev)
+    phys, arrays, cloud_result = prepare_model(cfg, table, device=dev)
     thermo = make_thermo(cfg)
     T0 = torch.as_tensor(initial_temperatures(cfg, phys, arrays),
                          dtype=torch_dtype(cfg.dtype), device=dev)
@@ -397,7 +439,7 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
         F_smooth_sum=final.F_smooth_sum, kappa_lay=kappa_lay,
         c_p_lay=c_p_lay,
         relaxed=int(final_limit > phys.rad_convergence_limit * 1.5),
-        final_limit=final_limit)
+        final_limit=final_limit, cloud_result=cloud_result)
 
     if write_output:
         writers.write_all(result)

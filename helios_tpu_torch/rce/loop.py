@@ -5,7 +5,8 @@
 As in the radiation loop, the iteration counter is a host int.  The
 counter advances only while the run is not done (computation.py:1109-1164),
 so each iteration reads that one device flag back; from iteration 400 on,
-since before it the run cannot be done.
+since before it the run cannot be done.  With a physical timestep the loop
+makes one convective adjustment and flux solve and no temperature step.
 """
 
 from __future__ import annotations
@@ -129,7 +130,13 @@ def _one_convection_iteration(phys: Phys, m: ModelArrays,
         T_adj, conv_layer, totals.F_net, totals.F_down_tot,
         F_intern=phys.F_intern, F_add_heat_sum=cache.F_add_heat_sum,
         F_smooth_sum=s.F_smooth_sum, rad_convergence_limit=s.local_limit)
-    not_done = s.it < 400 or bool((~criterion) | (conv_layer.sum() == 0))
+    if phys.physical_tstep != 0.0:
+        # one convective adjustment only, no temperature iteration
+        # (computation.py:1109-1111)
+        not_done = False
+    else:
+        not_done = s.it < 400 or bool((~criterion)
+                                      | (conv_layer.sum() == 0))
 
     # --- radiative forward step while not converged ---
     if not_done:
@@ -170,8 +177,6 @@ def convection_loop(phys: Phys, m: ModelArrays, thermo: ThermoProps,
     (relative to entry); ``sset`` is the species set of on-the-fly opacity
     mixing; ``state0`` continues a previous state instead.
     """
-    if phys.physical_tstep != 0.0:
-        raise NotImplementedError("physical timestepping is not ported")
     if state0 is not None:
         state = state0
         start_it = state0.it

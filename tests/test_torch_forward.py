@@ -149,23 +149,27 @@ def test_compute_cells_pieces_match(models):
 
 
 def test_fdir_noniso_flat_matches():
-    """The cumulative-optical-depth direct beam on random inputs."""
+    """The direct beam on random inputs: with plain mu* (cumulative
+    optical depths), and with the geometric zenith correction's weights
+    (one matrix product in the port, a broadcast-multiply sum in JAX)."""
     rng = np.random.default_rng(5)
     L, S = 11, 48
     star = rng.uniform(1e3, 1e6, S)
     up = rng.uniform(0.0, 2.0, (L, S))
     low = rng.uniform(0.0, 2.0, (L, S))
-    kw = dict(mu_star=-0.6, R_star=6.9e10, a=4.5e12, dir_beam=1)
-    want = jfp.fdir_noniso_flat(jnp.asarray(star), jnp.asarray(up),
-                                jnp.asarray(low), None, None, **kw)
-    got = tfp.fdir_noniso_flat(torch.tensor(star), torch.tensor(up),
-                               torch.tensor(low), None, None, **kw)
-    for g, w in zip(got, want):
-        H.assert_close(g.numpy(), w, rtol=1e-12)
-    with pytest.raises(NotImplementedError):
-        tfp.fdir_noniso_flat(torch.tensor(star), torch.tensor(up),
-                             torch.tensor(low), torch.ones(L + 1, L),
-                             torch.ones(L), **kw)
+    kw = dict(mu_star=-0.17, R_star=6.9e10, a=4.5e12, dir_beam=1)
+    weights, diag = H.zenith_weights(L, kw["mu_star"])
+    for mu_w, mu_d in ((None, None), (weights, diag)):
+        want = jfp.fdir_noniso_flat(
+            jnp.asarray(star), jnp.asarray(up), jnp.asarray(low),
+            None if mu_w is None else jnp.asarray(mu_w),
+            None if mu_d is None else jnp.asarray(mu_d), **kw)
+        got = tfp.fdir_noniso_flat(
+            torch.tensor(star), torch.tensor(up), torch.tensor(low),
+            None if mu_w is None else torch.tensor(mu_w),
+            None if mu_d is None else torch.tensor(mu_d), **kw)
+        for g, w in zip(got, want):
+            H.assert_close(g.numpy(), w, rtol=1e-12)
 
 
 def _forward_pair(models, jarr_use, tarr_use):

@@ -249,21 +249,23 @@ def test_iso_compute_cells_pieces_match(models):
 
 
 def test_fdir_iso_flat_matches():
-    """The cumulative-optical-depth direct beam on random inputs; the
-    zenith-corrected form raises."""
+    """The direct beam on random inputs: with plain mu* (cumulative
+    optical depths), and with the geometric zenith correction's weights
+    (one matrix product in the port, a broadcast-multiply sum in JAX)."""
     rng = np.random.default_rng(5)
     L, S = 11, 48
     star = rng.uniform(1e3, 1e6, S)
     dtau = rng.uniform(0.0, 2.0, (L, S))
-    kw = dict(mu_star=-0.6, R_star=6.9e10, a=4.5e12, dir_beam=1)
-    want = jfp.fdir_iso_flat(jnp.asarray(star), jnp.asarray(dtau), None,
-                             **kw)
-    got = tfp.fdir_iso_flat(torch.tensor(star), torch.tensor(dtau), None,
-                            **kw)
-    H.assert_close(got.numpy(), want, rtol=1e-12)
-    with pytest.raises(NotImplementedError):
-        tfp.fdir_iso_flat(torch.tensor(star), torch.tensor(dtau),
-                          torch.ones(L + 1, L), **kw)
+    kw = dict(mu_star=-0.17, R_star=6.9e10, a=4.5e12, dir_beam=1)
+    weights, _ = H.zenith_weights(L, kw["mu_star"])
+    for mu_w in (None, weights):
+        want = jfp.fdir_iso_flat(
+            jnp.asarray(star), jnp.asarray(dtau),
+            None if mu_w is None else jnp.asarray(mu_w), **kw)
+        got = tfp.fdir_iso_flat(
+            torch.tensor(star), torch.tensor(dtau),
+            None if mu_w is None else torch.tensor(mu_w), **kw)
+        H.assert_close(got.numpy(), want, rtol=1e-12)
 
 
 def _forward_pair(models, jarr_use, tarr_use):

@@ -50,6 +50,16 @@ def test_imports_neither_jax_nor_helios_tpu(path):
             f"{path.name} imports {mod}")
 
 
+def test_import_check_holds_the_host_copies():
+    """The JAX-free host modules the port keeps copies of (clouds and tools
+    among them) are held by the import check above, as is chip_smoke.py."""
+    checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for name in ("clouds", "tools", "host_physics", "config", "io/writers",
+                 "io/opacity"):
+        assert f"helios_tpu_torch/{name}.py" in checked, name
+    assert "chip_smoke.py" in checked
+
+
 @pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():
@@ -68,14 +78,22 @@ def test_default_device_raises_without_cuda(no_cuda):
 
 
 def test_unported_paths_raise(tmp_path):
+    """What the port does not cover yet raises NotImplementedError with
+    its name: a stellar spectrum from a file (in the model and in the
+    run), tabulated thermodynamics, meshes and monitoring."""
     table = synthetic_premixed_table(nbin=4, ny=2, ntemp=4, npress=4)
-    for kw, what in ((dict(nr_cloud_decks=1), "clouds"),
-                     (dict(planet_type="no_atmosphere"), "no_atmosphere"),
-                     (dict(direct_beam="yes", geom_zenith_corr="yes"),
-                      "zenith")):
-        cfg = HeliosConfig(nlayer=6, **kw).finalize()
+    with pytest.raises(NotImplementedError, match="stellar_model='file'"):
+        tf.build_model(HeliosConfig(nlayer=6, stellar_model="file"
+                                    ).finalize(), table, device="cpu")
+    for kw, what in ((dict(stellar_model="file"), "stellar_model"),
+                     (dict(kappa_value="file"), "kappa_value"),
+                     (dict(n_spectral_shards=2), "meshes"),
+                     (dict(n_planet_batch=2), "meshes"),
+                     (dict(progress="yes"), "monitoring"),
+                     (dict(checkpoint_every=10), "monitoring")):
+        cfg = HeliosConfig(nlayer=6, **kw)
         with pytest.raises(NotImplementedError, match=what):
-            tf.build_model(cfg, table, device="cpu")
+            torch_pipeline.run(cfg, table, write_output=False, device="cpu")
     with pytest.raises(NotImplementedError, match="kappa_value"):
         torch_pipeline.make_thermo(HeliosConfig(kappa_value="file"))
     # a TP file format other than helios/TP/PT is refused, as in helios_tpu
@@ -288,3 +306,60 @@ def test_cuda_ro_kernel_matches_plain(cuda_device, dtype, ny):
             assert negligible_overlap(ts[0], ts[1]).all()
         if label == "tiny weight":
             assert general.equal(~negligible_overlap(ts[0], ts[1]))
+
+
+def _write_mie_dir(path):
+    """A synthetic LX-Mie directory over the 51 radii of R_VALUES_MICRON
+    (the recipe of tests/test_clouds.py:74-90)."""
+    from helios_tpu_torch.clouds import R_VALUES_MICRON
+    path.mkdir()
+    lam_um = np.geomspace(0.3, 30.0, 50)
+    for r in R_VALUES_MICRON:
+        x = 2 * np.pi * r / lam_um
+        rows = np.column_stack([lam_um, 0 * x, 0 * x,
+                                1e-8 * r ** 2 * np.minimum(x ** 4, 2.0),
+                                1e-8 * r ** 2 * np.minimum(x, 1.0), 0 * x,
+                                np.clip(0.9 * np.minimum(x, 1.0), 0, 1)])
+        np.savetxt(path / "r{:.6f}.dat".format(r), rows, fmt="%.6e",
+                   header="lam c2 c3 scat abs c5 g0")
+    return str(path)
+
+
+@pytest.mark.parametrize("iso,method,kscale", [
+    ("yes", "iteration", 1.0), ("no", "iteration", 1.0),
+    ("no", "matrix", 1e-6)])
+def test_cuda_cloudy_zenith_forward_matches_cpu(cuda_device, tmp_path, iso,
+                                                 method, kscale):
+    """One forward solve with a cloud deck, scattering and the
+    zenith-corrected beam (80 degrees) on the card against the same call
+    on the CPU: the totals at 1e-10, with the flux method's kernels
+    launched.  The matrix method runs on a translucent atmosphere: in
+    columns opaque from top to bottom its unpivoted elimination turns a
+    last-bit difference into ~1e-6 of F_down (ROADMAP C)."""
+    table = synthetic_premixed_table(nbin=16, ny=4, ntemp=8, npress=6,
+                                     seed=1)
+    table.kpoints *= 10.0 * kscale
+    cfg = HeliosConfig(
+        planet="manual", g=2288.0, a=0.03142, R_planet=1.0, R_star=0.805,
+        T_star=5040.0, T_intern=700.0, nlayer=12, p_boa=1e9, p_toa=1e3,
+        scattering="yes", direct_beam="yes", zenith_angle_deg=80.0,
+        surf_albedo=0.3, iso_input=iso, flux_calc_method=method,
+        nr_cloud_decks=1, mie_dirs=[_write_mie_dir(tmp_path / "mie")],
+        cloud_radius_mode=[1.0], cloud_radius_geo_std=[1.5],
+        cloud_bottom_pressure=[1e7], cloud_bottom_mixing_ratio=[2e-19],
+        cloud_to_gas_scale_height=[0.8]).finalize()
+    assert cfg.geom_zenith_corr == 1 and cfg.clouds == 1
+    phys, arrays, _ = torch_pipeline.prepare_model(cfg, table,
+                                                   device=cuda_device)
+    T = torch.linspace(1500.0, 500.0, phys.nlayer + 1, dtype=torch.float64)
+    kernels = ([thomas_solve] if method == "matrix" else
+               [iso_sweep] if iso == "yes" else [noniso_sweep])
+    before = [k.launches for k in kernels]
+    gpu = tf.forward_fluxes(phys, arrays, T.to(cuda_device))[1]
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == [b + 1 for b in before]
+    cpu = tf.forward_fluxes(phys, tf.ModelArrays(*(a.cpu() for a in arrays)),
+                            T)[1]
+    for f in ("F_up_tot", "F_down_tot"):
+        torch.testing.assert_close(getattr(gpu, f).cpu(), getattr(cpu, f),
+                                   rtol=1e-10, atol=0.0, msg=f)

@@ -12,7 +12,6 @@ difference of 1e-12 can still flip the last printed digit, which is up to
 are residues of a cancellation; every non-numeric token must be equal.
 """
 
-import dataclasses
 import inspect
 import os
 
@@ -42,15 +41,6 @@ import torch_port_helpers as H
 # the direct beam and the stellar mean opacities are exercised
 HOT = dict(H.SMALL_RUN, R_star=0.805, T_star=5040.0, a=0.03142,
            direct_beam="yes")
-
-
-def _native_build(monkeypatch):
-    """Make helios_tpu.pipeline.run use the native fp64 Planck lookup."""
-    build = jax_pipeline.build_model
-    monkeypatch.setattr(
-        jax_pipeline, "build_model",
-        lambda *a, **k: (lambda pa: (pa[0], H.native_planck(pa[1])))(
-            build(*a, **k)))
 
 
 def _pt_file(path, fmt):
@@ -194,73 +184,6 @@ def test_post_process_matches(iso):
 # whole runs and their files
 # --------------------------------------------------------------------------- #
 
-def _rows(path):
-    with open(path) as f:
-        return [line.split() for line in f]
-
-
-def _number(tok):
-    try:
-        return float(tok)
-    except ValueError:
-        return None
-
-
-def assert_same_files(got_dir, want_dir, rtol=1e-5, col_atol=1e-9):
-    """The same file names, and in each file the same tokens: numbers at
-    rtol plus col_atol of the largest number in the same column (the same
-    position in its row), other tokens equal."""
-    names = sorted(os.listdir(want_dir))
-    assert sorted(os.listdir(got_dir)) == names
-    for name in names:
-        got = _rows(os.path.join(got_dir, name))
-        want = _rows(os.path.join(want_dir, name))
-        assert [len(r) for r in got] == [len(r) for r in want], name
-        scale = {}
-        for row in want:
-            for j, tok in enumerate(row):
-                x = _number(tok)
-                if x is not None:
-                    scale[j] = max(scale.get(j, 0.0), abs(x))
-        for i, (gr, wr) in enumerate(zip(got, want)):
-            for j, (g, w) in enumerate(zip(gr, wr)):
-                gx, wx = _number(g), _number(w)
-                where = f"{name} row {i} column {j}"
-                if wx is None:
-                    assert g == w, where
-                else:
-                    assert gx is not None, where
-                    tol = rtol * abs(wx) + col_atol * scale[j]
-                    assert abs(gx - wx) <= tol, (where, g, w)
-
-
-def _result_fields(r):
-    return {f.name: getattr(r, f.name) for f in dataclasses.fields(r)
-            if f.name not in ("output_dir",)}
-
-
-def assert_same_results(got, want, rtol, scale_atol, net_atol):
-    """Every field of two RunResults: arrays at rtol plus scale_atol of the
-    array's scale (net_atol of the flux scale for the net fluxes)."""
-    g, w = _result_fields(got), _result_fields(want)
-    assert sorted(g) == sorted(w)
-    flux_scale = float(np.abs(want.F_up_tot).max())
-    for k, wv in w.items():
-        gv = g[k]
-        if wv is None or isinstance(wv, (str, int, float)):
-            assert gv == wv or (isinstance(wv, float)
-                                and np.isclose(gv, wv, rtol=rtol)), k
-            continue
-        wv = np.asarray(wv, dtype=float)
-        gv = np.asarray(gv, dtype=float)
-        assert gv.shape == wv.shape, k
-        atol = scale_atol * float(np.abs(wv).max()) if wv.size else 0.0
-        if k.startswith("F_net"):
-            atol = net_atol * flux_scale
-        np.testing.assert_allclose(gv, wv, rtol=rtol, atol=atol + H.TINY,
-                                   err_msg=k)
-
-
 def test_postprocessing_run_matches_jax(tmp_path, monkeypatch):
     """BASELINE config 1 at the small size: a "PT" profile, post-processing
     (one solve of 1000*scat+1 = 1001 sweep passes, isothermal layers),
@@ -292,15 +215,15 @@ def test_postprocessing_run_matches_jax(tmp_path, monkeypatch):
         table=table, write_output=False)
     np.testing.assert_allclose(toa, pairs.result.F_up_band[L], rtol=1e-7)
 
-    _native_build(monkeypatch)
+    H.native_build(monkeypatch)
     native = jax_pipeline.run(
         JaxConfig(**kw, output_dir=str(tmp_path / "jax") + "/"),
         table=table, write_output=True)
     H.assert_close(toa, native.result.F_up_band[L], rtol=1e-12,
                    scale_atol=1e-14)
-    assert_same_results(got.result, native.result, rtol=1e-12,
+    H.assert_same_results(got.result, native.result, rtol=1e-12,
                         scale_atol=1e-14, net_atol=1e-12)
-    assert_same_files(tmp_path / "torch" / "c1", tmp_path / "jax" / "c1")
+    H.assert_same_files(tmp_path / "torch" / "c1", tmp_path / "jax" / "c1")
     assert "c1_TOA_flux_eclipse.dat" in os.listdir(tmp_path / "torch" / "c1")
 
 
@@ -317,14 +240,14 @@ def test_small_rce_run_writes_the_files_of_jax(tmp_path, monkeypatch):
         TorchConfig(**kw, output_dir=str(tmp_path / "torch") + "/"),
         table, write_output=True, device="cpu")
     assert got.conv is not None and got.conv.steps > 0
-    _native_build(monkeypatch)
+    H.native_build(monkeypatch)
     native = jax_pipeline.run(
         JaxConfig(**kw, output_dir=str(tmp_path / "jax") + "/"),
         table=table, write_output=True)
     assert got.conv.it == int(native.conv.it)
-    assert_same_results(got.result, native.result, rtol=1e-10,
+    H.assert_same_results(got.result, native.result, rtol=1e-10,
                         scale_atol=1e-12, net_atol=1e-10)
-    assert_same_files(tmp_path / "torch" / "rce", tmp_path / "jax" / "rce")
+    H.assert_same_files(tmp_path / "torch" / "rce", tmp_path / "jax" / "rce")
     assert "rce_tp.dat" in os.listdir(tmp_path / "torch" / "rce")
 
 
@@ -351,11 +274,11 @@ def test_approx_f_gas_planet_writes_the_tau_file_of_jax(tmp_path,
     torch_pipeline.run(
         TorchConfig(**kw, output_dir=str(tmp_path / "torch") + "/"),
         table, write_output=True, device="cpu")
-    _native_build(monkeypatch)
+    H.native_build(monkeypatch)
     jax_pipeline.run(JaxConfig(**kw, output_dir=str(tmp_path / "jax") + "/"),
                      table=table, write_output=True)
     tau_file = "kf_tau_lw_tau_sw_f_factor.dat"
     assert tau_file in os.listdir(tmp_path / "torch" / "kf")
-    rows = _rows(os.path.join(tmp_path, "torch", "kf", tau_file))
-    assert all(np.isfinite(_number(t)) for t in rows[-1])
-    assert_same_files(tmp_path / "torch" / "kf", tmp_path / "jax" / "kf")
+    rows = H.file_rows(os.path.join(tmp_path, "torch", "kf", tau_file))
+    assert all(np.isfinite(H.file_number(t)) for t in rows[-1])
+    H.assert_same_files(tmp_path / "torch" / "kf", tmp_path / "jax" / "kf")

@@ -7,6 +7,9 @@ premixed synthetic table (seed 1) made optically thick so that both the
 radiation and the convection loop run.
 """
 
+import dataclasses
+import os
+
 import numpy as np
 import torch
 
@@ -80,3 +83,100 @@ def assert_close(got, want, rtol, scale_atol=0.0, err_msg=""):
                    if want.size else 0.0)
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
                                err_msg=err_msg)
+
+
+def native_build(monkeypatch):
+    """Make helios_tpu.pipeline.run use the native fp64 Planck lookup."""
+    from helios_tpu import pipeline as jax_pipeline
+    build = jax_pipeline.build_model
+    monkeypatch.setattr(
+        jax_pipeline, "build_model",
+        lambda *a, **k: (lambda pa: (pa[0], native_planck(pa[1])))(
+            build(*a, **k)))
+
+
+def file_rows(path):
+    with open(path) as f:
+        return [line.split() for line in f]
+
+
+def file_number(tok):
+    try:
+        return float(tok)
+    except ValueError:
+        return None
+
+
+def assert_same_files(got_dir, want_dir, rtol=1e-5, col_atol=1e-9,
+                      names=None):
+    """The same file names, and in each file (of ``names``, default all)
+    the same tokens: numbers at rtol plus col_atol of the largest number in
+    the same column (the same position in its row), other tokens equal."""
+    if names is None:
+        names = sorted(os.listdir(want_dir))
+        assert sorted(os.listdir(got_dir)) == names
+    for name in names:
+        got = file_rows(os.path.join(got_dir, name))
+        want = file_rows(os.path.join(want_dir, name))
+        assert [len(r) for r in got] == [len(r) for r in want], name
+        scale = {}
+        for row in want:
+            for j, tok in enumerate(row):
+                x = file_number(tok)
+                if x is not None:
+                    scale[j] = max(scale.get(j, 0.0), abs(x))
+        for i, (gr, wr) in enumerate(zip(got, want)):
+            for j, (g, w) in enumerate(zip(gr, wr)):
+                gx, wx = file_number(g), file_number(w)
+                where = f"{name} row {i} column {j}"
+                if wx is None:
+                    assert g == w, where
+                else:
+                    assert gx is not None, where
+                    tol = rtol * abs(wx) + col_atol * scale[j]
+                    assert abs(gx - wx) <= tol, (where, g, w)
+
+
+def _result_fields(r):
+    return {f.name: getattr(r, f.name) for f in dataclasses.fields(r)
+            if f.name not in ("output_dir",)}
+
+
+def assert_same_results(got, want, rtol, scale_atol, net_atol):
+    """Every field of two RunResults: arrays at rtol plus scale_atol of the
+    array's scale (net_atol of the flux scale for the net fluxes)."""
+    g, w = _result_fields(got), _result_fields(want)
+    assert sorted(g) == sorted(w)
+    flux_scale = float(np.abs(want.F_up_tot).max())
+    for k, wv in w.items():
+        gv = g[k]
+        if wv is None or isinstance(wv, (str, int, float)):
+            assert gv == wv or (isinstance(wv, float)
+                                and np.isclose(gv, wv, rtol=rtol)), k
+            continue
+        wv = np.asarray(wv, dtype=float)
+        gv = np.asarray(gv, dtype=float)
+        assert gv.shape == wv.shape, k
+        atol = scale_atol * float(np.abs(wv).max()) if wv.size else 0.0
+        if k.startswith("F_net"):
+            atol = net_atol * flux_scale
+        np.testing.assert_allclose(gv, wv, rtol=rtol, atol=atol + TINY,
+                                   err_msg=k)
+
+
+def zenith_weights(L, mu_star):
+    """The geometric zenith correction's mu(i, j) [L+1, L] of both packages
+    for a rising altitude profile of a Jupiter-sized planet, and the masked
+    1/mu weights and mu(i, i) that compute_cells builds from it."""
+    import jax.numpy as jnp
+    from helios_tpu.ops import beam as jbeam
+    from helios_tpu_torch import fastpath as tfp
+    z = np.cumsum(np.full(L, 4e7)) - 2e8
+    R_planet = 7.0e9
+    want = jbeam._mu_star_matrix(jnp.asarray(z), mu_star, R_planet, 1,
+                                 L + 1, jnp.float64)
+    got = tfp.mu_star_matrix(torch.tensor(z), mu_star, R_planet, L + 1)
+    assert_close(got.numpy(), want, rtol=1e-15)
+    mask = np.arange(L)[None, :] >= np.arange(L + 1)[:, None]
+    weights = np.where(mask, 1.0 / np.asarray(want), 0.0)
+    return weights, np.diagonal(np.asarray(want)[:L])
