@@ -73,19 +73,48 @@ Phases (any failure exits non-zero before the last line is printed):
         to convergence, against the analytic surface temperature;
      j. one forward_fluxes of path f's workload with the matrix method on
         the card against the CPU;
+     k. the quickstart through the command line: the inputs of
+        `python3 -m helios_tpu_torch.examples` (385 bins x 20, 105
+        layers), then `helios_tpu_torch.__main__.main` in a new process
+        with progress lines, metrics and a checkpoint every 100
+        iterations; its final T and iteration counts bit for bit those of
+        an unmonitored pipeline.run of the same param.dat in this process,
+        its files, checkpoints and metrics, the checkpoint's size and time;
+        without h5py the table stays in memory (the HDF5 readers are named
+        as not run);
+     l. preempt and resume: path k's config stopped after the radiation
+        checkpoint at iteration 200 and resumed from the file through the
+        command line; then the checkpoint pair that this resumed run
+        wrote at convection iteration 200 (what a run stopped there
+        leaves) resumed from the _conv file; both bit for bit path k's;
+     m. the flagship with real-gas thermodynamics (a synthetic
+        water-atmosphere table), a synthetic stellar spectrum file, the
+        beam and coupling (on-the-fly mixing of path e's species),
+        coupling iterations 0 and 1 to convergence; entropy and phase
+        inside the table's range, kappa, c_p, entropy and phase against a
+        plain numpy lookup, coupling convergence "1", the forward totals
+        against the CPU; then its post-processing run with the same table
+        (one iso_sweep of 1001 passes); and path a's flagship with the
+        same table through both loops, its convection loop running on the
+        table (the lookups against the plain one, the convection step's
+        wall against path a's, the device time of one step's lookups);
   5. a JSON line of the kernels, the nvidia-smi line, and the result line.
 
 Needs one CUDA card; exits non-zero without one.  Imports neither JAX nor
 the JAX package.
 """
 
+import contextlib
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -789,12 +818,14 @@ def write_pt_file(path, p_lay, p_int, T):
 
 
 def postprocessing_run(T_lay, arrays, cfg_kw, table, launch_counts,
-                       sset=None, extra_files=()):
+                       sset=None, extra_files=(), starflux=None,
+                       inspect=None):
     """The post-processing run of an RCE run's final profile T_lay (on the
     grid of ``arrays``), read back from a "PT" file, with the direct beam
-    and the output files (POSTPROC_FILES and ``extra_files``).  Returns
-    (output, the files written, peak device memory MiB); checks the run's
-    shape, its files and its TOA spectrum."""
+    and the output files (POSTPROC_FILES and ``extra_files``); ``starflux``
+    a stellar spectrum in memory, ``inspect(run_dir)`` a check of the files
+    before they go.  Returns (output, the files written, peak device memory
+    MiB); checks the run's shape, its files and its TOA spectrum."""
     from helios_tpu_torch import pipeline
     from helios_tpu_torch.config import HeliosConfig
 
@@ -811,10 +842,12 @@ def postprocessing_run(T_lay, arrays, cfg_kw, table, launch_counts,
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         out = pipeline.run(cfg, table, write_output=True, sset=sset,
-                           device=DEVICE)
+                           starflux=starflux, device=DEVICE)
         launch_counts.update(read_counts())
         files = sorted(f[len("pp"):] for f in
                        os.listdir(os.path.join(tmpdir, "pp")))
+        if inspect is not None:
+            inspect(os.path.join(tmpdir, "pp"))
     phys, L = out.phys, out.phys.nlayer
     check(phys.singlewalk == 1 and phys.iso == 1
           and phys.n_sweep_passes == PP_PASSES,
@@ -1464,6 +1497,647 @@ def bare_rock_path(launch_counts):
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase 4, the command line: the quickstart (k), preempt and resume (l),
+# real-gas thermodynamics with a stellar spectrum and coupling (m)
+# --------------------------------------------------------------------------- #
+
+# the files write_all writes for a non-isothermal run without clouds
+RCE_FILES = sorted(POSTPROC_FILES + ["_planck_int.dat"])
+CKPT_FILES = ["restart.ckpt.npz", "restart_conv.ckpt.npz"]
+CLI_FLAGS = ["-progress", "yes", "-checkpoint_every", "100"]
+
+# A command line in a new process: helios_tpu_torch.__main__.main on the
+# arguments, then one JSON line of the kernels' launch counts and the run's
+# numbers.  Without h5py the opacity table is made in memory from its seed
+# (the quickstart's synthetic_premixed_table) and pipeline.load_opacity_file
+# hands it over instead of reading its file.
+CLI_PROCESS = """
+import json, sys
+from helios_tpu_torch import __main__ as cli, pipeline
+from helios_tpu_torch.kernels.ro import ro_mix
+from helios_tpu_torch.kernels.sweep import iso_sweep, noniso_sweep
+from helios_tpu_torch.kernels.thomas import thomas_solve
+if sys.argv[1] == "memory":
+    from helios_tpu_torch.io.opacity import synthetic_premixed_table
+    table = synthetic_premixed_table(nbin={nbin}, ny={ny})
+    pipeline.load_opacity_file = lambda path: table
+runs = []
+real = pipeline.run
+pipeline.run = lambda *a, **k: runs.append(real(*a, **k)) or runs[-1]
+code = cli.main(sys.argv[2:], device={device!r})
+out = runs[0]
+print(json.dumps(dict(
+    launches=dict(noniso_sweep=noniso_sweep.launches,
+                  iso_sweep=iso_sweep.launches,
+                  thomas_solve=thomas_solve.launches,
+                  ro_mix=ro_mix.launches),
+    n_flux_solves=out.n_flux_solves, rad_it=out.rad.it,
+    conv_it=out.conv.it, conv_steps=out.conv.steps,
+    wall_s=out.wall_seconds, rad_s=out.rad_seconds,
+    conv_s=out.conv_seconds)))
+sys.exit(code)
+"""
+
+
+def have_h5py():
+    try:
+        import h5py  # noqa: F401
+        return True
+    except ImportError:
+        return False
+
+
+def quickstart_inputs(tmpdir):
+    """The quickstart's inputs in ``tmpdir``: what ``python3 -m
+    helios_tpu_torch.examples`` writes (examples.write_example_inputs: the
+    table, 385 bins x 20, and param.dat, 105 layers); without h5py
+    param.dat is written from the same template and the table stays in
+    memory.  Returns (param path, table or None when it is read from its
+    file)."""
+    from helios_tpu_torch import examples
+    from helios_tpu_torch.io.opacity import synthetic_premixed_table
+
+    target = os.path.join(tmpdir, "example")
+    if have_h5py():
+        paths = examples.write_example_inputs(target, nbin=NBIN_FLAG,
+                                              ny=NY_FLAG)
+        return paths["param"], None
+    os.makedirs(target)
+    param = os.path.join(target, "param.dat")
+    with open(param, "w") as f:
+        f.write(examples.PARAM_TEMPLATE.format(
+            opacity_path=os.path.join(target, "opac_synthetic.h5"),
+            out_dir=os.path.join(target, "output") + os.sep))
+    return param, synthetic_premixed_table(nbin=NBIN_FLAG, ny=NY_FLAG)
+
+
+def capture_main(argv, table, callbacks=()):
+    """helios_tpu_torch.__main__.main(argv) in this process, with ``table``
+    (when not None) handed over by pipeline.load_opacity_file in place of
+    the file and ``callbacks`` added to the run's chunk callbacks; returns
+    (exit code, what it printed, its pipeline.run output)."""
+    from helios_tpu_torch import __main__ as cli
+    from helios_tpu_torch import pipeline
+
+    runs, real, load = [], pipeline.run, pipeline.load_opacity_file
+    pipeline.run = lambda *a, **k: runs.append(
+        real(*a, callbacks=callbacks, **k)) or runs[-1]
+    if table is not None:
+        pipeline.load_opacity_file = lambda path: table
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            code = cli.main(argv, device=DEVICE)
+    finally:
+        pipeline.run, pipeline.load_opacity_file = real, load
+    return code, buf.getvalue(), runs[0]
+
+
+def final_checkpoints(run_dir):
+    """(radiation, convection) checkpoint payloads of a finished run: the
+    last chunk of each loop is always written, so they hold the final
+    iteration counts and the final T bit for bit."""
+    from helios_tpu_torch import checkpoint as ckpt_mod
+    rad, conv = (ckpt_mod.load_rad_checkpoint(os.path.join(run_dir, n))
+                 for n in CKPT_FILES)
+    check(rad is not None and conv is not None,
+          f"no checkpoint pair in {run_dir}")
+    check(ckpt_mod.checkpoint_phase(conv) == "convection",
+          "the _conv checkpoint holds no convection state")
+    return rad, conv
+
+
+def same_final_state(label, rad_ckpt, conv_ckpt, ref):
+    """The final T and both iteration counts of a run, from its final
+    checkpoints, bit for bit those of the reference run ``ref``."""
+    T = torch.as_tensor(conv_ckpt["T_lay"])
+    counts = (int(rad_ckpt["it"]), int(conv_ckpt["it"]))
+    want = (ref.rad.it, ref.conv.it)
+    check(counts == want, f"{label}: iterations {counts}, expected {want}")
+    check(torch.equal(T, ref.T_lay.cpu()), f"{label}: final T differs from "
+          f"the reference run by up to "
+          f"{float((T - ref.T_lay.cpu()).abs().max()):.3e} K")
+
+
+def metric_records(path):
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    return [r for r in recs if "event" not in r]
+
+
+def quickstart_path(tmpdir, launch_counts):
+    """Path k: the quickstart through the command line.  The examples'
+    inputs, then the command line with progress lines, metrics and a
+    checkpoint every 100 iterations in a new process, against an
+    unmonitored pipeline.run of the same parsed param.dat in this process:
+    the final T and both iteration counts bit for bit (from the CLI run's
+    final checkpoints), one noniso_sweep launch per flux solve, the output
+    files, both checkpoint files, and metrics whose iterations rise and
+    whose first chunk is marked as including the kernels' first use."""
+    from helios_tpu_torch import pipeline
+    from helios_tpu_torch.config import config_from_cli
+
+    param, table = quickstart_inputs(tmpdir)
+    if table is not None:
+        log("quickstart path: no h5py on this machine, so "
+            "io.opacity.save_opacity_file / load_opacity_file (the "
+            "quickstart's HDF5 table) and pipeline.load_starflux (path m's "
+            "HDF5 spectrum) did not run: pipeline.load_opacity_file hands "
+            "the table over in memory and path m passes the spectrum to "
+            "pipeline.run; the CPU tests hold the readers")
+    metrics = os.path.join(tmpdir, "k_metrics.jsonl")
+    argv = ["-parameter_file", param] + CLI_FLAGS + ["-metrics_file",
+                                                     metrics]
+    code = CLI_PROCESS.format(nbin=NBIN_FLAG, ny=NY_FLAG, device=DEVICE)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", code, "memory" if table is not None
+         else "file"] + argv, capture_output=True, text=True, env=env,
+        timeout=600)
+    process_s = time.perf_counter() - t
+    check(proc.returncode == 0, f"quickstart CLI exited {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    cli = json.loads(lines[-1])
+    check(any(ln.startswith("Done! Run 'example' finished") for ln in lines),
+          "quickstart CLI: no 'Done!' line")
+    progress = [ln for ln in lines if ln.startswith("[")]
+    launch_counts.update(cli["launches"])
+    check(cli["n_flux_solves"] > 0 and launch_counts
+          == only(noniso_sweep=cli["n_flux_solves"]),
+          f"quickstart CLI: launches {launch_counts} for "
+          f"{cli['n_flux_solves']} flux solves")
+
+    cfg = config_from_cli(["-parameter_file", param])
+    run_dir = os.path.join(cfg.output_dir, cfg.name)
+    files = sorted(os.listdir(run_dir))
+    want = sorted([cfg.name + f for f in RCE_FILES] + CKPT_FILES)
+    check(files == want, f"quickstart CLI: files {files}, expected {want}")
+    recs = metric_records(metrics)
+    phases = [r["phase"] for r in recs]
+    check(phases == sorted(phases, reverse=True) and "convection" in phases,
+          f"quickstart CLI: metrics phases {phases}")
+    for ph in ("radiation", "convection"):
+        its = [r["iteration"] for r in recs if r["phase"] == ph]
+        check(its == sorted(set(its)), f"quickstart CLI: {ph} metrics "
+              f"iterations do not rise: {its}")
+    check(recs[0]["includes_compile"] and recs[0]["iteration"] == 100,
+          "quickstart CLI: the first chunk is not marked includes_compile")
+    check(len(progress) == len(recs), f"quickstart CLI: {len(progress)} "
+          f"progress lines for {len(recs)} chunks")
+
+    torch.cuda.synchronize()
+    reset_counts()
+    ref = pipeline.run(cfg, table, write_output=False, device=DEVICE)
+    ref_counts = read_counts()
+    check(ref_counts == only(noniso_sweep=ref.n_flux_solves),
+          f"quickstart in-process run: launches {ref_counts}")
+    rad_ckpt, conv_ckpt = final_checkpoints(run_dir)
+    same_final_state("quickstart CLI against the in-process run", rad_ckpt,
+                     conv_ckpt, ref)
+    check((cli["rad_it"], cli["conv_it"], cli["conv_steps"])
+          == (ref.rad.it, ref.conv.it, ref.conv.steps),
+          "quickstart CLI: counts differ from the in-process run")
+
+    # what one checkpoint costs: the final states written again, timed
+    from helios_tpu_torch import checkpoint as ckpt_mod
+    probe = os.path.join(tmpdir, "probe.ckpt.npz")
+    ck_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ckpt_mod.save_conv_checkpoint(probe, ref.conv, ref.phys)
+        ck_ms.append((time.perf_counter() - t) * 1e3)
+    ck_mb = os.path.getsize(probe) / 1e6
+    log(f"quickstart path [{cfg.nlayer} layers x {NBIN_FLAG} bins x "
+        f"{NY_FLAG} y, fp64, convection, chunks of 100]: the CLI run "
+        f"converged in {cli['rad_it']} radiation + {cli['conv_it']} "
+        f"convection iterations, {cli['n_flux_solves']} flux solves = "
+        f"{launch_counts['noniso_sweep']} noniso_sweep launches; "
+        f"{len(files)} files, {len(recs)} chunks (= checkpoints written), "
+        f"{len(progress)} progress lines; final T and counts bit for bit "
+        f"those of the unmonitored in-process run")
+    log(f"quickstart walls: monitored CLI run {cli['wall_s']:.3f} s "
+        f"(radiation {cli['rad_s']:.3f} s, convection {cli['conv_s']:.3f} s; "
+        f"the process {process_s:.3f} s), unmonitored in-process run "
+        f"{ref.wall_seconds:.3f} s (radiation {ref.rad_seconds:.3f} s, "
+        f"convection {ref.conv_seconds:.3f} s); one convection checkpoint "
+        f"{ck_mb:.1f} MB in {statistics.median(ck_ms):.1f} ms (median of 3)")
+    return dict(param=param, table=table, argv=argv, ref=ref, cli=cli,
+                run_dir=run_dir,
+                process_s=process_s, files=files, chunks=len(recs),
+                ckpt_ms=statistics.median(ck_ms), ckpt_mb=ck_mb)
+
+
+def resume_path(k, tmpdir, counts_rad, counts_conv):
+    """Path l: preempt and resume.  Path k's config runs in this process
+    with a checkpoint every 100 iterations and is stopped by a callback
+    after the radiation checkpoint at iteration 200; the same command line
+    (main() in this process) then resumes from the file and runs to the
+    end.  When that run has written its convection checkpoint at
+    iteration 200, a callback copies its checkpoint pair (the final
+    radiation state and the _conv file) into a second run directory: the
+    files that a run stopped there leaves.  The command line then resumes
+    there from the _conv file.  Each resumed run: the final T and both
+    counts bit for bit path k's, one noniso_sweep launch per flux solve
+    made after the restore."""
+    from helios_tpu_torch import pipeline
+    from helios_tpu_torch.config import config_from_cli
+
+    class Preempted(Exception):
+        pass
+
+    def preempt(info):
+        if info.phase == "radiation" and info.state.it >= 200:
+            raise Preempted
+
+    argv = {ph: k["argv"][:-2] + ["-name", f"resume_{ph}"]  # no metrics
+            for ph in ("radiation", "convection")}
+    run_dirs = {ph: os.path.join(config_from_cli(a).output_dir,
+                                 f"resume_{ph}") for ph, a in argv.items()}
+
+    def snapshot(info):
+        if info.phase == "convection" and info.state.it == 200:
+            os.makedirs(run_dirs["convection"])
+            for name in CKPT_FILES:
+                shutil.copy(os.path.join(run_dirs["radiation"], name),
+                            run_dirs["convection"])
+
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):  # progress lines
+            pipeline.run(config_from_cli(argv["radiation"]), k["table"],
+                         write_output=False, device=DEVICE,
+                         callbacks=[preempt])
+        check(False, "resume path: the radiation loop was not stopped")
+    except Preempted:
+        pass
+    stopped_s = time.perf_counter() - t
+
+    res = {}
+    for phase, counts, cbs in (("radiation", counts_rad, [snapshot]),
+                               ("convection", counts_conv, [])):
+        torch.cuda.synchronize()
+        reset_counts()
+        with warnings.catch_warnings():      # the converged radiation file
+            warnings.simplefilter("ignore")
+            code, printed, out = capture_main(argv[phase], k["table"], cbs)
+        counts.update(read_counts())
+        check(code == 0 and "Done!" in printed,
+              f"resume path: the resumed {phase} run failed")
+        restored = out.rad_it0 if phase == "radiation" else (
+            out.conv.it - out.conv.steps + 1)
+        check(restored == 200, f"resume path: the {phase} run resumed at "
+              f"{restored}, not 200")
+        check(counts == only(noniso_sweep=out.n_flux_solves),
+              f"resume path: launches {counts} for {out.n_flux_solves} "
+              "flux solves after the restore")
+        same_final_state(f"resumed {phase} run",
+                         *final_checkpoints(run_dirs[phase]), k["ref"])
+        check(torch.equal(out.T_lay.cpu(), k["ref"].T_lay.cpu()),
+              f"resume path: the resumed {phase} run's T differs")
+        how = (f"stopped after the radiation checkpoint at iteration 200 "
+               f"({stopped_s:.3f} s)" if phase == "radiation" else
+               "the checkpoint pair of the first resumed run at convection "
+               "iteration 200")
+        log(f"resume path, {how}, resumed from the file through the "
+            f"command line: {out.n_flux_solves} flux solves = "
+            f"{counts['noniso_sweep']} noniso_sweep launches after the "
+            f"restore, wall {out.wall_seconds:.3f} s; final T and "
+            f"{out.rad.it} + {out.conv.it} iterations bit for bit path k's")
+        res[phase] = dict(wall_s=out.wall_seconds, solves=out.n_flux_solves)
+    res["stopped_s"] = stopped_s
+    return res
+
+
+# a synthetic water-atmosphere table in the reference's ASCII format
+# (read.py:1105-1193 "water_atmo": 5 header lines, then T, P [10^-6 bar],
+# kappa, c_p [erg/mol/K], log10 entropy [erg/g/K], two unused columns and
+# the water phase number), on the grid of the flagship's profiles
+WATER_T = np.linspace(100.0, 6000.0, 60)
+WATER_P = np.geomspace(1e-2, 1e10, 49)
+
+
+def write_water_table(path):
+    """Smooth kappa 0.22-0.29, c_p = R/kappa (10% up where water
+    condenses), entropy rising with T and falling with P, and the phase
+    number of write.py:209-232: 1 vapour or supercritical, 0 liquid or
+    ice.  Returns the file's path and the grids as written (temps, press,
+    kappa, cp, entropy [erg/g/K], phase)."""
+    from helios_tpu_torch import constants as pc
+    T, P = np.meshgrid(WATER_T, WATER_P, indexing="ij")
+    lp = np.log10(P)
+    kappa = 0.25 + 0.03 * np.tanh((lp - 5.0) / 2.0) - 0.01 * T / 6000.0
+    psat = 6.1e3 * np.exp(17.27 * (T - 273.0) / (T - 36.0)) * 1e3
+    condensed = (T <= 273.0) | ((P > psat) & (T < 647.0))
+    phase = np.where(condensed, 0.0, 1.0)
+    cp = pc.R_UNIV / kappa * (1.0 + 0.1 * (1.0 - phase))
+    logS = 7.5 + 0.4 * np.log10(T / 100.0) - 0.03 * (lp - 6.0)
+    with open(path, "w") as f:
+        f.write("synthetic water-atmosphere table\n" + "#\n" * 4)
+        for i in range(len(WATER_T)):
+            for j in range(len(WATER_P)):
+                row = (T[i, j], P[i, j], kappa[i, j], cp[i, j], logS[i, j],
+                       0.0, 0.0, phase[i, j])
+                f.write(" ".join(repr(float(x)) for x in row) + "\n")
+    return dict(path=path, temps=WATER_T, press=WATER_P, kappa=kappa, cp=cp,
+                entropy=10.0 ** logS, phase=phase)
+
+
+def plain_bilinear(grid, temps, press, T, p, log_temp):
+    """The plain version of a thermodynamics-table lookup, in numpy:
+    bilinear in T (in log10 T with ``log_temp``, the grid step taken in
+    log10 of the grid's ends) and log10 P, the fractional index clamped to
+    [0.001, n - 1.001] (kernels.cu:703-919)."""
+    def frac(x, x0, x1, n):
+        t = np.clip((x - x0) / ((x1 - x0) / (n - 1.0)), 0.001, n - 1.001)
+        i = np.minimum(np.floor(t).astype(np.int64), n - 2)
+        return i, t - i
+
+    f = np.log10 if log_temp else (lambda x: x)
+    ti, wt = frac(f(T), f(temps[0]), f(temps[-1]), len(temps))
+    pi, wp = frac(np.log10(p), np.log10(press[0]), np.log10(press[-1]),
+                  len(press))
+    return (grid[ti, pi] * (1 - wp) * (1 - wt)
+            + grid[ti, pi + 1] * wp * (1 - wt)
+            + grid[ti + 1, pi] * (1 - wp) * wt
+            + grid[ti + 1, pi + 1] * wp * wt)
+
+
+def write_spectrum(path, donor):
+    """A synthetic 385-bin stellar spectrum (not a blackbody): a 5040 K
+    Planck curve with absorption bands, in the star tool's HDF5 layout
+    when h5py is there.  Returns the spectrum [erg/s/cm^2/cm]."""
+    from helios_tpu_torch import constants as pc
+    lam = np.asarray(donor.wave_centers)
+    x = pc.H * pc.C / (lam * pc.K_B * 5040.0)
+    flux = pc.PI * 2 * pc.H * pc.C ** 2 / lam ** 5 / np.expm1(x)
+    flux *= 1.0 - 0.4 * np.exp(-((np.log10(lam) + 3.9) / 0.05) ** 2)
+    if have_h5py():
+        import h5py
+        with h5py.File(path, "w") as f:
+            f.create_dataset("/r50_kdistr/synthetic/star", data=flux)
+    return flux
+
+
+# the thermodynamics fields of a run's result, the table each comes from
+# and whether it is looked up in log10 T
+THERMO_FIELDS = (("kappa_lay", "kappa", False), ("c_p_lay", "cp", True),
+                 ("entropy_lay", "entropy", True),
+                 ("phase_number_lay", "phase", False))
+
+
+def thermo_against_plain(label, out, water):
+    """A run's kappa, c_p, entropy and phase at its final T (looked up on
+    the card by pipeline.run) against the plain numpy lookup in the grids
+    that were written to the table file: rtol 1e-12.  Returns the largest
+    relative difference."""
+    T = out.T_lay[:out.phys.nlayer].cpu().numpy()
+    p = out.arrays.p_lay.cpu().numpy()
+    worst = 0.0
+    for field, grid, log_temp in THERMO_FIELDS:
+        got = getattr(out.result, field)
+        want = plain_bilinear(water[grid], water["temps"], water["press"], T,
+                              p, log_temp)
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        check(rel <= 1e-12, f"{label}: {field} differs from the plain "
+              f"lookup by {rel:.3e} (limit 1e-12)")
+        worst = max(worst, rel)
+    return worst
+
+
+def real_gas_path(tmpdir, water, counts0, counts1, pp_counts):
+    """Path m: the flagship with real-gas thermodynamics
+    (kappa_value="water_atmo", the synthetic table ``water`` in the
+    reference's ASCII format), a stellar spectrum file (a synthetic 385-bin
+    spectrum in HDF5), the direct beam and coupling (which needs on-the-fly
+    mixing: the species of path e), coupling iterations 0 and 1 to
+    convergence: finite entropy and phase inside the table's range in
+    _colmass_mu_cp_kappa_entropy.dat and _state.dat, kappa, c_p, entropy
+    and phase against the plain lookup (rtol 1e-12), coupling convergence
+    "1" (identical physics), the forward totals at the final T on the card
+    against the CPU (rtol 1e-10); then the post-processing run of the
+    converged profile with the same table (one iso_sweep of 1001 passes),
+    which writes the entropy and phase files too.  With these thin
+    absorbers no layer is unstable: table_convection_path runs the
+    convection loop with the table."""
+    from helios_tpu_torch import pipeline
+
+    donor, sset = otf_inputs(DEVICE)
+    s_lo, s_hi = water["entropy"].min(), water["entropy"].max()
+    ph_lo, ph_hi = water["phase"].min(), water["phase"].max()
+    star_path = os.path.join(tmpdir, "star.h5")
+    flux = write_spectrum(star_path, donor)
+    starflux = None if have_h5py() else flux
+    extra = dict(OTF_WORKLOAD, opacity_mixing="on-the-fly",
+                 kappa_value="water_atmo", kappa_file_path=water["path"],
+                 stellar_model="file", stellar_path=star_path,
+                 stellar_dataset="/r50_kdistr/synthetic/star",
+                 direct_beam="yes", coupling="yes", name="realgas",
+                 output_dir=tmpdir + "/")
+    del extra["iso_input"], extra["T_intern"], extra["convection"]
+    outs, walls = [], []
+    for n, counts in ((0, counts0), (1, counts1)):
+        cfg, _ = flagship(tmpdir, **extra, coupling_iter_nr=n)
+        check(cfg.real_star == 1 and cfg.iso == 0 and cfg.coupling == 1,
+              "real-gas path: not the non-iso stellar-file coupling run")
+        torch.cuda.synchronize()
+        reset_counts()
+        out = pipeline.run(cfg, donor, sset=sset, starflux=starflux,
+                           device=DEVICE)
+        counts.update(read_counts())
+        rad, conv = out.rad, out.conv
+        check(not bool(rad.keep_running) and not rad.aborted
+              and conv is not None and not (conv.keep_running
+                                            or conv.aborted),
+              f"real-gas path, coupling iteration {n}: no convergence")
+        # the start, every 10th radiation iteration, every convection step
+        # at a multiple of 10 and the diagnostics
+        refreshes = (1 + (rad.it + 9) // 10
+                     + (conv.it // 10 + 1 if conv.steps else 0) + 1)
+        check(counts == only(noniso_sweep=out.n_flux_solves,
+                             ro_mix=2 * refreshes),
+              f"real-gas path, coupling iteration {n}: launches {counts} "
+              f"for {out.n_flux_solves} flux solves and {refreshes} cell "
+              f"refreshes ({rad.it} radiation, {conv.it} convection "
+              f"iterations, {conv.steps} convection steps)")
+        outs.append(out)
+        walls.append(out.wall_seconds)
+    check(torch.equal(outs[0].T_lay, outs[1].T_lay),
+          "real-gas path: coupling iterations 0 and 1 differ")
+    run_dir = os.path.join(tmpdir, "realgas")
+    with open(os.path.join(run_dir, "realgas_coupling_convergence.dat")) as f:
+        converged = f.read().strip()
+    check(converged == "1", f"real-gas path: coupling convergence "
+          f"{converged!r}, expected '1'")
+    for name in ("realgas_tp_coupling_0.dat", "realgas_tp_coupling_1.dat"):
+        check(os.path.exists(os.path.join(run_dir, name)),
+              f"real-gas path: no {name}")
+    ent, ph = thermo_columns(run_dir, "realgas", L_FLAG)
+    check(np.all(np.isfinite(ent)) and ent.min() >= s_lo * (1 - 1e-5)
+          and ent.max() <= s_hi * (1 + 1e-5),
+          f"real-gas path: entropy {ent.min():.4e}..{ent.max():.4e} outside "
+          f"the table's {s_lo:.4e}..{s_hi:.4e}")
+    check(np.all(np.isfinite(ph)) and ph.min() >= ph_lo and ph.max() <= ph_hi,
+          f"real-gas path: phase {ph.min()}..{ph.max()} outside the table's "
+          f"{ph_lo}..{ph_hi}")
+    out = outs[-1]
+    thermo_rel = thermo_against_plain("real-gas path", out, water)
+    counts, _, rel = forward_cuda_vs_cpu(out.phys, out.arrays, out.T_lay,
+                                         sset=sset,
+                                         sset_cpu=otf_inputs("cpu")[1])
+    worst = max(float(r.max()) for r in rel.values())
+    check(worst <= 1e-10, f"real-gas forward_fluxes cuda vs cpu: "
+          f"{worst:.3e} > 1e-10")
+    c = out.conv
+    log(f"real-gas path [{L_FLAG} layers x {NBIN_FLAG} bins x {NY_FLAG} y, "
+        f"fp64, water_atmo table, stellar spectrum "
+        f"{'file' if starflux is None else 'in memory'}, beam, RO of 2 "
+        f"absorbers, coupling iterations 0 and 1]: {out.rad.it} radiation "
+        f"+ {c.it} convection iterations each, walls {walls[0]:.3f} / "
+        f"{walls[1]:.3f} s; launches {counts1}; coupling convergence "
+        f"{converged}; entropy {ent.min():.4e}..{ent.max():.4e} erg/g/K, "
+        f"phase {ph.min():g}..{ph.max():g}; kappa, c_p, entropy and phase "
+        f"max rel difference from the plain lookup {thermo_rel:.3e} (limit "
+        f"1e-12); forward_fluxes cuda vs cpu max rel difference of the "
+        f"totals {worst:.3e} (limit 1e-10)")
+
+    def in_range(run_dir):
+        e, p = thermo_columns(run_dir, "pp", L_FLAG)
+        check(np.all(np.isfinite(e)) and e.min() >= s_lo * (1 - 1e-5)
+              and e.max() <= s_hi * (1 + 1e-5) and np.all(np.isfinite(p))
+              and p.min() >= ph_lo and p.max() <= ph_hi,
+              "real-gas post-processing: entropy or phase outside the "
+              "table's range")
+
+    pp_kw = dict(FLAGSHIP, **extra)
+    pp_kw.update(coupling="no")
+    for k in ("output_dir", "name"):
+        del pp_kw[k]
+    pp, files, _ = postprocessing_run(out.T_lay, out.arrays, pp_kw, donor,
+                                      pp_counts, sset=sset,
+                                      extra_files=("_state.dat",),
+                                      starflux=starflux, inspect=in_range)
+    check(pp_counts == only(iso_sweep=1, ro_mix=2),
+          f"real-gas post-processing: launches {pp_counts}, expected one "
+          "iso_sweep and two ro_mix")
+    log(f"real-gas post-processing path: wall {pp.wall_seconds:.3f} s with "
+        f"{len(files)} output files, entropy and phase among them; launches "
+        f"{pp_counts}")
+    return dict(walls=walls, rad_it=out.rad.it, conv_it=c.it, fwd_rel=worst,
+                pp_wall_s=pp.wall_seconds, thermo_rel=thermo_rel)
+
+
+def table_convection_path(tmpdir, water, launch_counts, flag_out):
+    """Path m, the convection loop with the table: path a's flagship with
+    kappa_value="water_atmo" (the same table as the coupling runs), to
+    convergence through both loops.  The convection loop must run and
+    leave convective layers; kappa, c_p, entropy and phase at the final T
+    against the plain lookup (rtol 1e-12); one noniso_sweep launch per
+    flux solve; the convection loop's wall per step against path a's
+    constant kappa, and the device time of one convection step's kappa /
+    c_p lookups at the final profile."""
+    from helios_tpu_torch import pipeline
+    from helios_tpu_torch.rce import radiative
+
+    cfg, table = flagship(tmpdir, kappa_value="water_atmo",
+                          kappa_file_path=water["path"])
+    torch.cuda.synchronize()
+    reset_counts()
+    out = pipeline.run(cfg, table, write_output=False, device=DEVICE)
+    launch_counts.update(read_counts())
+    rad, conv = out.rad, out.conv
+    check(not bool(rad.keep_running) and not rad.aborted
+          and conv is not None and conv.steps > 0
+          and not (conv.keep_running or conv.aborted),
+          f"table convection path: the convection loop did not run to "
+          f"convergence ({rad.it} radiation, {conv.it} convection "
+          "iterations)")
+    n_conv = int(conv.conv_layer.sum())
+    check(n_conv > 0, "table convection path: no convective layer")
+    check(launch_counts == only(noniso_sweep=out.n_flux_solves),
+          f"table convection path: launches {launch_counts} for "
+          f"{out.n_flux_solves} flux solves")
+    thermo_rel = thermo_against_plain("table convection path", out, water)
+    lookups = {name: thermo_lookup_ms(th, out.arrays, out.T_lay)
+               for name, th in (
+                   ("table", pipeline.make_thermo(cfg, device=DEVICE)),
+                   ("constant", radiative.make_const_thermo(
+                       FLAGSHIP["kappa_value"])))}
+    per_step = lambda o: o.conv_seconds / o.conv.steps * 1e3
+    log(f"table convection path [{L_FLAG} layers x {NBIN_FLAG} bins x "
+        f"{NY_FLAG} y, fp64, path a's flagship with the water_atmo table]: "
+        f"{rad.it} radiation + {conv.it} convection iterations "
+        f"({conv.steps} steps), {n_conv} convective layers, "
+        f"{out.n_flux_solves} flux solves = "
+        f"{launch_counts['noniso_sweep']} noniso_sweep launches; kappa, "
+        f"c_p, entropy and phase max rel difference from the plain lookup "
+        f"{thermo_rel:.3e} (limit 1e-12); wall {out.wall_seconds:.3f} s, "
+        f"convection loop {per_step(out):.3f} ms per step against path "
+        f"a's {per_step(flag_out):.3f} with a constant kappa")
+    log("table convection path, the kappa / c_p lookups of one convection "
+        "step (kappa_cp_lay and kappa_int, twice each) at the final "
+        "profile, device time: "
+        + "; ".join(f"{name} {ms:.4f} ms in {k:.0f} kernels"
+                    for name, (ms, k) in lookups.items()))
+    return dict(wall_s=out.wall_seconds, rad_it=rad.it, conv_it=conv.it,
+                conv_ms_per_step=per_step(out),
+                flag_conv_ms_per_step=per_step(flag_out),
+                thermo_rel=thermo_rel, lookups=lookups)
+
+
+def thermo_lookup_ms(thermo, arrays, T, n=20):
+    """Device time and kernels of the kappa / c_p lookups that one
+    convection step makes (kappa_cp_lay and kappa_int before the
+    adjustment and again after the flux solve), at the profile T, with
+    ``thermo`` a table or a constant: torch.profiler over n steps."""
+    from torch.profiler import ProfilerActivity, profile
+    from helios_tpu_torch.ops import interp as interp_ops
+    from helios_tpu_torch.rce import radiative
+
+    T_int = interp_ops.interface_temperatures(T)
+
+    def step():
+        for _ in range(2):
+            radiative.kappa_cp_lay(thermo, T, arrays.p_lay)
+            radiative.kappa_int(thermo, T_int, arrays.p_int)
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us += getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0))
+            count += e.count
+    return us / 1e3 / n, count / n
+
+
+def thermo_columns(run_dir, name, L):
+    """The entropy column of _colmass_mu_cp_kappa_entropy.dat (every layer)
+    and the phase column of _state.dat (the layers below 0.99 x 10^-6 bar,
+    write.py:209-232)."""
+    with open(os.path.join(run_dir,
+                           f"{name}_colmass_mu_cp_kappa_entropy.dat")) as f:
+        rows = [r.split() for r in f.read().splitlines()[2:] if r.strip()]
+    with open(os.path.join(run_dir, f"{name}_state.dat")) as f:
+        phase = [float(r.split()[3]) for r in f.read().splitlines()[2:]
+                 if r.strip()]
+    check(len(rows) == L and 0 < len(phase) <= L,
+          f"{name}: {len(rows)} entropy and {len(phase)} phase rows for {L} "
+          "layers")
+    return np.asarray([float(r[6]) for r in rows]), np.asarray(phase)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1494,7 +2168,12 @@ def main():
                               "on_the_fly_rce",
                               "on_the_fly_post_processing", "cloudy_rce",
                               "cloudy_post_processing", "rocky_rce",
-                              "bare_rock_rce", "cloudy_matrix_forward")}
+                              "bare_rock_rce", "cloudy_matrix_forward",
+                              "quickstart_cli", "resumed_radiation",
+                              "resumed_convection", "real_gas_coupling_0",
+                              "real_gas_coupling_1",
+                              "real_gas_post_processing",
+                              "real_gas_convection")}
     out, T_start = main_path(counts["flagship_rce"])
     T_start = torch.as_tensor(T_start, dtype=out.T_lay.dtype, device=DEVICE)
     time_breakdown("flagship", out.phys, out.arrays, T_start,
@@ -1518,6 +2197,17 @@ def main():
         cloudy_matrix_path(cl, counts["cloudy_matrix_forward"])
     rocky_path(counts["rocky_rce"])
     bare_rock_path(counts["bare_rock_rce"])
+    with tempfile.TemporaryDirectory() as cli_dir:
+        k = quickstart_path(cli_dir, counts["quickstart_cli"])
+        resume_path(k, cli_dir, counts["resumed_radiation"],
+                    counts["resumed_convection"])
+    with tempfile.TemporaryDirectory() as gas_dir:
+        water = write_water_table(os.path.join(gas_dir, "water_atmo.dat"))
+        real_gas_path(gas_dir, water, counts["real_gas_coupling_0"],
+                      counts["real_gas_coupling_1"],
+                      counts["real_gas_post_processing"])
+        table_convection_path(gas_dir, water,
+                              counts["real_gas_convection"], out)
     for path, c in counts.items():
         log(f"launches on the {path} path: {c}")
 

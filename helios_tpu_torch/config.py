@@ -161,11 +161,11 @@ class HeliosConfig:
     n_planet_batch: int = 1         # planet-ensemble data-parallel batch
     planet_ensemble_file: str = ""  # per-planet override table (ensemble)
     use_pallas: Union[str, int] = "auto"  # auto, yes, no
-    chunk_iters: int = 100          # device-resident iterations per host sync
+    chunk_iters: int = 100          # iterations per chunk of a monitored run
     checkpoint_every: int = 0       # iterations per checkpoint (0 = off)
     checkpoint_path: str = ""       # default: <output_dir>/<name>/restart.ckpt.npz
     metrics_file: str = ""          # per-chunk JSONL metrics (empty = off)
-    profile_dir: str = ""           # jax.profiler trace of first chunk
+    profile_dir: str = ""           # torch.profiler trace of the 2nd chunk
     progress: Union[str, int] = "no"  # print per-chunk progress lines
 
     # ------- derived fields (populated by finalize) -------

@@ -1,7 +1,8 @@
 """State carried across from the JAX package.
 
 HELIOS has no weights: its state is the model's static arrays, the
-species set of on-the-fly mixing and the loop state.  These functions take
+species set of on-the-fly mixing and the loop state (also as a checkpoint
+file holds it, :mod:`helios_tpu_torch.checkpoint`).  These functions take
 that state as numpy arrays (for example
 ``{name: np.asarray(x)}`` of a :class:`helios_tpu.forward.ModelArrays`) and
 return the port's tensors, so both packages can start from the same
@@ -20,6 +21,7 @@ from helios_tpu_torch import chem
 from helios_tpu_torch import fastpath as fp
 from helios_tpu_torch.forward import CellCache, FluxState, ModelArrays
 from helios_tpu_torch.ops.integrate import FluxTotals
+from helios_tpu_torch.rce.loop import ConvLoopState
 from helios_tpu_torch.rce.radiative import RadLoopState
 
 
@@ -62,18 +64,18 @@ def _cell_cache_from_numpy(d, device, dtype) -> CellCache:
         **fields)
 
 
-def rad_state_from_numpy(d: Mapping[str, Any], *, device,
-                         dtype=torch.float64) -> RadLoopState:
-    """The port's RadLoopState from a radiation-loop state given as nested
-    mappings of numpy arrays (flux, cache with its cells and coefficient
-    cache, totals) and numbers (it, local_limit, keep_running,
-    goto_convection, aborted)."""
+def rad_loop_fields_from_numpy(d: Mapping[str, Any], *, device,
+                               dtype=torch.float64) -> dict:
+    """Every RadLoopState field but the cell cache and the totals (which
+    follow from them), from numpy: the arrays and ``flux`` (a mapping) as
+    tensors, ``it`` and ``local_limit`` as the host numbers the port keeps
+    (the JAX package stores them as 0-d arrays), ``keep_running`` and
+    ``goto_convection`` as 0-d bool tensors and ``aborted`` as a host
+    bool."""
     t = lambda k: _tensor(d[k], device, dtype)
-    return RadLoopState(
+    return dict(
         T_lay=t("T_lay"),
         flux=flux_state_from_numpy(d["flux"], device=device, dtype=dtype),
-        cache=_cell_cache_from_numpy(d["cache"], device, dtype),
-        totals=_build(FluxTotals, d["totals"], device, dtype),
         T_store=t("T_store"), prefactor=t("prefactor"),
         F_smooth_sum=t("F_smooth_sum"), abort=t("abort"),
         it=int(d["it"]), local_limit=float(d["local_limit"]),
@@ -82,6 +84,43 @@ def rad_state_from_numpy(d: Mapping[str, Any], *, device,
         goto_convection=torch.as_tensor(bool(d["goto_convection"]),
                                         device=device),
         aborted=bool(d["aborted"]))
+
+
+def rad_state_from_numpy(d: Mapping[str, Any], *, device,
+                         dtype=torch.float64) -> RadLoopState:
+    """The port's RadLoopState from a radiation-loop state given as nested
+    mappings of numpy arrays (flux, cache with its cells and coefficient
+    cache, totals) and numbers (it, local_limit, keep_running,
+    goto_convection, aborted)."""
+    return RadLoopState(
+        cache=_cell_cache_from_numpy(d["cache"], device, dtype),
+        totals=_build(FluxTotals, d["totals"], device, dtype),
+        **rad_loop_fields_from_numpy(d, device=device, dtype=dtype))
+
+
+def conv_state_from_numpy(d: Mapping[str, Any], cache: CellCache, *,
+                          device, dtype=torch.float64) -> ConvLoopState:
+    """The port's ConvLoopState from a convection-loop state given as
+    numpy arrays and numbers (the ConvLoopState fields of the JAX package,
+    with ``flux`` and ``totals`` as mappings), over a cell cache of the
+    port whose ``meanmolmass_lay`` and ``F_add_heat_sum`` are replaced by
+    ``d["cache"]``'s (the fields the convection body reads before its next
+    refresh).  ``it``, ``local_limit``, ``keep_running`` and ``aborted``
+    become the host values the port keeps; ``steps`` counts the loop
+    bodies run from here, so it starts at 0."""
+    t = lambda k: _tensor(d[k], device, dtype)
+    return ConvLoopState(
+        T_lay=t("T_lay"),
+        flux=flux_state_from_numpy(d["flux"], device=device, dtype=dtype),
+        cache=cache._replace(**{k: _tensor(v, device, dtype)
+                                for k, v in d["cache"].items()}),
+        totals=_build(FluxTotals, d["totals"], device, dtype),
+        T_store=t("T_store"), prefactor=t("prefactor"),
+        F_smooth_sum=t("F_smooth_sum"), conv_layer=t("conv_layer"),
+        marked_red=t("marked_red"), it=int(d["it"]),
+        local_limit=float(d["local_limit"]),
+        keep_running=bool(d["keep_running"]), aborted=bool(d["aborted"]),
+        steps=0)
 
 
 def species_set_from_numpy(specs: Sequence, data: Sequence[Mapping[str, Any]],

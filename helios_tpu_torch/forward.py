@@ -8,12 +8,10 @@ the premixed table, or species mixed on the fly from a
 -> altitude -> direct beam (with or without the geometric zenith-angle
 correction) -> flux solve (iterative sweeps or the Thomas matrix method)
 -> integration, with or without cloud decks, on a gas planet, a rocky
-surface or a bare rock (``planet_type="no_atmosphere"``).  Static physics
+surface or a bare rock (``planet_type="no_atmosphere"``), with a blackbody
+star or a stellar spectrum (``stellar_model="file"``).  Static physics
 scalars live in :class:`Phys`; tensors in :class:`ModelArrays`, on the
 device chosen in :func:`build_model`.
-
-Not ported yet (raises ``NotImplementedError``): a stellar spectrum from a
-file (``stellar_model="file"``).
 """
 
 from __future__ import annotations
@@ -215,21 +213,16 @@ def init_flux_state(phys: Phys, dtype, device) -> FluxState:
                      Fc_up=torch.zeros((L, S), **kw))
 
 
-def _check_supported(phys: Phys):
-    """Raise for the configurations this port does not cover yet."""
-    if phys.real_star:
-        raise NotImplementedError(
-            "not ported to helios_tpu_torch yet: stellar_model='file'")
-
-
 def build_model(cfg: HeliosConfig, table: OpacityTable, *,
+                starflux: Optional[np.ndarray] = None,
                 surf_albedo: Optional[np.ndarray] = None, cloud_result=None,
                 device="cuda") -> Tuple[Phys, ModelArrays]:
     """Assemble (Phys, ModelArrays) from a finalized config and an opacity
     table (premixed, or with on-the-fly mixing the donor of the spectral,
     T and P grids), with the tensors on ``device`` (default CUDA; raises
-    if CUDA is absent).  The star is a blackbody (no stellar spectrum
-    file).  ``surf_albedo`` [B] is the surface albedo per bin (default:
+    if CUDA is absent).  ``starflux`` [B] is the stellar spectrum of
+    ``stellar_model="file"`` (default: zeros, the blackbody star's
+    placeholder).  ``surf_albedo`` [B] is the surface albedo per bin (default:
     the config's constant, 0 when the config names a file, as in
     helios_tpu); ``cloud_result`` a
     :class:`helios_tpu_torch.clouds.CloudDeckResult` (default: no
@@ -237,7 +230,6 @@ def build_model(cfg: HeliosConfig, table: OpacityTable, *,
     1e-30 (read.py:1014-1023)."""
     dev = resolve_device(device)
     phys = Phys.from_config(cfg, nbin=table.nbin, ny=table.ny)
-    _check_supported(phys)
     dt = torch_dtype(cfg.dtype)
     # copies: the model never aliases the caller's numpy arrays
     t = lambda x: torch.tensor(np.asarray(x), dtype=dt, device=dev)
@@ -251,7 +243,9 @@ def build_model(cfg: HeliosConfig, table: OpacityTable, *,
         t(table.wave_edges), delta_lambda, phys.T_star,
         dim=phys.plancktable_dim, step=phys.plancktable_step)
 
-    starflux = t(np.zeros(table.nbin, cfg.np_dtype))
+    if starflux is None:
+        starflux = np.zeros(table.nbin, cfg.np_dtype)
+    starflux = t(starflux)
 
     star_corr = t(1.0)
     if phys.energy_correction:
@@ -364,7 +358,6 @@ def compute_cells(phys: Phys, m: ModelArrays, T_lay, T_int,
     (iso) or half-layer (non-iso) transmission + direct beam + sweep
     coefficient cache: the block the reference refreshes every 10th
     iteration (computation.py:860-879)."""
-    _check_supported(phys)
     L, Y = phys.nlayer, phys.ny
 
     opac_lay, scat_lay, mmm_lay = _gas_properties(phys, m, T_lay[:L],
@@ -495,7 +488,6 @@ def solve_fluxes(phys: Phys, m: ModelArrays, cache: CellCache, T_lay,
     from the coefficient cache and the iso or non-iso sweep (iterative
     method), or the row assembly and the Thomas solve (matrix method); the
     CUDA kernels on the card."""
-    _check_supported(phys)
     L, Y = phys.nlayer, phys.ny
     planckband_lay = planck_mod.planckband_layers(
         m.planck_grid, T_lay, m.starflux, real_star=phys.real_star,

@@ -33,17 +33,25 @@ def _fractional_index(x, x0, dx, n, lo=0.001):
     return td, t - td
 
 
-def bilinear_tp(table, temps, press, T, p, *, clamp_lo: float = 0.001):
+def bilinear_tp(table, temps, press, T, p, *, log_temp: bool = False,
+                clamp_lo: float = 0.001):
     """Bilinear interpolation in (T, log10 P) of a tabulated quantity.
 
-    table: [ntemp, npress, ...trailing] on uniformly spaced temps and
-    log10-uniform press; T, p: [n].  Returns [n, ...trailing].
+    table: [ntemp, npress, ...trailing] on uniformly spaced temps (in log10
+    with ``log_temp``) and log10-uniform press; T, p: [n].  ``log_temp``
+    interpolates in log10 T, with the grid step taken in log10 (the c_p and
+    entropy tables, kernels.cu:777-779).  Returns [n, ...trailing].
     """
     ntemp, npress = table.shape[0], table.shape[1]
-    dT = (temps[-1] - temps[0]) / (ntemp - 1.0)
+    if log_temp:
+        tx, t0 = torch.log10(T), torch.log10(temps[0])
+        dT = (torch.log10(temps[-1]) - torch.log10(temps[0])) / (ntemp - 1.0)
+    else:
+        tx, t0 = T, temps[0]
+        dT = (temps[-1] - temps[0]) / (ntemp - 1.0)
     dP = (torch.log10(press[-1]) - torch.log10(press[0])) / (npress - 1.0)
 
-    td, wt = _fractional_index(T, temps[0], dT, ntemp, clamp_lo)
+    td, wt = _fractional_index(tx, t0, dT, ntemp, clamp_lo)
     pd, wp = _fractional_index(torch.log10(p), torch.log10(press[0]), dP,
                                npress, clamp_lo)
 
@@ -78,3 +86,23 @@ def interpolate_species_opacity(ktable, temps, press, T, p):
 def interpolate_meanmolmass(meanmass_table, temps, press, T, p):
     """Mean molecular mass interpolation (kernels.cu:649-698)."""
     return bilinear_tp(meanmass_table, temps, press, T, p)
+
+
+def interpolate_kappa(kappa_table, temps, press, T, p):
+    """Adiabatic coefficient kappa(T, P), linear-T log-P (kernels.cu:703-756)."""
+    return bilinear_tp(kappa_table, temps, press, T, p)
+
+
+def interpolate_cp(cp_table, temps, press, T, p):
+    """Heat capacity c_p(T, P), log-log (kernels.cu:761-810)."""
+    return bilinear_tp(cp_table, temps, press, T, p, log_temp=True)
+
+
+def interpolate_entropy(entropy_table, temps, press, T, p):
+    """Entropy(T, P), log-log (kernels.cu:815-865)."""
+    return bilinear_tp(entropy_table, temps, press, T, p, log_temp=True)
+
+
+def interpolate_phase_number(state_table, temps, press, T, p):
+    """Water phase state number, linear-T log-P (kernels.cu:869-919)."""
+    return bilinear_tp(state_table, temps, press, T, p)

@@ -2,17 +2,22 @@
 the run_helios equivalent, helios.py:35-137): config -> model -> radiation
 loop -> convection loop -> diagnostics -> output files.
 
-Covered: the un-monitored, un-sharded path of an iterative run
-(isothermal or non-isothermal layers, the adaptive or a physical timestep)
-and of a post-processing run, with a premixed opacity table or species
-mixed on the fly, with the iterative or the matrix flux method, with or
-without cloud decks and the geometric zenith-angle correction, on a gas
-planet, a rocky surface (the surface albedo a constant or from a file, the
-Koll f-factor) or a bare rock, with or without additional heating, started
-from the grid's initial profile or from a TP file ("helios", "TP" or "PT"
-format), with or without the output files.  Monitoring, checkpoints,
-coupling, meshes, real-gas thermodynamics (kappa from a file) and stellar
-spectra from files raise ``NotImplementedError``.
+Covered: the single-planet, single-device run of ``helios_tpu``: an
+iterative run (isothermal or non-isothermal layers, the adaptive or a
+physical timestep) and a post-processing run, with a premixed opacity table
+or species mixed on the fly, with the iterative or the matrix flux method,
+with or without cloud decks and the geometric zenith-angle correction, on a
+gas planet, a rocky surface (the surface albedo a constant or from a file,
+the Koll f-factor) or a bare rock, with or without additional heating, a
+blackbody star or a stellar spectrum from an HDF5 file, a constant kappa
+or real-gas thermodynamics from a table ("file" / "water_atmo", with the
+entropy and water-phase diagnostics), started from the grid's initial
+profile, from a TP file ("helios", "TP" or "PT" format) or from a
+checkpoint, with or without the output files, and with the monitored
+runner (progress, metrics, realtime plots, debug checks, a profiler trace,
+checkpoints, mid-run coupling TP writes) and coupling.  Planet ensembles
+and meshes (``planet_ensemble_file``, ``n_planet_batch`` > 1,
+``n_spectral_shards`` > 1) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,17 +26,20 @@ import dataclasses
 import os
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from helios_tpu_torch import checkpoint as ckpt_mod
 from helios_tpu_torch import chem
 from helios_tpu_torch import clouds as clouds_mod
 from helios_tpu_torch import fastpath as fp
 from helios_tpu_torch import grid as grid_mod
 from helios_tpu_torch import host_physics as hp
+from helios_tpu_torch import monitor as monitor_mod
 from helios_tpu_torch import planck as planck_mod
+from helios_tpu_torch import thermo as thermo_mod
 from helios_tpu_torch.config import HeliosConfig
 from helios_tpu_torch.device import resolve_device, torch_dtype
 from helios_tpu_torch.forward import (FluxState, ModelArrays, Phys,
@@ -42,11 +50,11 @@ from helios_tpu_torch.io.opacity import OpacityTable, load_opacity_file
 from helios_tpu_torch.ops import integrate as int_ops
 from helios_tpu_torch.ops import interp as interp_ops
 from helios_tpu_torch.rce import convect
-from helios_tpu_torch.rce.loop import ConvLoopState, convection_loop
+from helios_tpu_torch.rce.loop import ConvLoopState
 from helios_tpu_torch.rce.radiative import (RadLoopState, ThermoProps,
                                             kappa_cp_lay, kappa_int,
                                             make_const_thermo,
-                                            radiation_loop)
+                                            make_table_thermo)
 
 
 def initial_temperatures(cfg: HeliosConfig, phys: Phys,
@@ -98,29 +106,50 @@ def load_tp_file(path: str, fmt: str, nlayer: int, p_lay: np.ndarray,
     return np.concatenate([T_lay, [T_surf]])
 
 
-def make_thermo(cfg: HeliosConfig) -> Optional[ThermoProps]:
-    """kappa/c_p source (read.py:1105-1193): a constant kappa.  The
-    "file"/"water_atmo" table modes are not ported."""
-    if isinstance(cfg.kappa_value, str):
-        raise NotImplementedError(
-            f"kappa_value={cfg.kappa_value!r} (tabulated thermodynamics) is "
-            "not ported")
+def make_thermo(cfg: HeliosConfig, *, device="cuda"
+                ) -> Optional[ThermoProps]:
+    """kappa/c_p/entropy source (read.py:1105-1193): a constant, or the
+    "file"/"water_atmo" ASCII table modes of real-gas thermodynamics, with
+    the table on ``device``.  The table is loaded whenever a file mode is
+    selected, even for a post-processing run, because the entropy and
+    phase diagnostics are interpolated from it at the end
+    (computation.py:252-292)."""
+    if (isinstance(cfg.kappa_value, str)
+            and cfg.kappa_value in ("file", "water_atmo")):
+        tbl = thermo_mod.load_entropy_table(cfg.kappa_file_path,
+                                            cfg.kappa_value)
+        return make_table_thermo(tbl, torch_dtype(cfg.dtype), device=device)
     if cfg.convection:
         return make_const_thermo(float(cfg.kappa_value))
     return None
 
 
+def load_starflux(cfg: HeliosConfig, nbin: int) -> np.ndarray:
+    """Stellar spectrum from the HDF5 file of ``stellar_model="file"``, or
+    zeros for a blackbody (read.py:1195-1236)."""
+    if cfg.stellar_model == "file":
+        import h5py
+        with h5py.File(cfg.stellar_path, "r") as f:
+            starflux = np.asarray(f[cfg.stellar_dataset][:], float)
+        if len(starflux) != nbin:
+            raise OverflowError(
+                "Stellar spectrum and opacity files have different "
+                f"lengths ({len(starflux)} vs {nbin}).")
+        return starflux
+    if cfg.stellar_model == "blackbody":
+        return np.zeros(nbin)
+    raise IOError("Unknown stellar model. Please check your input.")
+
+
 def _check_run_supported(cfg: HeliosConfig):
+    """Planet ensembles and meshes are the parts of helios_tpu's run that
+    the port does not have (ROADMAP A.12, A.13)."""
     missing = []
-    if cfg.stellar_model != "blackbody":
-        missing.append(f"stellar_model={cfg.stellar_model!r}")
-    if int(cfg.n_spectral_shards) > 1 or int(cfg.n_planet_batch) > 1:
-        missing.append("meshes (n_spectral_shards / n_planet_batch)")
-    if (cfg.checkpoint_every > 0 or cfg.realtime_plot or cfg.metrics_file
-            or cfg.profile_dir or cfg.progress or cfg.debug or cfg.coupling
-            or cfg.coupl_tp_write_interval):
-        missing.append("monitoring (checkpoints, plots, metrics, profiles, "
-                       "progress, debug, coupling)")
+    if cfg.planet_ensemble_file or int(cfg.n_planet_batch) > 1:
+        missing.append("planet ensembles (planet_ensemble_file / "
+                       "n_planet_batch, ROADMAP A.12)")
+    if int(cfg.n_spectral_shards) > 1:
+        missing.append("meshes (n_spectral_shards, ROADMAP A.13)")
     if missing:
         raise NotImplementedError(
             "not ported to helios_tpu_torch yet: " + ", ".join(missing))
@@ -174,11 +203,14 @@ def post_process(phys: Phys, m: ModelArrays, T_lay, flux_state: FluxState,
 def collect_result(cfg: HeliosConfig, phys: Phys, m: ModelArrays, final_T,
                    post, *, conv_unstable=None, conv_layer=None,
                    F_smooth_sum=None, kappa_lay=None, c_p_lay=None,
+                   entropy_lay=None, phase_number_lay=None,
                    relaxed=0, final_limit=None,
                    cloud_result=None) -> writers.RunResult:
     """Assemble the host-side RunResult snapshot: the device tensors are
-    moved to numpy here, at the end of the run.  ``cloud_result``: the
-    run's cloud decks, whose fields the cloud files print."""
+    moved to numpy here, at the end of the run.  ``entropy_lay`` and
+    ``phase_number_lay``: the diagnostics of a thermodynamics table (zeros
+    and None without one).  ``cloud_result``: the run's cloud decks, whose
+    fields the cloud files print."""
     L = phys.nlayer
     cache = post["cache"]
     totals = post["totals"]
@@ -206,8 +238,9 @@ def collect_result(cfg: HeliosConfig, phys: Phys, m: ModelArrays, final_T,
         meanmolmass_lay=h(cache.meanmolmass_lay),
         c_p_lay=h(c_p_lay) if c_p_lay is not None else np.zeros(L),
         kappa_lay=h(kappa_lay) if kappa_lay is not None else np.zeros(L),
-        entropy_lay=np.zeros(L),
-        phase_number_lay=None,
+        entropy_lay=(h(entropy_lay) if entropy_lay is not None
+                     else np.zeros(L)),
+        phase_number_lay=h(phase_number_lay),
         conv_unstable=(h(conv_unstable).astype(int)
                        if conv_unstable is not None
                        else np.zeros(L + 1, int)),
@@ -318,11 +351,14 @@ def build_species_set_from_files(cfg: HeliosConfig, *, device="cuda"):
     return sset, donor
 
 
-def prepare_model(cfg: HeliosConfig, table: OpacityTable, *, device="cuda"):
+def prepare_model(cfg: HeliosConfig, table: OpacityTable, *,
+                  starflux: Optional[np.ndarray] = None, device="cuda"):
     """Input preprocessing and model assembly (helios.py:56-79): the Koll
-    f-factor of a rocky planet, the surface albedo, the cloud decks and
-    the additional heating.  Returns (phys, arrays on ``device``,
-    cloud_result or None).  The star stays a blackbody."""
+    f-factor of a rocky planet, the stellar spectrum, the surface albedo,
+    the cloud decks and the additional heating.  Returns (phys, arrays on
+    ``device``, cloud_result or None).  ``starflux`` [B] is a stellar
+    spectrum in memory in place of the file the config names (default:
+    :func:`load_starflux`)."""
     if cfg.approx_f and cfg.planet_type == "rocky":
         # Koll (2021) f-factor, from the tau_lw of an earlier run's file
         # when there is one (helios.py:67-68)
@@ -334,6 +370,8 @@ def prepare_model(cfg: HeliosConfig, table: OpacityTable, *, device="cuda"):
                                      R_star=cfg.R_star, a=cfg.a,
                                      T_star=cfg.T_star)))
 
+    if starflux is None:
+        starflux = load_starflux(cfg, table.nbin)
     surf_albedo = hp.load_surf_albedo(cfg, table.wave_centers)
     cloud_result = None
     if cfg.clouds:
@@ -342,7 +380,8 @@ def prepare_model(cfg: HeliosConfig, table: OpacityTable, *, device="cuda"):
             cfg, table.wave_centers, table.wave_edges, g.p_lay, g.p_int,
             cfg.iso)
 
-    phys, arrays = build_model(cfg, table, surf_albedo=surf_albedo,
+    phys, arrays = build_model(cfg, table, starflux=starflux,
+                               surf_albedo=surf_albedo,
                                cloud_result=cloud_result, device=device)
     if cfg.add_heating:
         heat = hp.load_additional_heating(cfg, arrays.p_lay.cpu().numpy())
@@ -368,30 +407,74 @@ class RunOutput:
     wall_seconds: float          # the whole run, model build included
     rad_seconds: float           # radiation loop
     conv_seconds: float          # convection loop (0 when not run)
+    rad_it0: int = 0             # where the radiation loop started
+    #                              (a restored checkpoint's iteration)
 
     @property
     def n_flux_solves(self) -> int:
-        """Flux solves run by both loops (one per loop iteration; one in
-        a post-processing run)."""
+        """Flux solves made by this run (one per loop iteration; one in a
+        post-processing run).  A run resumed from a checkpoint counts the
+        iterations after the restore: the radiation loop's from
+        ``rad_it0``, the convection loop's ``steps`` from its restore."""
         if self.phys.singlewalk:
             return 1
-        return self.rad.it + (self.conv.steps if self.conv is not None
-                              else 0)
+        return self.rad.it - self.rad_it0 + (
+            self.conv.steps if self.conv is not None else 0)
+
+
+def checkpoint_paths(cfg: HeliosConfig):
+    """(radiation, convection) checkpoint paths: ``cfg.checkpoint_path`` or
+    ``<output_dir>/<name>/restart.ckpt.npz``, and the same with ``_conv``
+    before the (possibly compound) extension, so that any path gives two
+    distinct files."""
+    path = cfg.checkpoint_path or os.path.join(cfg.output_dir, cfg.name,
+                                               "restart.ckpt.npz")
+    base, ext = os.path.splitext(path)
+    if base.endswith(".ckpt"):
+        base, ext = base[:-5], ".ckpt" + ext
+    return path, base + "_conv" + ext
+
+
+def monitored_chunk(cfg: HeliosConfig, coupl_interval: int) -> int:
+    """Iterations per chunk of a monitored run: ``chunk_iters``, capped by
+    the checkpoint, plot and coupling intervals, rounded down to the
+    10-iteration cache-refresh cadence (at least 10), so that checkpoints
+    land on refresh boundaries and a resume is bit for bit."""
+    chunk = cfg.chunk_iters
+    if cfg.checkpoint_every > 0:
+        chunk = min(chunk, cfg.checkpoint_every)
+    if cfg.realtime_plot:
+        chunk = min(chunk, cfg.n_plot)
+    if coupl_interval > 0:
+        chunk = min(chunk, coupl_interval)
+    return max(chunk // 10 * 10, 10)
 
 
 def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
-        write_output: bool = True, sset=None, device="cuda") -> RunOutput:
+        write_output: bool = True, sset=None,
+        starflux: Optional[np.ndarray] = None,
+        callbacks: Sequence[monitor_mod.Callback] = (),
+        device="cuda") -> RunOutput:
     """One run of one atmosphere: the radiation loop (one flux solve in a
     post-processing run), then the convection loop when convection is on
     and the layers are non-isothermal, then the final-state diagnostics,
     and with ``write_output`` (the default, as in helios_tpu) the output
     files under ``cfg.output_dir/cfg.name`` (with ``approx_f`` also the
-    tau_lw / tau_sw / f-factor file); pass ``write_output=False`` for no
-    files.  With on-the-fly opacity mixing, ``sset`` is the species set
-    and ``table`` donates the grids; when neither is given both come from
-    the config's files.  ``device`` defaults to CUDA
-    and raises without it; ``device="cpu"`` runs the plain versions of the
-    kernels on the CPU.  The times end after the device has finished."""
+    tau_lw / tau_sw / f-factor file, with coupling the coupling TP and
+    convergence files); pass ``write_output=False`` for no files.
+
+    With on-the-fly opacity mixing, ``sset`` is the species set and
+    ``table`` donates the grids; when neither is given both come from the
+    config's files.  ``starflux`` is a stellar spectrum in memory in place
+    of the config's file.  A monitored run (checkpoints, realtime plots,
+    metrics, a profile, progress, debug or mid-run coupling TP writes)
+    runs both loops in chunks with the callbacks between them, resumes
+    from the checkpoint files when they exist, and gives the same final
+    state as the unmonitored run; ``callbacks`` are extra chunk callbacks
+    of both loops, called after the built-in ones (and make a run
+    monitored).  ``device`` defaults to CUDA and raises without it;
+    ``device="cpu"`` runs the plain versions of the kernels on the CPU.
+    The times end after the device has finished."""
     t0 = time.perf_counter()
     dev = resolve_device(device)
     if not cfg._finalized:
@@ -402,8 +485,9 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
     if table is None:
         table = load_opacity_file(cfg.opacity_path)
 
-    phys, arrays, cloud_result = prepare_model(cfg, table, device=dev)
-    thermo = make_thermo(cfg)
+    phys, arrays, cloud_result = prepare_model(cfg, table, starflux=starflux,
+                                               device=dev)
+    thermo = make_thermo(cfg, device=dev)
     T0 = torch.as_tensor(initial_temperatures(cfg, phys, arrays),
                          dtype=torch_dtype(cfg.dtype), device=dev)
 
@@ -412,14 +496,55 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
             torch.cuda.synchronize(dev)
         return time.perf_counter()
 
+    # a monitored run observes the loops between chunks (mid-run coupling
+    # TP writes and the debug checks too); an unmonitored run is one chunk
+    coupl_interval = (int(cfg.coupl_tp_write_interval) if cfg.coupling
+                      else 0)
+    monitored = (cfg.checkpoint_every > 0 or cfg.realtime_plot
+                 or cfg.metrics_file or cfg.profile_dir or cfg.progress
+                 or phys.debug or coupl_interval > 0
+                 or bool(callbacks)) and not phys.singlewalk
+    convect_on = phys.convection and not phys.singlewalk and not phys.iso
+
     t_rad = clock()
-    rad = radiation_loop(phys, arrays, thermo, T0, sset=sset)
-    t_conv = clock()
     conv = None
-    final = rad
-    if phys.convection and not phys.singlewalk and not phys.iso:
-        conv = convection_loop(phys, arrays, thermo, rad, sset=sset)
-        final = conv
+    rad_it0 = 0
+    rad_cbs, conv_cbs = [], []
+    rad_state0 = conv_state0 = None
+    if monitored:
+        obs = _observers(cfg, phys, arrays, coupl_interval)
+        rad_cbs += obs
+        conv_cbs += obs
+        if cfg.checkpoint_every > 0:
+            path, conv_path = checkpoint_paths(cfg)
+            ckpt = ckpt_mod.load_rad_checkpoint(path)
+            if ckpt is not None:
+                rad_state0 = ckpt_mod.restore_rad_state(phys, arrays, ckpt,
+                                                        sset)
+                rad_it0 = rad_state0.it
+            rad_cbs.append(ckpt_mod.CheckpointCallback(
+                path, cfg.checkpoint_every, phys))
+            if convect_on:
+                cckpt = ckpt_mod.load_conv_checkpoint(conv_path)
+                if (cckpt is not None and ckpt_mod.checkpoint_phase(cckpt)
+                        == "convection"):
+                    conv_state0 = ckpt_mod.restore_conv_state(
+                        phys, arrays, cckpt, sset)
+                conv_cbs.append(ckpt_mod.ConvCheckpointCallback(
+                    conv_path, cfg.checkpoint_every, phys))
+        rad_cbs += callbacks
+        conv_cbs += callbacks
+    chunk = monitored_chunk(cfg, coupl_interval) if monitored else None
+    rad = monitor_mod.run_radiation_chunked(
+        phys, arrays, thermo, T0, chunk_iters=chunk, sset=sset,
+        callbacks=rad_cbs, state0=rad_state0,
+        profile_dir=cfg.profile_dir or None)
+    t_conv = clock()
+    if convect_on:
+        conv = monitor_mod.run_convection_chunked(
+            phys, arrays, thermo, rad, chunk_iters=chunk, sset=sset,
+            callbacks=conv_cbs, state0=conv_state0)
+    final = conv if conv is not None else rad
     t_end = clock()
 
     if thermo is not None:
@@ -431,13 +556,27 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
     else:
         kappa_lay = c_p_lay = conv_unstable = None
 
+    # entropy / water-phase diagnostics from the thermodynamics table
+    # (computation.py:252-292, entropy_interpol / phase_number_interpol)
+    entropy_lay = phase_number_lay = None
+    if thermo is not None and thermo.from_table:
+        T_lay = final.T_lay[:phys.nlayer]
+        entropy_lay = interp_ops.interpolate_entropy(
+            thermo.entropy_table, thermo.temps, thermo.press, T_lay,
+            arrays.p_lay)
+        if thermo.has_phase:
+            phase_number_lay = interp_ops.interpolate_phase_number(
+                thermo.phase_table, thermo.temps, thermo.press, T_lay,
+                arrays.p_lay)
+
     post = post_process(phys, arrays, final.T_lay, final.flux, sset)
     final_limit = final.local_limit
     result = collect_result(
         cfg, phys, arrays, final.T_lay, post, conv_unstable=conv_unstable,
         conv_layer=conv.conv_layer if conv is not None else None,
         F_smooth_sum=final.F_smooth_sum, kappa_lay=kappa_lay,
-        c_p_lay=c_p_lay,
+        c_p_lay=c_p_lay, entropy_lay=entropy_lay,
+        phase_number_lay=phase_number_lay,
         relaxed=int(final_limit > phys.rad_convergence_limit * 1.5),
         final_limit=final_limit, cloud_result=cloud_result)
 
@@ -445,6 +584,17 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
         writers.write_all(result)
         if final.aborted:
             writers.write_abort_file(result)
+        if cfg.coupling:
+            # coupling: TP write + cross-iteration convergence test
+            # (helios.py:129-131)
+            T_prev = None
+            if cfg.coupling_speed_up and cfg.coupling_iter_nr > 0:
+                T_prev = _read_coupling_tp(cfg, cfg.coupling_iter_nr - 1)
+            result.coupling_speed_up = int(cfg.coupling_speed_up)
+            result.coupling_iter_nr = int(cfg.coupling_iter_nr)
+            result.coupling_full_output = int(cfg.coupling_full_output)
+            writers.write_tp_for_coupling(result, T_previous=T_prev)
+            _coupling_convergence(cfg, result)
         # tau_lw / tau_sw estimate for the Koll f approximation
         # (helios.py:133-134)
         if cfg.approx_f:
@@ -459,4 +609,65 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
                      T_lay=final.T_lay, flux=final.flux,
                      totals=final.totals, result=result,
                      wall_seconds=time.perf_counter() - t0,
-                     rad_seconds=t_conv - t_rad, conv_seconds=t_end - t_conv)
+                     rad_seconds=t_conv - t_rad, conv_seconds=t_end - t_conv,
+                     rad_it0=rad_it0)
+
+
+def _observers(cfg: HeliosConfig, phys: Phys, arrays: ModelArrays,
+               coupl_interval: int) -> list:
+    """The observation callbacks of a monitored run (both loops)."""
+    obs = []
+    if cfg.progress:
+        obs.append(monitor_mod.ProgressPrinter(phys.nlayer))
+    if cfg.metrics_file:
+        obs.append(monitor_mod.MetricsWriter(cfg.metrics_file))
+    if cfg.realtime_plot:
+        obs.append(monitor_mod.PlotCallback(phys, cfg.p_boa, cfg.p_toa))
+    if phys.debug:
+        obs.append(monitor_mod.DebugChecker())
+    if coupl_interval > 0:
+        obs.append(monitor_mod.CouplingTPWriter(
+            _coupling_tp_path(cfg, cfg.coupling_iter_nr), phys.nlayer,
+            arrays.p_lay.cpu().numpy(), arrays.p_int.cpu().numpy(),
+            coupl_interval))
+    return obs
+
+
+def _coupling_tp_path(cfg: HeliosConfig, iter_nr: int) -> str:
+    """Path of a coupling TP file (write.py:725-746 naming)."""
+    name = cfg.name
+    if cfg.coupling_full_output:
+        base = name[:name.rfind("_") + 1]
+        name = base + str(iter_nr)
+    return os.path.join(cfg.output_dir, name,
+                        f"{name}_tp_coupling_{iter_nr}.dat")
+
+
+def _read_coupling_tp(cfg: HeliosConfig, iter_nr: int) -> np.ndarray:
+    """The temperatures of a coupling TP file (BOA row first)."""
+    T = []
+    with open(_coupling_tp_path(cfg, iter_nr)) as f:
+        next(f)
+        for line in f:
+            col = line.split()
+            if len(col) > 1:
+                T.append(float(col[1]))
+    return np.asarray(T)
+
+
+def _coupling_convergence(cfg: HeliosConfig, result) -> int:
+    """Cross-iteration TP convergence (host_functions.py:962-1018): from
+    coupling iteration 1 on, writes 1 to ``<name>_coupling_convergence.dat``
+    when every temperature moved less than ``coupl_convergence_limit``
+    (relative) from the previous iteration's file, else 0."""
+    converged = 0
+    if cfg.coupling_iter_nr > 0 and not cfg.singlewalk:
+        prev = _read_coupling_tp(cfg, cfg.coupling_iter_nr - 1)
+        cur = _read_coupling_tp(cfg, cfg.coupling_iter_nr)
+        rel = np.abs(prev - cur) / cur
+        converged = int(np.all(rel < cfg.coupl_convergence_limit))
+        with open(os.path.join(
+                result.out,
+                f"{result.name}_coupling_convergence.dat"), "w") as f:
+            f.write(str(converged))
+    return converged

@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from helios_tpu_torch import constants as pc
+from helios_tpu_torch.device import resolve_device
 from helios_tpu_torch.forward import (CellCache, FluxState, ModelArrays, Phys,
                                       compute_cells, init_flux_state,
                                       integrate_flux_flat, solve_fluxes)
@@ -25,18 +26,55 @@ from helios_tpu_torch.ops import interp as interp_ops
 
 
 class ThermoProps(NamedTuple):
-    """kappa / c_p source.  Only the constant-kappa mode is ported
-    (c_p = R_univ / kappa [erg/K/mol], reference read.py:1105-1193)."""
-    const_kappa: float
+    """kappa / c_p / entropy / phase source: a constant kappa
+    (c_p = R_univ / kappa [erg/K/mol], reference read.py:1105-1193), or a
+    (T, P) table ("file"/"water_atmo" modes) that everything is
+    interpolated from (kernels.cu:703-919).  The tables are None for a
+    constant kappa; ``phase_table`` is None without the water_atmo
+    format."""
+    const_kappa: float                          # used when not from_table
+    kappa_table: Optional[torch.Tensor] = None  # [nt, np]
+    cp_table: Optional[torch.Tensor] = None     # [nt, np]
+    entropy_table: Optional[torch.Tensor] = None  # [nt, np] (0 = absent)
+    phase_table: Optional[torch.Tensor] = None  # [nt, np] water_atmo only
+    temps: Optional[torch.Tensor] = None        # [nt]
+    press: Optional[torch.Tensor] = None        # [np]
+
+    @property
+    def from_table(self) -> bool:
+        return self.kappa_table is not None
+
+    @property
+    def has_phase(self) -> bool:
+        return self.phase_table is not None
 
 
 def make_const_thermo(kappa_value: float) -> ThermoProps:
     return ThermoProps(const_kappa=float(kappa_value))
 
 
+def make_table_thermo(tbl, dtype=torch.float64, device="cuda") -> ThermoProps:
+    """ThermoProps from a loaded :class:`helios_tpu_torch.thermo.EntropyTable`
+    (the kappa_value = "file"/"water_atmo" modes, read.py:1121-1165), with
+    the tables on ``device`` (default CUDA; raises if CUDA is absent)."""
+    dev = resolve_device(device)
+    t = lambda x: torch.tensor(x, dtype=dtype, device=dev)
+    return ThermoProps(
+        const_kappa=0.0, kappa_table=t(tbl.kappa), cp_table=t(tbl.cp),
+        entropy_table=t(tbl.entropy),
+        phase_table=t(tbl.phase) if tbl.phase is not None else None,
+        temps=t(tbl.temps), press=t(tbl.press))
+
+
 def kappa_cp_lay(thermo: ThermoProps, T_lay, p_lay):
     """kappa and c_p on layer centers (computation.py:199-232)."""
     L = p_lay.shape[0]
+    if thermo.from_table:
+        kappa = interp_ops.interpolate_kappa(
+            thermo.kappa_table, thermo.temps, thermo.press, T_lay[:L], p_lay)
+        cp = interp_ops.interpolate_cp(
+            thermo.cp_table, thermo.temps, thermo.press, T_lay[:L], p_lay)
+        return kappa, cp
     kw = dict(dtype=T_lay.dtype, device=T_lay.device)
     kappa = torch.full((L,), thermo.const_kappa, **kw)
     cp = torch.full((L,), pc.R_UNIV / thermo.const_kappa, **kw)
@@ -44,6 +82,10 @@ def kappa_cp_lay(thermo: ThermoProps, T_lay, p_lay):
 
 
 def kappa_int(thermo: ThermoProps, T_int, p_int):
+    """kappa on the interfaces."""
+    if thermo.from_table:
+        return interp_ops.interpolate_kappa(
+            thermo.kappa_table, thermo.temps, thermo.press, T_int, p_int)
     return torch.full((p_int.shape[0],), thermo.const_kappa,
                       dtype=T_int.dtype, device=T_int.device)
 

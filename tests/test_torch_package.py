@@ -55,7 +55,8 @@ def test_import_check_holds_the_host_copies():
     among them) are held by the import check above, as is chip_smoke.py."""
     checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for name in ("clouds", "tools", "host_physics", "config", "io/writers",
-                 "io/opacity"):
+                 "io/opacity", "thermo", "plotting", "examples", "monitor",
+                 "checkpoint", "__main__"):
         assert f"helios_tpu_torch/{name}.py" in checked, name
     assert "chip_smoke.py" in checked
 
@@ -79,23 +80,21 @@ def test_default_device_raises_without_cuda(no_cuda):
 
 def test_unported_paths_raise(tmp_path):
     """What the port does not cover yet raises NotImplementedError with
-    its name: a stellar spectrum from a file (in the model and in the
-    run), tabulated thermodynamics, meshes and monitoring."""
+    its name: planet ensembles and meshes.  A stellar spectrum from a file,
+    tabulated thermodynamics and monitoring run (tests/test_torch_cli.py,
+    test_torch_thermo.py, test_torch_monitor.py)."""
     table = synthetic_premixed_table(nbin=4, ny=2, ntemp=4, npress=4)
-    with pytest.raises(NotImplementedError, match="stellar_model='file'"):
-        tf.build_model(HeliosConfig(nlayer=6, stellar_model="file"
-                                    ).finalize(), table, device="cpu")
-    for kw, what in ((dict(stellar_model="file"), "stellar_model"),
-                     (dict(kappa_value="file"), "kappa_value"),
-                     (dict(n_spectral_shards=2), "meshes"),
-                     (dict(n_planet_batch=2), "meshes"),
-                     (dict(progress="yes"), "monitoring"),
-                     (dict(checkpoint_every=10), "monitoring")):
+    for kw, what in ((dict(n_spectral_shards=2), "meshes"),
+                     (dict(n_planet_batch=2), "planet ensembles"),
+                     (dict(planet_ensemble_file="planets.dat"),
+                      "planet ensembles")):
         cfg = HeliosConfig(nlayer=6, **kw)
         with pytest.raises(NotImplementedError, match=what):
             torch_pipeline.run(cfg, table, write_output=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="kappa_value"):
-        torch_pipeline.make_thermo(HeliosConfig(kappa_value="file"))
+    phys, arrays = tf.build_model(
+        HeliosConfig(nlayer=6, stellar_model="file").finalize(), table,
+        starflux=np.full(4, 1e10), device="cpu")
+    assert phys.real_star == 1 and float(arrays.starflux.min()) > 0
     # a TP file format other than helios/TP/PT is refused, as in helios_tpu
     tp = tmp_path / "tp.dat"
     tp.write_text("1e9 1500\n1e3 500\n")
@@ -363,3 +362,51 @@ def test_cuda_cloudy_zenith_forward_matches_cpu(cuda_device, tmp_path, iso,
     for f in ("F_up_tot", "F_down_tot"):
         torch.testing.assert_close(getattr(gpu, f).cpu(), getattr(cpu, f),
                                    rtol=1e-10, atol=0.0, msg=f)
+
+
+def test_cuda_chunked_and_resumed_runs_equal_the_straight_run(cuda_device,
+                                                              tmp_path):
+    """On the card: a monitored run in chunks with checkpoints, and a run
+    stopped after the radiation checkpoint at iteration 200 and resumed
+    from the file, both land bit for bit on the unmonitored run, with one
+    noniso_sweep launch per flux solve of each run."""
+    table = synthetic_premixed_table(nbin=12, ny=3, ntemp=12, npress=10,
+                                     seed=5)
+    table.kpoints *= 10.0
+    kw = dict(planet="manual", g=2288.0, a=0.0153, R_planet=1.0,
+              R_star=1.0, T_star=30.0, T_intern=700.0, scattering="no",
+              direct_beam="no", convection="yes", kappa_value=0.1,
+              run_type="iterative", nlayer=14, p_boa=1e9, p_toa=1e3,
+              rad_convergence_limit=1e-5, adapt_interval=6,
+              output_dir=str(tmp_path) + "/")
+
+    def run(name, **extra):
+        before = noniso_sweep.launches
+        out = torch_pipeline.run(HeliosConfig(**kw, name=name, **extra),
+                                 table, write_output=False,
+                                 device=cuda_device)
+        torch.cuda.synchronize()
+        assert noniso_sweep.launches - before == out.n_flux_solves
+        return out
+
+    plain = run("plain")
+    chunked = run("chunked", checkpoint_every=100,
+                  metrics_file=str(tmp_path / "m.jsonl"))
+
+    class Preempted(Exception):
+        pass
+
+    def stop(info):
+        if info.phase == "radiation" and info.state.it >= 200:
+            raise Preempted
+
+    with pytest.raises(Preempted):
+        torch_pipeline.run(HeliosConfig(**kw, name="resumed",
+                                        checkpoint_every=100), table,
+                           write_output=False, device=cuda_device,
+                           callbacks=[stop])
+    resumed = run("resumed", checkpoint_every=100)
+    assert resumed.rad_it0 == 200
+    for out in (chunked, resumed):
+        assert torch.equal(out.T_lay, plain.T_lay)
+        assert (out.rad.it, out.conv.it) == (plain.rad.it, plain.conv.it)
