@@ -26,7 +26,9 @@ Phases (any failure exits non-zero before the last line is printed):
      version, at the flagship shape and at ragged ny (2 to 126) on cells
      of ties, gray cells, unsorted and infinite entries and negligible
      overlap, with the cells its kernel sends through its general branch
-     counted;
+     counted; then, in fp64, each kernel at the width of path n's
+     ensemble: 8 x 7700 = 61,600 columns for the sweeps and the Thomas
+     solve, 8 x 105 x 385 = 323,400 cells for the Random Overlap mix;
   4. the paths, each with every launch count set to 0 just before it and
      read just after:
      a. the flagship RCE run (105 layers x 385 bins x 20 Gauss points,
@@ -98,6 +100,26 @@ Phases (any failure exits non-zero before the last line is printed):
         same table through both loops, its convection loop running on the
         table (the lookups against the plain one, the convection step's
         wall against path a's, the device time of one step's lookups);
+     n. a flagship ensemble: helios_tpu_torch.parallel.ensemble.
+        run_ensemble of 8 planets with path a's config and start profile,
+        surface albedos 0.0, 0.1, ..., 0.7, the table in memory, to
+        convergence: every member finite and converged, one noniso_sweep
+        launch per batched flux solve over the 61,600 columns (not one per
+        member), member 0 against path a's run (bit for bit, or the gap
+        logged beside whether one batched forward solve is bit for bit the
+        solo one), the batch's wall against 8 x path a's, planets per hour,
+        the peak device memory per member, a batched radiation iteration's
+        time breakdown, and one batched forward_fluxes on the card against
+        the CPU;
+     o. the ensemble command line: the quickstart's param.dat with the
+        shipped planets.dat (dark, gray and bright, surface albedo 0.0,
+        0.25, 0.5) through helios_tpu_torch.__main__.main in this process
+        with progress lines and a checkpoint every 100 iterations: each
+        member's file set, the ensemble checkpoint pair, one launch per
+        batched flux solve, the dark member against path k's unmonitored
+        run (bit for bit or the gap); then the same command again, which
+        resumes from the converged checkpoints, launches nothing and
+        leaves the files unchanged;
   5. a JSON line of the kernels, the nvidia-smi line, and the result line.
 
 Needs one CUDA card; exits non-zero without one.  Imports neither JAX nor
@@ -105,6 +127,7 @@ the JAX package.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -263,10 +286,10 @@ def max_errors(got, want):
     return rel, max(float((g - w).abs().max()) for g, w in zip(got, want))
 
 
-def sweep_case(dtype, rtol, bandwidth):
+def sweep_case(dtype, rtol, bandwidth, S=NBIN_FLAG * NY_FLAG):
     from helios_tpu_torch.kernels.sweep import (noniso_sweep,
                                                 noniso_sweep_reference)
-    args = sweep_inputs(dtype)
+    args = sweep_inputs(dtype, S=S)
     L, S = args[0].shape
     got = noniso_sweep(*args, n_passes=PASSES)
     torch.cuda.synchronize()
@@ -318,9 +341,9 @@ def iso_bound_ms(dtype, L, S, n_passes, bandwidth=HBM_BYTES_PER_S):
             "bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def iso_case(dtype, rtol, bandwidth):
+def iso_case(dtype, rtol, bandwidth, S=NBIN_FLAG * NY_FLAG):
     from helios_tpu_torch.kernels.sweep import iso_sweep, iso_sweep_reference
-    args = iso_inputs(dtype)
+    args = iso_inputs(dtype, S=S)
     L, S = args[0].shape
     name = str(dtype).split(".")[-1]
     res = dict(max_rel_err=0.0, max_abs_err=0.0)
@@ -390,13 +413,13 @@ def thomas_bound_ms(dtype, n, S, bandwidth=HBM_BYTES_PER_S):
             "bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def thomas_case(dtype, rtol, bandwidth):
+def thomas_case(dtype, rtol, bandwidth, S=NBIN_FLAG * NY_FLAG):
     from helios_tpu_torch.kernels.thomas import (thomas_solve,
                                                  thomas_solve_reference)
     name = str(dtype).split(".")[-1]
     res = {}
     for label, n in THOMAS_ROWS.items():
-        args = thomas_inputs(dtype, n, seed=n)
+        args = thomas_inputs(dtype, n, seed=n, S=S)
         S = args[0].shape[1]
         got = thomas_solve(*args)
         torch.cuda.synchronize()
@@ -515,13 +538,13 @@ def chained_case(dtype):
     return res
 
 
-def ro_inputs(dtype, seed=2):
-    """C = 105 x 385 cells of two ascending 20-point k-distributions; every
-    7th cell has exact ties (new == mixed), every 7th (offset 1) a
-    negligible overlap."""
+def ro_inputs(dtype, seed=2, C=L_FLAG * NBIN_FLAG):
+    """C = 105 x 385 cells (an ensemble's P times as many) of two
+    ascending 20-point k-distributions; every 7th cell has exact ties (new
+    == mixed), every 7th (offset 1) a negligible overlap."""
     from helios_tpu_torch.io.opacity import gauss_legendre_ypoints
     rng = np.random.default_rng(seed)
-    C, ny = L_FLAG * NBIN_FLAG, NY_FLAG
+    ny = NY_FLAG
     m = np.sort(10.0 ** rng.uniform(-4, 1, (C, ny)), axis=1)
     n = np.sort(10.0 ** rng.uniform(-3, 0.5, (C, ny)), axis=1)
     n[::7] = m[::7]
@@ -555,13 +578,13 @@ def row_mismatches(got, want):
     return int((~same.all(dim=1)).sum()), diff
 
 
-def ro_case(dtype, bandwidth):
+def ro_case(dtype, bandwidth, C=L_FLAG * NBIN_FLAG):
     from helios_tpu_torch.kernels.ro import (ro_general_cells, ro_mix,
                                              ro_mix_occupancy,
                                              ro_mix_reference)
     from helios_tpu_torch.ops.mixing import negligible_overlap
     name = str(dtype).split(".")[-1]
-    args = ro_inputs(dtype)
+    args = ro_inputs(dtype, C=C)
     C, ny = args[0].shape
     neg = int(negligible_overlap(args[0], args[1]).sum())
     general = int(ro_general_cells(*args).sum())
@@ -776,7 +799,8 @@ def time_breakdown(label, phys, arrays, T0, kernels, n=20, sset=None,
     s1 = loop(n, s)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3 / n
-    check(s1.it == s.it + n, "time breakdown: the radiation loop stopped")
+    check(np.all(s1.it == s.it + n),
+          "time breakdown: the radiation loop stopped")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         loop(n, s)
@@ -798,8 +822,9 @@ def time_breakdown(label, phys, arrays, T0, kernels, n=20, sset=None,
     busy_ms = device_us / 1e3 / n
     shares = "; ".join(f"{k} {us / 1e3 / n:.3f} ms ({100 * us / device_us:.1f}"
                        "% of device time)" for k, us in kernel_us.items())
-    log(f"time breakdown, {label} radiation iteration (it {s.it}.."
-        f"{s.it + n}): wall {wall_ms:.3f} ms; device busy {busy_ms:.3f} ms "
+    it0 = int(np.max(s.it))
+    log(f"time breakdown, {label} radiation iteration (it {it0}.."
+        f"{it0 + n}): wall {wall_ms:.3f} ms; device busy {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.1f}% of wall, idle "
         f"{100 * (1 - busy_ms / wall_ms):.1f}%) in {count / n:.0f} "
         f"kernels; {shares}")
@@ -2138,6 +2163,240 @@ def thermo_columns(run_dir, name, L):
     return np.asarray([float(r[6]) for r in rows]), np.asarray(phase)
 
 
+# --------------------------------------------------------------------------- #
+# paths n-o: planet ensembles
+# --------------------------------------------------------------------------- #
+
+ENSEMBLE_P = 8
+ENSEMBLE_ALBEDOS = [0.1 * k for k in range(ENSEMBLE_P)]
+ENSEMBLE_CKPT_FILES = ["ensemble.ckpt.npz", "ensemble_conv.ckpt.npz"]
+
+
+def batched_flux_solves(outs):
+    """Flux solves of a batch: the loops iterate while any member runs, so
+    the slowest member's radiation iterations plus its convection steps."""
+    return (max(o.rad.it - o.rad_it0 for o in outs)
+            + max(o.conv.steps if o.conv is not None else 0 for o in outs))
+
+
+def member_against(label, member, ref):
+    """A batch member against the same planet's run alone: T and both
+    iteration counts bit for bit, or the gap, logged.  Returns (bitwise,
+    max |dT| in K)."""
+    same = (torch.equal(member.T_lay.cpu(), ref.T_lay.cpu())
+            and (member.rad.it, member.conv.it)
+            == (ref.rad.it, ref.conv.it))
+    diff = (member.T_lay.cpu() - ref.T_lay.cpu()).abs()
+    dT, at = float(diff.max()), int(diff.argmax())
+    log(f"{label}: {'bit for bit' if same else 'NOT bit for bit'} its run "
+        f"alone (iterations {member.rad.it} + {member.conv.it} against "
+        f"{ref.rad.it} + {ref.conv.it}, max |dT| {dT:.3e} K at layer {at} "
+        f"of {diff.shape[0]} ({float(ref.T_lay[at]):.1f} K), "
+        f"{int((diff > 1e-3).sum())} layers above 1 mK)")
+    return same, dT
+
+
+def batched_vs_solo_forward(phys, arrays, stacked, T, k=0):
+    """One forward_fluxes of the batch and one of member k alone at the
+    same temperatures, on the card: whether member k's totals are bit for
+    bit its solo call's, and their largest relative difference."""
+    from helios_tpu_torch.forward import forward_fluxes
+
+    Tb = torch.stack([T] * stacked.p_lay.shape[1], dim=1)
+    got = forward_fluxes(phys, stacked, Tb)[1]
+    want = forward_fluxes(phys, arrays, T)[1]
+    fields = ("F_up_tot", "F_down_tot", "F_net")
+    same = all(torch.equal(getattr(got, f)[:, k], getattr(want, f))
+               for f in fields)
+    rel = max(float(((getattr(got, f)[:, k] - getattr(want, f)).abs()
+                     / getattr(want, f).abs().max()).max()) for f in fields)
+    return same, rel
+
+
+def ensemble_path(tmpdir, launch_counts, flag_out, T_start):
+    """Path n: run_ensemble of 8 flagship planets (path a's config and
+    start profile, surface albedo 0.0, 0.1, ..., 0.7, the table in
+    memory).  Every member finite and converged; one noniso_sweep launch
+    per batched flux solve (not 8); member 0 against path a's run (bit for
+    bit or the gap); the batch's wall against 8 x path a's, planets per
+    hour and the peak device memory per member; where a batched radiation
+    iteration's time goes; one batched forward_fluxes on the card against
+    the CPU."""
+    from helios_tpu_torch.parallel import ensemble as ens
+
+    cfg0, table = flagship(tmpdir)
+    cfgs = [dataclasses.replace(cfg0, name=f"flagship_{k}",
+                                surf_albedo=max(1e-8, a))
+            for k, a in enumerate(ENSEMBLE_ALBEDOS)]
+    check(cfgs[0].surf_albedo == cfg0.surf_albedo, "member 0 is not path a")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    outs = ens.run_ensemble(cfgs, tables=[table] * ENSEMBLE_P,
+                            write_output=False, device=DEVICE)
+    torch.cuda.synchronize()
+    launch_counts.update(read_counts())
+    peak = torch.cuda.max_memory_allocated()
+
+    for o in outs:
+        T = o.T_lay.cpu().numpy()
+        check(np.all(np.isfinite(T)), f"ensemble path: {o.result.name} has "
+              "non-finite temperatures")
+        check(o.conv is not None and o.conv.steps > 0
+              and not bool(o.rad.keep_running) and not o.rad.aborted
+              and not o.conv.keep_running and not o.conv.aborted,
+              f"ensemble path: {o.result.name} did not converge")
+    solves = batched_flux_solves(outs)
+    check(launch_counts == only(noniso_sweep=solves),
+          f"ensemble path: launches {launch_counts} for {solves} batched "
+          f"flux solves (members alone would make "
+          f"{sum(o.n_flux_solves for o in outs)})")
+    wall = outs[0].wall_seconds
+    solo_wall = flag_out.wall_seconds
+    its = [(o.rad.it, o.conv.it) for o in outs]
+    log(f"ensemble path: {ENSEMBLE_P} flagship planets [{L_FLAG} layers x "
+        f"{ENSEMBLE_P} x {NBIN_FLAG * NY_FLAG} = "
+        f"{ENSEMBLE_P * NBIN_FLAG * NY_FLAG} columns, fp64] converged, "
+        f"iterations (radiation, convection) per member {its}; {solves} "
+        f"batched flux solves = {launch_counts['noniso_sweep']} noniso_sweep "
+        f"launches (the members alone: {sum(o.n_flux_solves for o in outs)})")
+    log(f"ensemble path walls: the batch {wall:.3f} s (radiation loop "
+        f"{outs[0].rad_seconds:.3f} s, convection loop "
+        f"{outs[0].conv_seconds:.3f} s) against {ENSEMBLE_P} x path a's "
+        f"{solo_wall:.3f} s = {ENSEMBLE_P * solo_wall:.3f} s; "
+        f"{ENSEMBLE_P / wall * 3600:.0f} planets per hour against "
+        f"{3600 / solo_wall:.0f}; peak device memory {peak / 2**20:.0f} MiB "
+        f"= {peak / 2**20 / ENSEMBLE_P:.0f} MiB per member")
+    same, dT = member_against("ensemble path, member 0 against path a",
+                              outs[0], flag_out)
+    fwd_same, fwd_rel = batched_vs_solo_forward(
+        flag_out.phys, flag_out.arrays,
+        ens.stack_models([o.arrays for o in outs]), flag_out.T_lay)
+    log(f"ensemble path: one forward_fluxes of the batch against member 0's "
+        f"alone at path a's final T on the card: "
+        f"{'bit for bit' if fwd_same else 'not bit for bit'} (max rel "
+        f"difference of the totals {fwd_rel:.3e})")
+    stacked = ens.stack_models([o.arrays for o in outs])
+    T0b = torch.stack([T_start] * ENSEMBLE_P, dim=1)
+    bd = time_breakdown(f"{ENSEMBLE_P}-planet flagship batch", outs[0].phys,
+                        stacked, T0b, ("noniso_sweep",))
+    worst = totals_cuda_vs_cpu(
+        "ensemble path", outs[0].phys, stacked,
+        torch.stack([o.T_lay for o in outs], dim=1),
+        only(noniso_sweep=1))
+    return dict(wall_s=wall, solo_wall_s=solo_wall, solves=solves,
+                planets_per_hour=ENSEMBLE_P / wall * 3600,
+                solo_planets_per_hour=3600 / solo_wall,
+                peak_mib_per_member=peak / 2**20 / ENSEMBLE_P,
+                member0_bitwise=same, member0_max_dT=dT,
+                forward_bitwise=fwd_same, forward_rel=fwd_rel,
+                breakdown=bd, cuda_vs_cpu=worst, iterations=its)
+
+
+def capture_ensemble_main(argv, table):
+    """helios_tpu_torch.__main__.main(argv) with an ensemble file in this
+    process, ``table`` (when not None) handed over by
+    pipeline.load_opacity_file in place of the file; returns (exit code,
+    what it printed, the run_ensemble outputs)."""
+    from helios_tpu_torch import __main__ as cli
+    from helios_tpu_torch import pipeline
+    from helios_tpu_torch.parallel import ensemble as ens
+
+    runs, real, load = [], ens.run_ensemble, pipeline.load_opacity_file
+    ens.run_ensemble = lambda *a, **k: runs.append(real(*a, **k)) or runs[-1]
+    if table is not None:
+        pipeline.load_opacity_file = lambda path: table
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            code = cli.main(argv, device=DEVICE)
+    finally:
+        ens.run_ensemble, pipeline.load_opacity_file = real, load
+    return code, buf.getvalue(), runs[0]
+
+
+def output_files(run_dir):
+    """{name: bytes} of a run directory's output files (checkpoints
+    aside)."""
+    return {n: open(os.path.join(run_dir, n), "rb").read()
+            for n in sorted(os.listdir(run_dir)) if not n.endswith(".npz")}
+
+
+def ensemble_cli_path(k, tmpdir, launch_counts, resumed_counts):
+    """Path o: the quickstart's param.dat with the shipped planets.dat
+    (dark, gray and bright: surface albedo 0.0, 0.25, 0.5) through the
+    command line in this process, with progress lines and a checkpoint
+    every 100 iterations, the table handed over as path k's is.  Each
+    member's file set; the ensemble checkpoint pair under the first
+    member's directory; one noniso_sweep launch per batched flux solve;
+    the dark member against path k's unmonitored run (bit for bit or the
+    gap); then the same command again, which resumes from the converged
+    checkpoints, makes no flux solve and leaves the files unchanged."""
+    from helios_tpu_torch import examples
+    from helios_tpu_torch.config import config_from_cli
+
+    planets = os.path.join(tmpdir, "planets.dat")
+    with open(planets, "w") as f:
+        f.write(examples.ENSEMBLE_TEMPLATE)
+    argv = ["-parameter_file", k["param"], "-planet_ensemble_file",
+            planets] + CLI_FLAGS
+    out_dir = config_from_cli(["-parameter_file", k["param"]]).output_dir
+    torch.cuda.synchronize()
+    reset_counts()
+    code, printed, outs = capture_ensemble_main(argv, k["table"])
+    launch_counts.update(read_counts())
+    names = [o.result.name for o in outs]
+    check(code == 0 and f"Done! Ensemble of {len(outs)} planets" in printed
+          and names == ["dark", "gray", "bright"],
+          f"ensemble CLI: exit {code}, members {names}:\n{printed[-2000:]}")
+    progress = [ln for ln in printed.splitlines()
+                if ln.startswith("[ensemble/")]
+    check(any(ln.startswith("[ensemble/convection]") for ln in progress),
+          "ensemble CLI: no convection progress line")
+    solves = batched_flux_solves(outs)
+    check(launch_counts == only(noniso_sweep=solves),
+          f"ensemble CLI: launches {launch_counts} for {solves} batched "
+          "flux solves")
+    files = {}
+    for name in names:
+        run_dir = os.path.join(out_dir, name)
+        want = sorted([name + f for f in RCE_FILES]
+                      + (ENSEMBLE_CKPT_FILES if name == names[0] else []))
+        got = sorted(os.listdir(run_dir))
+        check(got == want, f"ensemble CLI: {name} files {got}, expected "
+              f"{want}")
+        files[name] = output_files(run_dir)
+    same, dT = member_against("ensemble CLI, the dark member against path "
+                              "k's run", outs[0], k["ref"])
+    wall = outs[0].wall_seconds
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with warnings.catch_warnings():          # the converged checkpoints
+        warnings.simplefilter("ignore")
+        code, printed, again = capture_ensemble_main(argv, k["table"])
+    resumed_counts.update(read_counts())
+    check(code == 0 and "Done! Ensemble of 3 planets" in printed,
+          "ensemble CLI: the second call failed")
+    check(resumed_counts == only(),
+          f"ensemble CLI: the resumed call launched {resumed_counts}")
+    for name in names:
+        check(output_files(os.path.join(out_dir, name)) == files[name],
+              f"ensemble CLI: the resumed call changed {name}'s files")
+    log(f"ensemble CLI path [3 quickstart planets, {L_FLAG} layers x "
+        f"{3 * NBIN_FLAG * NY_FLAG} columns, chunks of 100]: iterations "
+        f"{[(o.rad.it, o.conv.it) for o in outs]}, {solves} batched flux "
+        f"solves = {launch_counts['noniso_sweep']} noniso_sweep launches; "
+        f"{len(progress)} progress lines; {len(RCE_FILES)} files per member "
+        f"and the ensemble checkpoint pair; wall {wall:.3f} s against path "
+        f"k's unmonitored {k['ref'].wall_seconds:.3f} s for one planet; the "
+        f"second call resumed from the converged checkpoints in "
+        f"{again[0].wall_seconds:.3f} s with no flux solve and left the "
+        f"files unchanged")
+    return dict(wall_s=wall, solves=solves, dark_bitwise=same, dark_dT=dT,
+                resumed_wall_s=again[0].wall_seconds)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2162,6 +2421,13 @@ def main():
     r32 = ro_case(torch.float32, bandwidth)
     q64 = ro_ragged_case(torch.float64)
     q32 = ro_ragged_case(torch.float32)
+    # the same kernels at an ensemble's width: P = 8 planets' columns
+    ens_S = ENSEMBLE_P * NBIN_FLAG * NY_FLAG
+    e64 = sweep_case(torch.float64, 1e-12, bandwidth, S=ens_S)
+    ei64 = iso_case(torch.float64, 1e-12, bandwidth, S=ens_S)
+    et64 = thomas_case(torch.float64, 1e-12, bandwidth, S=ens_S)
+    er64 = ro_case(torch.float64, bandwidth,
+                   C=ENSEMBLE_P * L_FLAG * NBIN_FLAG)
 
     counts = {p: {} for p in ("flagship_rce", "post_processing", "iso_rce",
                               "matrix_rce", "matrix_post_processing",
@@ -2173,11 +2439,14 @@ def main():
                               "resumed_convection", "real_gas_coupling_0",
                               "real_gas_coupling_1",
                               "real_gas_post_processing",
-                              "real_gas_convection")}
+                              "real_gas_convection", "flagship_ensemble",
+                              "ensemble_cli", "ensemble_cli_resumed")}
     out, T_start = main_path(counts["flagship_rce"])
     T_start = torch.as_tensor(T_start, dtype=out.T_lay.dtype, device=DEVICE)
     time_breakdown("flagship", out.phys, out.arrays, T_start,
                    ("noniso_sweep",))
+    with tempfile.TemporaryDirectory() as ens_dir:
+        ensemble_path(ens_dir, counts["flagship_ensemble"], out, T_start)
     pp = postprocessing_path(out, counts["post_processing"], i64["ms_1001"])
     iso_rce_path(counts["iso_rce"])
     mat = matrix_path(out, counts["matrix_rce"])
@@ -2201,6 +2470,8 @@ def main():
         k = quickstart_path(cli_dir, counts["quickstart_cli"])
         resume_path(k, cli_dir, counts["resumed_radiation"],
                     counts["resumed_convection"])
+        ensemble_cli_path(k, cli_dir, counts["ensemble_cli"],
+                          counts["ensemble_cli_resumed"])
     with tempfile.TemporaryDirectory() as gas_dir:
         water = write_water_table(os.path.join(gas_dir, "water_atmo.dat"))
         real_gas_path(gas_dir, water, counts["real_gas_coupling_0"],
@@ -2233,7 +2504,8 @@ def main():
                                        fp32=g32["noniso_sweep_7_1001"]),
         chained_passes_bitwise=dict(fp64=c64["noniso_sweep"],
                                     fp32=c32["noniso_sweep"]),
-        fp32=pick(f32, base))
+        fp32=pick(f32, base),
+        ensemble=dict(pick(e64, base), columns=ens_S))
     iso = dict(
         name="iso_sweep", route="cuda",
         source="helios_tpu_torch/csrc/iso_sweep.cu",
@@ -2252,7 +2524,8 @@ def main():
         chained_passes_bitwise=dict(fp64=c64["iso_sweep"],
                                     fp32=c32["iso_sweep"]),
         fp32=pick(i32, base + ("ms_1001", "bound_ms_1001", "bound_by_1001",
-                               "max_rel_err_vs_fp64_1001")))
+                               "max_rel_err_vs_fp64_1001")),
+        ensemble=dict(pick(ei64, base), columns=ens_S))
     tn, ti = t64["noniso"], t64["iso"]
     thomas = dict(
         name="thomas_solve", route="cuda",
@@ -2270,7 +2543,9 @@ def main():
         iso=pick(ti, base + ("n",)),
         ragged_max_rel_err=dict(fp64=g64["thomas_solve"],
                                 fp32=g32["thomas_solve"]),
-        fp32={k: pick(t32[k], base + ("n",)) for k in t32})
+        fp32={k: pick(t32[k], base + ("n",)) for k in t32},
+        ensemble={k: dict(pick(et64[k], base + ("n",)), columns=ens_S)
+                  for k in et64})
     ro = dict(
         name="ro_mix", route="cuda",
         source="helios_tpu_torch/csrc/ro_mix.cu",
@@ -2289,7 +2564,8 @@ def main():
         general_cells=dict(flagship_inputs=r64["general_cells"],
                            on_the_fly=otf["general_cells"],
                            on_the_fly_of=otf["general_cells_of"]),
-        fp32=pick(r32, base))
+        fp32=pick(r32, base),
+        ensemble=dict(pick(er64, base), cells=er64["C"]))
     log(f"matrix flagship converged: {mat['converged']}; chip_smoke took "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [noniso, iso, thomas, ro]}), flush=True)

@@ -1,14 +1,16 @@
 """HELIOS in PyTorch and CUDA: the radiative-convective-equilibrium solver
 of :mod:`helios_tpu`, ported to an NVIDIA H100.
 
-The package runs what a single-planet, single-device run of
-:mod:`helios_tpu` runs, from ``python -m helios_tpu_torch -parameter_file
-param.dat`` (quickstart inputs: ``python -m helios_tpu_torch.examples``)
-or :func:`helios_tpu_torch.pipeline.run`: iterative and post-processing
-runs, isothermal or non-isothermal layers, premixed or on-the-fly opacities,
-the iterative or the matrix flux method, clouds, surfaces, real-gas
+The package runs what a single-device run of :mod:`helios_tpu` runs,
+from ``python -m helios_tpu_torch -parameter_file param.dat`` (quickstart
+inputs: ``python -m helios_tpu_torch.examples``) or
+:func:`helios_tpu_torch.pipeline.run`: iterative and post-processing runs,
+isothermal or non-isothermal layers, premixed or on-the-fly opacities, the
+iterative or the matrix flux method, clouds, surfaces, real-gas
 thermodynamics, stellar spectra from files, the monitored runner,
-checkpoints and coupling.  Planet ensembles and meshes are not ported.
+checkpoints and coupling, and planet ensembles (``-planet_ensemble_file``,
+:func:`helios_tpu_torch.parallel.ensemble.run_ensemble`: N planets as one
+batch, each kernel launch shared by all).  Meshes are not ported.
 Plain tensor code is PyTorch; the four kernels (``csrc/``: the
 non-isothermal and isothermal sweeps, the Thomas solve and the Random
 Overlap mix) are hand-written CUDA C++ for Hopper, built with ``nvcc`` at

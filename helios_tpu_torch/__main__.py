@@ -15,7 +15,10 @@ import sys
 def main(argv=None, *, device="cuda"):
     """Parse ``argv`` (default: the command line), run it with
     :func:`helios_tpu_torch.pipeline.run` and print the "Done!" line, the
-    global energy imbalance and the output directory.  ``device`` defaults
+    global energy imbalance and the output directory; with
+    ``-planet_ensemble_file`` run its planets as one batch
+    (:func:`helios_tpu_torch.parallel.ensemble.run_ensemble`) and print a
+    line per planet.  ``device`` defaults
     to CUDA (``device="cpu"`` runs on the CPU).  Returns the exit code."""
     from helios_tpu_torch import host_physics as hp
     from helios_tpu_torch import pipeline
@@ -31,9 +34,20 @@ def main(argv=None, *, device="cuda"):
 
     cfg_raw = config_from_cli(argv, finalize=False)
     if cfg_raw.planet_ensemble_file:
-        raise NotImplementedError(
-            "planet ensembles (planet_ensemble_file) are not ported to "
-            "helios_tpu_torch yet (ROADMAP A.12)")
+        # planet-ensemble mode: N planets as one batch, each kernel launch
+        # shared by all of them
+        from helios_tpu_torch.parallel import ensemble as ens
+
+        rows = ens.parse_ensemble_file(cfg_raw.planet_ensemble_file)
+        cfgs = ens.configs_from_ensemble(cfg_raw, rows)
+        outs = ens.run_ensemble(cfgs, device=device)
+        print(f"\nDone! Ensemble of {len(outs)} planets finished in "
+              f"{outs[0].wall_seconds:.1f} s.")
+        for o in outs:
+            state = o.conv if o.conv is not None else o.rad
+            print(f"  {o.result.name}: {int(state.it)} iterations -> "
+                  f"{o.result.out}")
+        return 0
     cfg = cfg_raw.finalize()
 
     out = pipeline.run(cfg, device=device)

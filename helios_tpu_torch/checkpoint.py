@@ -19,6 +19,11 @@ The port keeps ``it``, ``local_limit``, ``aborted`` (and in the convection
 loop ``keep_running``) as host values; they are written as the JAX
 package's arrays and read back into host values
 (:mod:`helios_tpu_torch.convert`).
+
+A batch of planets (:mod:`helios_tpu_torch.parallel.ensemble`) is written
+as the JAX package's ensemble writes its ``vmap``-ed state: every field
+with a leading planet axis [N, ...] (the port keeps that axis after the
+layer axis and moves it here), the counters and flags [N].
 """
 
 from __future__ import annotations
@@ -83,29 +88,34 @@ def _check_fingerprint(phys: Phys, ckpt: dict) -> None:
             "or point -checkpoint_path elsewhere.")
 
 
-def _host(x, dtype):
-    """A state field as the JAX package stores it: tensors as numpy, the
-    host counter as int32, the host criterion in the run's dtype, host
-    flags as 0-d bools."""
+def _host(x, dtype, batched=False):
+    """A state field as the JAX package stores it: tensors as numpy (a
+    batch's with the planet axis first), the host counter as int32, the
+    host criterion in the run's dtype, host flags as bools (0-d, or [N]
+    for a batch)."""
     if hasattr(x, "detach"):
-        return x.detach().cpu().numpy()
-    if isinstance(x, bool):
-        return np.asarray(x)
-    if isinstance(x, int):
+        a = x.detach().cpu().numpy()
+        return np.moveaxis(a, 1, 0) if batched and a.ndim >= 2 else a
+    if isinstance(x, (bool, np.bool_)) or (
+            isinstance(x, np.ndarray) and x.dtype == bool):
+        return np.asarray(x, bool)
+    if isinstance(x, (int, np.integer)) or (
+            isinstance(x, np.ndarray) and x.dtype.kind == "i"):
         return np.asarray(x, np.int32)
     return np.asarray(x, dtype)
 
 
 def _state_payload(state, phase: str, fields, phys: Optional[Phys]) -> dict:
     dtype = state.T_lay.detach().cpu().numpy().dtype
+    batched = state.T_lay.dim() == 2
     payload = {"format_version": np.int64(_FORMAT_VERSION),
                "phase": np.bytes_(phase.encode())}
     if phys is not None:
         payload.update(_fingerprint(phys))
     for f in fields:
-        payload[f] = _host(getattr(state, f), dtype)
+        payload[f] = _host(getattr(state, f), dtype, batched)
     for f, v in state.flux._asdict().items():
-        payload["flux__" + f] = _host(v, dtype)
+        payload["flux__" + f] = _host(v, dtype, batched)
     return payload
 
 
@@ -140,10 +150,12 @@ def save_conv_checkpoint(path: str, state: ConvLoopState,
     before the 10-step cache refresh, so those are written too."""
     payload = _state_payload(state, "convection", _CONV_FIELDS, phys)
     dtype = payload["T_lay"].dtype
+    batched = state.T_lay.dim() == 2
     for f, v in state.totals._asdict().items():
-        payload["totals__" + f] = _host(v, dtype)
+        payload["totals__" + f] = _host(v, dtype, batched)
     for f in _CONV_CACHE_FIELDS:
-        payload["cache__" + f] = _host(getattr(state.cache, f), dtype)
+        payload["cache__" + f] = _host(getattr(state.cache, f), dtype,
+                                       batched)
     _write_atomic(path, payload)
 
 
@@ -191,14 +203,15 @@ def restore_rad_state(phys: Phys, m: ModelArrays, ckpt: dict,
     the saved iteration is a multiple of the 10-step cache-refresh cadence
     (the pipeline rounds its chunk size to make it so); otherwise the
     resumed cache is fresher than the one the uninterrupted run would have
-    used: equivalent, not bit for bit."""
+    used: equivalent, not bit for bit.  A batch's checkpoint restores a
+    batched state over stacked arrays."""
     if checkpoint_phase(ckpt) != "radiation":
         raise ValueError(
             "checkpoint holds a convection-phase payload; refusing to "
             "restore it as radiation state (stale or misrouted "
             "checkpoint path).")
     _check_fingerprint(phys, ckpt)
-    if not bool(ckpt["keep_running"]):
+    if not np.any(ckpt["keep_running"]):
         warnings.warn("resuming from an already-converged checkpoint; "
                       "the loop will exit immediately", stacklevel=2)
     fields = convert.rad_loop_fields_from_numpy(
@@ -216,7 +229,8 @@ def restore_conv_state(phys: Phys, m: ModelArrays, ckpt: dict,
     stale fields the body reads before the refresh (totals,
     meanmolmass_lay, F_add_heat_sum) come from the checkpoint.  The resume
     is bit for bit when the checkpoint interval is a multiple of the
-    10-iteration cache-refresh cadence."""
+    10-iteration cache-refresh cadence.  A batch's checkpoint restores a
+    batched state over stacked arrays."""
     if checkpoint_phase(ckpt) != "convection":
         raise ValueError(
             "checkpoint holds a radiation-phase payload; refusing to "
@@ -224,7 +238,9 @@ def restore_conv_state(phys: Phys, m: ModelArrays, ckpt: dict,
     _check_fingerprint(phys, ckpt)
     d = _nested(ckpt)
     dev, dt = m.p_lay.device, m.p_lay.dtype
-    T_lay = torch.tensor(d["T_lay"], dtype=dt, device=dev)
+    T_lay = torch.tensor(convert.planet_second(d["T_lay"],
+                                               np.ndim(d["T_lay"]) == 2),
+                         dtype=dt, device=dev)
     cache = compute_cells(phys, m, T_lay,
                           interp_ops.interface_temperatures(T_lay), sset)
     return convert.conv_state_from_numpy(d, cache, device=dev, dtype=dt)

@@ -227,13 +227,17 @@ def fastchem_column(data, spec: SpeciesSpec):
 
 def species_vmr(spec: SpeciesSpec, dat: SpeciesDeviceData, sset: SpeciesSet,
                 T, p):
-    """VMR of one species on the current profile (layers or interfaces)."""
+    """VMR of one species on the current profile (layers or interfaces);
+    a batch's T [n, P] gives [n, P] (a vertical profile, shared by the
+    batch, as [n, 1])."""
     if spec.source_for_vmr == "FastChem":
         return interp_ops.bilinear_tp(dat.vmr_pretab, sset.ktemps,
                                       sset.kpress, T, p, clamp_lo=0.0)
     if T.shape[0] == dat.vmr_profile_lay.shape[0]:
-        return dat.vmr_profile_lay
-    return dat.vmr_profile_int
+        prof = dat.vmr_profile_lay
+    else:
+        prof = dat.vmr_profile_int
+    return prof.reshape(prof.shape + (1,) * (T.dim() - 1))
 
 
 def mean_molecular_mass(sset: SpeciesSet, T, p):
@@ -255,16 +259,16 @@ def mixed_opacities(sset: SpeciesSet, T, p, wave_centers, gauss_weight,
     """One full mixing pass: (T, p) profile -> (opac [n, B, Y], scat
     [n, B], meanmolmass [n]) (computation.py:1454-1501).  Every absorbing
     species after the first is mixed by one ro_mix call when ro_method
-    is 1."""
-    n = T.shape[0]
-    nbin = wave_centers.shape[0]
+    is 1.  A batch of P planets (T, p [n, P], wave_centers [P, B]) shares
+    the species set and gives [n, P, B, Y], [n, P, B] and [n, P]."""
+    nbin = wave_centers.shape[-1]
     ny = gauss_y.shape[0]
     kw = dict(dtype=T.dtype, device=T.device)
 
-    meanmolmass = mean_molecular_mass(sset, T, p)
+    meanmolmass = mean_molecular_mass(sset, T, p).expand(T.shape)
 
-    opac = torch.zeros((n, nbin, ny), **kw)
-    scat_cross = torch.zeros((n, nbin), **kw)
+    opac = torch.zeros(T.shape + (nbin, ny), **kw)
+    scat_cross = torch.zeros(T.shape + (nbin,), **kw)
 
     for s, (spec, dat) in enumerate(zip(sset.specs, sset.data)):
         vmr = species_vmr(spec, dat, sset, T, p)

@@ -8,6 +8,12 @@ that state as numpy arrays (for example
 return the port's tensors, so both packages can start from the same
 mid-run state.  Nested states are mappings of the same form; the loop
 counters and flags are plain numbers.
+
+A batch of planets comes as the JAX package's ``vmap`` gives it (and its
+ensemble checkpoints hold it): every array with a leading planet axis
+[N, ...].  The port puts that axis after the layer axis
+(:mod:`helios_tpu_torch.parallel.ensemble`), so :func:`planet_second`
+moves it, and the counters and flags become numpy arrays [N].
 """
 
 from __future__ import annotations
@@ -25,15 +31,25 @@ from helios_tpu_torch.rce.loop import ConvLoopState
 from helios_tpu_torch.rce.radiative import RadLoopState
 
 
-def _tensor(x, device, dtype):
-    a = np.array(x)        # a writable copy: the port owns its tensors
+def planet_second(a, batched: bool):
+    """A batch's [N, n, ...] array as the port lays it out, [n, N, ...]
+    (vectors [N] stay as they are); anything of a single planet as it
+    is."""
+    a = np.asarray(a)
+    return np.moveaxis(a, 0, 1) if batched and a.ndim >= 2 else a
+
+
+def _tensor(x, device, dtype, batched=False):
+    # a writable copy: the port owns its tensors
+    a = np.array(planet_second(x, batched))
     if a.dtype == np.bool_:
         return torch.as_tensor(a, device=device)
     return torch.as_tensor(a, dtype=dtype, device=device)
 
 
-def _build(cls, d: Mapping[str, Any], device, dtype):
-    return cls(**{k: _tensor(d[k], device, dtype) for k in cls._fields})
+def _build(cls, d: Mapping[str, Any], device, dtype, batched=False):
+    return cls(**{k: _tensor(d[k], device, dtype, batched)
+                  for k in cls._fields})
 
 
 def model_arrays_from_numpy(d: Mapping[str, Any], *, device,
@@ -45,8 +61,19 @@ def model_arrays_from_numpy(d: Mapping[str, Any], *, device,
 
 
 def flux_state_from_numpy(d: Mapping[str, Any], *, device,
-                          dtype=torch.float64) -> FluxState:
-    return _build(FluxState, d, device, dtype)
+                          dtype=torch.float64, batched=False) -> FluxState:
+    return _build(FluxState, d, device, dtype, batched)
+
+
+def _counters(d, batched, names):
+    """The host counters and flags: numbers for a planet, numpy arrays [N]
+    (int64 counters, float64 criteria, bool flags) for a batch."""
+    kinds = dict(it=int, steps=int, local_limit=float, aborted=bool,
+                 keep_running=bool)
+    if batched:
+        dt = dict(zip((int, float, bool), (np.int64, np.float64, bool)))
+        return {k: np.asarray(d[k], dt[kinds[k]]) for k in names}
+    return {k: kinds[k](d[k]) for k in names}
 
 
 def _cell_cache_from_numpy(d, device, dtype) -> CellCache:
@@ -71,19 +98,20 @@ def rad_loop_fields_from_numpy(d: Mapping[str, Any], *, device,
     tensors, ``it`` and ``local_limit`` as the host numbers the port keeps
     (the JAX package stores them as 0-d arrays), ``keep_running`` and
     ``goto_convection`` as 0-d bool tensors and ``aborted`` as a host
-    bool."""
-    t = lambda k: _tensor(d[k], device, dtype)
+    bool.  A batch (``T_lay`` [N, L+1]) gives the batched state: the
+    planet axis after the layer axis, [N] flags and numpy counters."""
+    batched = np.ndim(d["T_lay"]) == 2
+    t = lambda k: _tensor(d[k], device, dtype, batched)
+    flag = lambda k: torch.as_tensor(np.asarray(d[k], bool), device=device)
     return dict(
         T_lay=t("T_lay"),
-        flux=flux_state_from_numpy(d["flux"], device=device, dtype=dtype),
+        flux=flux_state_from_numpy(d["flux"], device=device, dtype=dtype,
+                                   batched=batched),
         T_store=t("T_store"), prefactor=t("prefactor"),
         F_smooth_sum=t("F_smooth_sum"), abort=t("abort"),
-        it=int(d["it"]), local_limit=float(d["local_limit"]),
-        keep_running=torch.as_tensor(bool(d["keep_running"]),
-                                     device=device),
-        goto_convection=torch.as_tensor(bool(d["goto_convection"]),
-                                        device=device),
-        aborted=bool(d["aborted"]))
+        keep_running=flag("keep_running"),
+        goto_convection=flag("goto_convection"),
+        **_counters(d, batched, ("it", "local_limit", "aborted")))
 
 
 def rad_state_from_numpy(d: Mapping[str, Any], *, device,
@@ -107,20 +135,23 @@ def conv_state_from_numpy(d: Mapping[str, Any], cache: CellCache, *,
     ``d["cache"]``'s (the fields the convection body reads before its next
     refresh).  ``it``, ``local_limit``, ``keep_running`` and ``aborted``
     become the host values the port keeps; ``steps`` counts the loop
-    bodies run from here, so it starts at 0."""
-    t = lambda k: _tensor(d[k], device, dtype)
+    bodies run from here, so it starts at 0.  A batch ([N, ...] arrays)
+    gives the batched state, as :func:`rad_loop_fields_from_numpy`."""
+    batched = np.ndim(d["T_lay"]) == 2
+    t = lambda k: _tensor(d[k], device, dtype, batched)
+    counters = _counters(d, batched, ("it", "local_limit", "keep_running",
+                                      "aborted"))
     return ConvLoopState(
         T_lay=t("T_lay"),
-        flux=flux_state_from_numpy(d["flux"], device=device, dtype=dtype),
-        cache=cache._replace(**{k: _tensor(v, device, dtype)
+        flux=flux_state_from_numpy(d["flux"], device=device, dtype=dtype,
+                                   batched=batched),
+        cache=cache._replace(**{k: _tensor(v, device, dtype, batched)
                                 for k, v in d["cache"].items()}),
-        totals=_build(FluxTotals, d["totals"], device, dtype),
+        totals=_build(FluxTotals, d["totals"], device, dtype, batched),
         T_store=t("T_store"), prefactor=t("prefactor"),
         F_smooth_sum=t("F_smooth_sum"), conv_layer=t("conv_layer"),
-        marked_red=t("marked_red"), it=int(d["it"]),
-        local_limit=float(d["local_limit"]),
-        keep_running=bool(d["keep_running"]), aborted=bool(d["aborted"]),
-        steps=0)
+        marked_red=t("marked_red"),
+        steps=np.zeros_like(counters["it"]) if batched else 0, **counters)
 
 
 def species_set_from_numpy(specs: Sequence, data: Sequence[Mapping[str, Any]],

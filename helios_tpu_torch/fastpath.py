@@ -3,6 +3,11 @@
 
 Ordering s = b * ny + y (bin-major).  Every [L, S] array is row-major with
 s fastest, which is the layout the CUDA sweep reads coalesced.
+
+A batch of P planets puts the planet axis between the layer axis and the
+spectral axis: [L, P, S] and boundary rows [P, S], per-layer arrays [L, P].
+A contiguous [L, P, S] tensor is the [L, P*S] layout of the kernels, so one
+launch solves the P*S columns of the batch.
 """
 
 from __future__ import annotations
@@ -49,10 +54,11 @@ def cell_quantities_flat(opac_flat, meanmolmass, ray_band, cloud_abs_band,
     """calc_trans cell quantities (kernels.cu:1015-1104) on flat arrays.
 
     opac_flat: [L, S]; per-band inputs [L, B]; delta_colmass/meanmolmass
-    [L]; returns FlatCells with [L, S] members.
+    [L]; returns FlatCells with [L, S] members (a batch: [L, P, S], [L, P,
+    B] and [L, P]).
     """
-    mmm = meanmolmass[:, None]
-    dcm = delta_colmass[:, None]
+    mmm = meanmolmass[..., None]
+    dcm = delta_colmass[..., None]
 
     scat_tot = band_to_flat(ray_band + cloud_scat_band, ny)
     cloud_abs = band_to_flat(cloud_abs_band, ny)
@@ -100,10 +106,21 @@ def mu_star_matrix(z_lay, mu_star, R_planet, ninterface: int):
     helios_tpu; reference kernels.cu:1296-1303).  As in the reference,
     interface i is paired with layer centre i (z has L entries, so the top
     interface reuses the top layer's z; no layer lies above it).  mu* is
-    negative, and so is the root."""
+    negative, and so is the root.  A batch's z_lay [L, P] gives [I, L,
+    P]."""
     z_i = torch.cat([z_lay, z_lay[-1:]])                 # [I]
-    ratio = (R_planet + z_i[:, None]) / (R_planet + z_lay[None, :])
+    ratio = (R_planet + z_i[:, None]) / (R_planet + z_lay[None])
     return -torch.sqrt(1.0 - ratio ** 2 * (1.0 - mu_star ** 2))
+
+
+def beam_exponent(weights, dtau):
+    """sum_j weights[i, j] dtau[j]: [I, L] @ [L, S], or per member of a
+    batch, [I, L, P] and [L, P, S] -> [I, P, S] (the weights follow each
+    member's altitudes)."""
+    if weights.dim() == 2:
+        return torch.matmul(weights, dtau)
+    return torch.matmul(weights.permute(2, 0, 1),
+                        dtau.transpose(0, 1)).transpose(0, 1)
 
 
 def fdir_iso_flat(planck_star_flat, delta_tau_tot, mu_weights, *,
@@ -117,7 +134,7 @@ def fdir_iso_flat(planck_star_flat, delta_tau_tot, mu_weights, *,
     if mu_weights is None:
         expo = _rev_cumsum_above(delta_tau_tot) / mu_star
     else:
-        expo = torch.matmul(mu_weights, delta_tau_tot)
+        expo = beam_exponent(mu_weights, delta_tau_tot)
     F0 = -dir_beam * mu_star * I_dir
     return F0[None, :] * torch.exp(expo)
 
@@ -139,13 +156,15 @@ def fdir_noniso_flat(planck_star_flat, dtau_up, dtau_low, mu_weights,
         Fc_dir = F0[None, :] * torch.exp((above[1:] + dtau_up) / mu_star)
         return F_dir, Fc_dir
 
-    F_dir = F0[None, :] * torch.exp(torch.matmul(mu_weights, dtau_full))
+    F_dir = F0[None, :] * torch.exp(beam_exponent(mu_weights, dtau_full))
     L = dtau_up.shape[0]
     idx = torch.arange(L, device=dtau_up.device)
-    W_above = torch.where(idx[None, :] > idx[:, None], mu_weights[:L],
+    above = idx[None, :] > idx[:, None]
+    above = above.reshape(above.shape + (1,) * (mu_weights.dim() - 2))
+    W_above = torch.where(above, mu_weights[:L],
                           torch.zeros_like(mu_weights[:L]))
-    expo_c = (torch.matmul(W_above, dtau_full)
-              + dtau_up / mu_diag[:, None])
+    expo_c = (beam_exponent(W_above, dtau_full)
+              + dtau_up / mu_diag[..., None])
     return F_dir, F0[None, :] * torch.exp(expo_c)
 
 
@@ -224,11 +243,22 @@ def iso_coeffs_from_cache(cc: IsoCoeffCache, planck_lay_flat,
         toa=cc.toa)
 
 
+def columns(x):
+    """[n, P, S] -> the kernels' [n, P*S] view (no copy when contiguous);
+    [n, S] as it is."""
+    return x.reshape(x.shape[0], -1)
+
+
 def fband_iso_flat(C: FlatIsoCoeffs, F_dir0, F_up_prev, *, n_passes: int):
     """Iterative iso solve (flat): the CUDA sweep kernel for CUDA tensors,
-    its plain version for CPU tensors.  Returns (F_down, F_up) [I, S]."""
-    return iso_sweep(C.a, C.b_nm, C.src_down, C.src_up, C.toa, C.boa_refl,
-                     C.boa_emis, F_dir0, F_up_prev, n_passes=n_passes)
+    its plain version for CPU tensors.  Returns (F_down, F_up) [I, S]; a
+    batch's [I, P, S] from one launch over its P*S columns."""
+    F_down, F_up = iso_sweep(
+        columns(C.a), columns(C.b_nm), columns(C.src_down),
+        columns(C.src_up), C.toa.reshape(-1), C.boa_refl.reshape(-1),
+        C.boa_emis.reshape(-1), F_dir0.reshape(-1), columns(F_up_prev),
+        n_passes=n_passes)
+    return F_down.view(F_up_prev.shape), F_up.view(F_up_prev.shape)
 
 
 # --------------------------------------------------------------------------- #
@@ -367,11 +397,17 @@ def fband_noniso_flat(C: FlatNonIsoCoeffs, F_dir0, F_up_prev, Fc_up_prev,
                       *, n_passes: int):
     """Iterative non-iso solve (flat): the CUDA sweep kernel for CUDA
     tensors, its plain version for CPU tensors.  Returns (F_down, F_up,
-    Fc_down, Fc_up)."""
-    return noniso_sweep(
-        C.a_up, C.b_up, C.src_up_down, C.src_up_up, C.a_low, C.b_low,
-        C.src_low_down, C.src_low_up, C.toa, C.boa_refl, C.boa_emis,
-        F_dir0, F_up_prev, Fc_up_prev, n_passes=n_passes)
+    Fc_down, Fc_up); a batch's from one launch over its P*S columns."""
+    lay = [columns(x) for x in (C.a_up, C.b_up, C.src_up_down, C.src_up_up,
+                                C.a_low, C.b_low, C.src_low_down,
+                                C.src_low_up)]
+    rows = [x.reshape(-1) for x in (C.toa, C.boa_refl, C.boa_emis, F_dir0)]
+    F_down, F_up, Fc_down, Fc_up = noniso_sweep(
+        *lay, *rows, columns(F_up_prev), columns(Fc_up_prev),
+        n_passes=n_passes)
+    I_shape, L_shape = F_up_prev.shape, Fc_up_prev.shape
+    return (F_down.view(I_shape), F_up.view(I_shape), Fc_down.view(L_shape),
+            Fc_up.view(L_shape))
 
 
 # --------------------------------------------------------------------------- #

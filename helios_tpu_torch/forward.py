@@ -12,6 +12,12 @@ surface or a bare rock (``planet_type="no_atmosphere"``), with a blackbody
 star or a stellar spectrum (``stellar_model="file"``).  Static physics
 scalars live in :class:`Phys`; tensors in :class:`ModelArrays`, on the
 device chosen in :func:`build_model`.
+
+Every function here also takes a batch of P planets that share ``Phys``
+(:func:`helios_tpu_torch.parallel.ensemble.stack_models`): the planet axis
+sits after the layer axis, so temperatures are [L+1, P], spectral arrays
+[L, P, S] and boundary rows [P, S], and each flux solve is one kernel
+launch over the P*S columns.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from helios_tpu_torch.io.opacity import OpacityTable, gauss_legendre_ypoints
 from helios_tpu_torch.ops import integrate as int_ops
 from helios_tpu_torch.ops import interp as interp_ops
 from helios_tpu_torch.ops import thomas as thomas_ops
+from helios_tpu_torch.ops.members import memberwise
 from helios_tpu_torch.ops import twostream as ts_ops
 
 
@@ -204,13 +211,15 @@ class CellCache(NamedTuple):
     coeff: Union[fp.IsoCoeffCache, fp.NonIsoCoeffCache]
 
 
-def init_flux_state(phys: Phys, dtype, device) -> FluxState:
+def init_flux_state(phys: Phys, dtype, device, batch=()) -> FluxState:
+    """Zero fluxes; ``batch`` = (P,) for a batch of P planets."""
     L, S = phys.nlayer, phys.nbin * phys.ny
     kw = dict(dtype=dtype, device=device)
-    return FluxState(F_down=torch.zeros((L + 1, S), **kw),
-                     F_up=torch.zeros((L + 1, S), **kw),
-                     Fc_down=torch.zeros((L, S), **kw),
-                     Fc_up=torch.zeros((L, S), **kw))
+    I_shape, L_shape = (L + 1, *batch, S), (L, *batch, S)
+    return FluxState(F_down=torch.zeros(I_shape, **kw),
+                     F_up=torch.zeros(I_shape, **kw),
+                     Fc_down=torch.zeros(L_shape, **kw),
+                     Fc_up=torch.zeros(L_shape, **kw))
 
 
 def build_model(cfg: HeliosConfig, table: OpacityTable, *,
@@ -300,20 +309,28 @@ def build_model(cfg: HeliosConfig, table: OpacityTable, *,
 # altitude (reference host_functions.py:673-698)
 # --------------------------------------------------------------------------- #
 
+def layer_index(n: int, like):
+    """arange(n) shaped to broadcast along the leading axis of ``like``
+    ([n] for a planet, [n, 1] for a batch)."""
+    return torch.arange(n, device=like.device).reshape(
+        (n,) + (1,) * (like.dim() - 1))
+
+
 def altitude_z(phys: Phys, m: ModelArrays, T_lay, meanmolmass_lay):
     """Layer thickness delta_z = k_B T/(mu g) ln(p_i/p_{i+1})
     (kernels.cu:1247-1261) and center altitudes, anchored at 10 bar for a
     gas planet or at the surface otherwise."""
     L = phys.nlayer
     delta_z = (pc.K_B * T_lay[:L] / (meanmolmass_lay * phys.g)
-               * torch.log(m.p_int[:L] / m.p_int[1:]))
+               * memberwise(torch.log, m.p_int[:L] / m.p_int[1:],
+                            batched=T_lay.dim() > 1))
     mid = 0.5 * (delta_z[:-1] + delta_z[1:])
     s = torch.cat([torch.zeros_like(delta_z[:1]), torch.cumsum(mid, 0)])
     if phys.planet_type == "gas":
         mask = m.p_lay >= 1e7
-        idx = torch.where(mask, torch.arange(L, device=mask.device),
-                          -1).max()
-        anchor = torch.where(idx >= 0, s[torch.clamp(idx, min=0)], s[0])
+        idx = torch.where(mask, layer_index(L, mask), -1).amax(dim=0)
+        at = s.gather(0, torch.clamp(idx, min=0)[None])[0]
+        anchor = torch.where(idx >= 0, at, s[0])
         z_lay = s - anchor
     else:
         z_lay = s + 0.5 * delta_z[0]
@@ -336,7 +353,7 @@ def _gas_properties(phys: Phys, m: ModelArrays, T, p, sset):
             sset, T, p, m.lambda_centers, m.gauss_weight, m.gauss_y,
             ro_method=phys.ro_method, scat=phys.scat)
         # [n, B, Y] -> the flat [n, S]
-        return opac.reshape(opac.shape[0], -1), scat, mmm
+        return opac.flatten(-2), scat, mmm
     opac, scat = interp_ops.interpolate_opacity(
         m.ktable, m.scat_cross_table, m.ktemps, m.kpress, T, p)
     mmm = interp_ops.interpolate_meanmolmass(
@@ -388,9 +405,10 @@ def compute_cells(phys: Phys, m: ModelArrays, T_lay, T_int,
                     mu_star=phys.mu_star, dir_beam=phys.dir_beam,
                     f_factor=phys.f_factor, R_star=phys.R_star, a=phys.a)
     alb_flat = fp.band_to_flat(m.surf_albedo, Y)
-    nint, S = L + 1, opac_lay.shape[-1]
-    zeros = lambda *shape: torch.zeros(shape, dtype=opac_lay.dtype,
-                                       device=opac_lay.device)
+    nint = L + 1
+    cols = opac_lay.shape[1:]           # (S,) or (P, S)
+    zeros = lambda n: torch.zeros((n,) + cols, dtype=opac_lay.dtype,
+                                  device=opac_lay.device)
 
     # the masked 1/mu(i, j) [I, L] only for the geometric zenith
     # correction; the plain-mu* beam takes cumulative sums in fdir_*_flat
@@ -398,8 +416,9 @@ def compute_cells(phys: Phys, m: ModelArrays, T_lay, T_int,
         mu_mat = fp.mu_star_matrix(z_lay, phys.mu_star, phys.R_planet, nint)
         idx = torch.arange(L, device=z_lay.device)
         mask = idx[None, :] >= torch.arange(nint, device=z_lay.device)[:, None]
+        mask = mask.reshape(mask.shape + (1,) * (z_lay.dim() - 1))
         mu_weights = torch.where(mask, 1.0 / mu_mat, torch.zeros_like(mu_mat))
-        mu_diag = torch.diagonal(mu_mat[:L])
+        mu_diag = torch.diagonal(mu_mat[:L], dim1=0, dim2=1).movedim(-1, 0)
     else:
         mu_weights = mu_diag = None
 
@@ -415,8 +434,8 @@ def compute_cells(phys: Phys, m: ModelArrays, T_lay, T_int,
                 mu_star=phys.mu_star, R_star=phys.R_star, a=phys.a,
                 dir_beam=phys.dir_beam)
         else:
-            F_dir = zeros(nint, S)
-        Fc_dir = zeros(L, S)
+            F_dir = zeros(nint)
+        Fc_dir = zeros(L)
         upper = lower = cells
         scat_trigger = torch.any(cells.w0 > phys.w_0_scat_limit, dim=0)
         coeff = fp.iso_coeff_cache(cells, planck_star_flat, F_dir,
@@ -458,8 +477,8 @@ def compute_cells(phys: Phys, m: ModelArrays, T_lay, T_int,
                 mu_weights, mu_diag, mu_star=phys.mu_star,
                 R_star=phys.R_star, a=phys.a, dir_beam=phys.dir_beam)
         else:
-            F_dir = zeros(nint, S)
-            Fc_dir = zeros(L, S)
+            F_dir = zeros(nint)
+            Fc_dir = zeros(L)
 
         coeff = fp.noniso_coeff_cache(
             upper, lower, planck_star_flat, F_dir, Fc_dir, alb_flat,
@@ -552,10 +571,12 @@ def integrate_flux_flat(phys: Phys, m: ModelArrays, flux_state: FluxState,
 def forward_fluxes(phys: Phys, m: ModelArrays, T_lay,
                    flux_state: Optional[FluxState] = None, sset=None
                    ) -> Tuple[FluxState, int_ops.FluxTotals, CellCache]:
-    """Full forward model: temperatures [L+1] -> integrated fluxes.
-    ``sset``: the species set of on-the-fly opacity mixing."""
+    """Full forward model: temperatures [L+1] -> integrated fluxes (a
+    batch: [L+1, P] with stacked arrays).  ``sset``: the species set of
+    on-the-fly opacity mixing."""
     if flux_state is None:
-        flux_state = init_flux_state(phys, T_lay.dtype, T_lay.device)
+        flux_state = init_flux_state(phys, T_lay.dtype, T_lay.device,
+                                     T_lay.shape[1:])
     T_int = interp_ops.interface_temperatures(T_lay)
     cache = compute_cells(phys, m, T_lay, T_int, sset)
     flux_state = solve_fluxes(phys, m, cache, T_lay, flux_state)

@@ -9,12 +9,15 @@ from __future__ import annotations
 
 import torch
 
+from helios_tpu_torch.ops.members import memberwise
+
 
 def interface_temperatures(T_lay):
     """Layer -> interface temperatures (kernels.cu:496-520).
 
-    T_lay: [nlayer+1] (index nlayer = surface ghost layer, unused here).
-    Returns T_int: [nlayer+1].
+    T_lay: [nlayer+1] (index nlayer = surface ghost layer, unused here),
+    or [nlayer+1, P] for a batch of P planets.
+    Returns T_int of the same shape.
     """
     t = T_lay[:-1]
     inner = 0.5 * (t[:-1] + t[1:])
@@ -41,26 +44,38 @@ def bilinear_tp(table, temps, press, T, p, *, log_temp: bool = False,
     with ``log_temp``) and log10-uniform press; T, p: [n].  ``log_temp``
     interpolates in log10 T, with the grid step taken in log10 (the c_p and
     entropy tables, kernels.cu:777-779).  Returns [n, ...trailing].
+
+    A batch of P planets passes T, p [n, P].  A table shared by the batch
+    keeps its shape; a table per member is [ntemp, npress, P, ...trailing]
+    with grids temps [ntemp, P] and press [npress, P], and each member
+    looks up its own.  Returns [n, P, ...trailing].
     """
     ntemp, npress = table.shape[0], table.shape[1]
+    log10 = lambda x: memberwise(torch.log10, x, batched=T.dim() > 1)
     if log_temp:
-        tx, t0 = torch.log10(T), torch.log10(temps[0])
-        dT = (torch.log10(temps[-1]) - torch.log10(temps[0])) / (ntemp - 1.0)
+        tx, t0 = log10(T), log10(temps[0])
+        dT = (log10(temps[-1]) - log10(temps[0])) / (ntemp - 1.0)
     else:
         tx, t0 = T, temps[0]
         dT = (temps[-1] - temps[0]) / (ntemp - 1.0)
-    dP = (torch.log10(press[-1]) - torch.log10(press[0])) / (npress - 1.0)
+    dP = (log10(press[-1]) - log10(press[0])) / (npress - 1.0)
 
     td, wt = _fractional_index(tx, t0, dT, ntemp, clamp_lo)
-    pd, wp = _fractional_index(torch.log10(p), torch.log10(press[0]), dP,
-                               npress, clamp_lo)
+    pd, wp = _fractional_index(log10(p), log10(press[0]), dP, npress,
+                               clamp_lo)
 
-    v00 = table[td, pd]
-    v01 = table[td, pd + 1]
-    v10 = table[td + 1, pd]
-    v11 = table[td + 1, pd + 1]
+    if temps.dim() > 1:
+        member = torch.arange(temps.shape[1], device=T.device)
+        look = lambda i, j: table[i, j, member]
+        extra_dims = (1,) * (table.ndim - 3)
+    else:
+        look = lambda i, j: table[i, j]
+        extra_dims = (1,) * (table.ndim - 2)
+    v00 = look(td, pd)
+    v01 = look(td, pd + 1)
+    v10 = look(td + 1, pd)
+    v11 = look(td + 1, pd + 1)
 
-    extra_dims = (1,) * (table.ndim - 2)
     wt = wt.reshape(wt.shape + extra_dims)
     wp = wp.reshape(wp.shape + extra_dims)
 

@@ -113,13 +113,15 @@ def add_species_opacity(mixed_opac, opac_spec, vmr, mass_spec,
 
     Returns the updated mixed opacity [L, B, Y].  Random Overlap runs as
     one :func:`helios_tpu_torch.kernels.ro.ro_mix` call over the L*B
-    cells, which keeps the plain sum in cells of negligible overlap.
+    cells, which keeps the plain sum in cells of negligible overlap.  A
+    batch of P planets ([L, P, B, Y], vmr and meanmolmass [L, P]) mixes its
+    L*P*B cells in the same one call.
     """
     # imported here: kernels.ro takes its plain version from this module
     from helios_tpu_torch.kernels.ro import ro_mix
 
     ny = mixed_opac.shape[-1]
-    new_opac = (vmr * mass_spec / meanmolmass)[:, None, None] * opac_spec
+    new_opac = (vmr * mass_spec / meanmolmass)[..., None, None] * opac_spec
 
     if ro_method == 0 or species_index == 0 or ny == 1:
         return correlated_k_add(mixed_opac, new_opac)
@@ -134,21 +136,23 @@ def add_species_opacity(mixed_opac, opac_spec, vmr, mass_spec,
 def add_species_scat(mixed_scat, scat_cross_spec, vmr):
     """scat += vmr * sigma_species (add_to_mixed_scat, kernels.cu:3444-3459).
 
-    mixed_scat: [L, B]; scat_cross_spec: [B] or [L, B]; vmr: [L].
+    mixed_scat: [L, B]; scat_cross_spec: [B] or [L, B]; vmr: [L] (a
+    batch: [L, P, B], [L, P, B] and [L, P]).
     """
-    return mixed_scat + vmr[:, None] * scat_cross_spec
+    return mixed_scat + vmr[..., None] * scat_cross_spec
 
 
 def h2o_refractive_index(wave, press, temp, f_h2o, mass_h2o):
     """Density-dependent H2O refractive index (calc_index_h2o,
     kernels.cu:3174-3205; Schiebener et al. 1990 formulation).
 
-    wave: [B]; press/temp/f_h2o: [L].  Returns [L, B].
+    wave: [B]; press/temp/f_h2o: [L].  Returns [L, B] (a batch: wave [P,
+    B], the others [L, P], returns [L, P, B]).
     """
     dens = f_h2o * press * mass_h2o / (pc.K_B * temp)       # [L]
-    lamda = (wave / 0.589e-4)[None, :]                      # [1, B]
-    delta = torch.clamp(dens, max=1.0)[:, None]
-    theta = (temp / 273.15)[:, None]
+    lamda = (wave / 0.589e-4)[None]                         # [1, B]
+    delta = torch.clamp(dens, max=1.0)[..., None]
+    theta = (temp / 273.15)[..., None]
 
     lamda_UV, lamda_IR = 0.229202, 5.432937
     a0, a1, a2, a3 = 0.244257733, 0.974634476e-2, -0.373234996e-2, \
@@ -168,10 +172,10 @@ def h2o_scat_cross(wave, press, temp, vmr_h2o, mass_h2o):
     """On-the-fly H2O Rayleigh cross section (calc_h2o_scat,
     kernels.cu:3404-3440).  Returns [L, B]."""
     index = h2o_refractive_index(wave, press, temp, vmr_h2o, mass_h2o)
-    n_ref = (vmr_h2o * press / (pc.K_B * temp))[:, None]    # [L, 1]
+    n_ref = (vmr_h2o * press / (pc.K_B * temp))[..., None]  # [L, 1]
     King = (6.0 + 3.0 * 3e-4) / (6.0 - 7.0 * 3e-4)
     lamda_limit = 2.5e-4
-    cross = (24.0 * pc.PI ** 3 / (n_ref ** 2 * wave[None, :] ** 4)
+    cross = (24.0 * pc.PI ** 3 / (n_ref ** 2 * wave[None] ** 4)
              * ((index ** 2 - 1.0) / (index ** 2 + 2.0)) ** 2 * King)
-    return torch.where(wave[None, :] < lamda_limit, cross,
+    return torch.where(wave[None] < lamda_limit, cross,
                        torch.zeros_like(cross))

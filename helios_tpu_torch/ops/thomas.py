@@ -15,6 +15,10 @@ recurrences instead (kernels.cu:1969-2022, :2286-2421).  Those are one
 pass of the iterative sweeps with the scattering coupling set to zero, so
 they run through the sweep kernels (``n_passes=1``, ``b = 0``); both
 results are computed for every column and a ``where`` selects.
+
+A batch of P planets ([L, P, S] cells, boundary rows [P, S]) assembles the
+same rows over its P*S columns: one Thomas solve and one sweep per flux
+solve for the whole batch.
 """
 
 from __future__ import annotations
@@ -86,7 +90,8 @@ def _solve(b_rows, c_rows, d_rows, alb, src_boa, toa):
     b = torch.cat([-alb[None], b_rows, zero])
     c = torch.cat([one, c_rows, zero])
     d = torch.cat([src_boa[None], d_rows, toa[None]])
-    return thomas_solve(b, c, d)
+    return thomas_solve(fp.columns(b), fp.columns(c),
+                        fp.columns(d)).view(d.shape)
 
 
 def fband_matrix_iso(cells: fp.FlatCells, planckband_lay, F_dir,
@@ -100,7 +105,7 @@ def fband_matrix_iso(cells: fp.FlatCells, planckband_lay, F_dir,
     surf_albedo [B]; scat_trigger [S] bool.  Returns (F_down, F_up):
     [L+1, S].
     """
-    L, S = cells.M.shape
+    L, S = cells.M.shape[0], cells.M.shape[-1]
     w0, M, N, P = cells.w0, cells.M, cells.N, cells.P
     G_pl, G_min = cells.G_pl, cells.G_min
     E = E_maybe(w0, cells.g0, scat_corr, i2s_transition)
@@ -137,10 +142,14 @@ def fband_matrix_iso(cells: fp.FlatCells, planckband_lay, F_dir,
     # pure-absorption fallback (kernels.cu:1969-2022): one pass of the iso
     # sweep without the scattering coupling
     src = 2.0 * pc.PI * epsi * (1.0 - cells.trans) * B_lay
+    col = fp.columns
     F_down_abs, F_up_abs = iso_sweep(
-        cells.trans, torch.zeros_like(src), src, src, toa, alb,
-        (1.0 - alb) * pc.PI * B_surf, F_dir[0],
-        torch.zeros_like(F_dir), n_passes=1)
+        col(cells.trans), col(torch.zeros_like(src)), col(src), col(src),
+        toa.reshape(-1), alb.reshape(-1),
+        ((1.0 - alb) * pc.PI * B_surf).reshape(-1), F_dir[0].reshape(-1),
+        col(torch.zeros_like(F_dir)), n_passes=1)
+    F_down_abs = F_down_abs.view(F_dir.shape)
+    F_up_abs = F_up_abs.view(F_dir.shape)
 
     sel = scat_trigger[None]
     return (torch.where(sel, x[0::2], F_down_abs),
@@ -159,7 +168,7 @@ def fband_matrix_noniso(upper: fp.FlatCells, lower: fp.FlatCells,
     planckband_int [L+1, B]; F_dir [L+1, S]; Fc_dir [L, S]; surf_albedo
     [B]; scat_trigger [S] bool.  Returns (F_down, F_up, Fc_down, Fc_up).
     """
-    L, S = upper.M.shape
+    L, S = upper.M.shape[0], upper.M.shape[-1]
     inv_neg_mu = 1.0 / (-mu_star)
     toa, B_surf, alb, ny = _band_rows(planckband_lay, surf_albedo, S,
                                       dir_beam=dir_beam, f_factor=f_factor,
@@ -275,10 +284,15 @@ def _absorption_noniso(upper, lower, B_lay, B_int_below, B_int_above, toa,
         * (1.0 - t_up))
 
     k = 2.0 * pc.PI * epsi
-    no_coupling = torch.zeros_like(t_up)
+    col = fp.columns
+    no_coupling = col(torch.zeros_like(t_up))
     F_down, F_up, Fc_down, Fc_up = noniso_sweep(
-        t_up, no_coupling, k * pl_up_down, k * pl_up_up,
-        t_low, no_coupling, k * pl_low_down, k * pl_low_up,
-        toa, alb, (1.0 - alb) * pc.PI * B_surf, F_dir[0],
-        torch.zeros_like(F_dir), torch.zeros_like(t_up), n_passes=1)
-    return F_down, F_up, Fc_down, Fc_up
+        col(t_up), no_coupling, col(k * pl_up_down), col(k * pl_up_up),
+        col(t_low), no_coupling, col(k * pl_low_down), col(k * pl_low_up),
+        toa.reshape(-1), alb.reshape(-1),
+        ((1.0 - alb) * pc.PI * B_surf).reshape(-1), F_dir[0].reshape(-1),
+        col(torch.zeros_like(F_dir)), col(torch.zeros_like(t_up)),
+        n_passes=1)
+    I_shape, L_shape = F_dir.shape, t_up.shape
+    return (F_down.view(I_shape), F_up.view(I_shape), Fc_down.view(L_shape),
+            Fc_up.view(L_shape))

@@ -16,8 +16,10 @@ profile, from a TP file ("helios", "TP" or "PT" format) or from a
 checkpoint, with or without the output files, and with the monitored
 runner (progress, metrics, realtime plots, debug checks, a profiler trace,
 checkpoints, mid-run coupling TP writes) and coupling.  Planet ensembles
-and meshes (``planet_ensemble_file``, ``n_planet_batch`` > 1,
-``n_spectral_shards`` > 1) raise ``NotImplementedError``.
+are :mod:`helios_tpu_torch.parallel.ensemble`: as in ``helios_tpu``, this
+run ignores ``n_planet_batch`` and ``planet_ensemble_file`` (the command
+line reads the latter).  A mesh (``n_spectral_shards`` > 1) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -142,17 +144,12 @@ def load_starflux(cfg: HeliosConfig, nbin: int) -> np.ndarray:
 
 
 def _check_run_supported(cfg: HeliosConfig):
-    """Planet ensembles and meshes are the parts of helios_tpu's run that
-    the port does not have (ROADMAP A.12, A.13)."""
-    missing = []
-    if cfg.planet_ensemble_file or int(cfg.n_planet_batch) > 1:
-        missing.append("planet ensembles (planet_ensemble_file / "
-                       "n_planet_batch, ROADMAP A.12)")
+    """The spectral mesh is the part of helios_tpu's run that the port
+    does not have (ROADMAP A.13)."""
     if int(cfg.n_spectral_shards) > 1:
-        missing.append("meshes (n_spectral_shards, ROADMAP A.13)")
-    if missing:
         raise NotImplementedError(
-            "not ported to helios_tpu_torch yet: " + ", ".join(missing))
+            "not ported to helios_tpu_torch yet: meshes (n_spectral_shards, "
+            "ROADMAP A.13)")
 
 
 # --------------------------------------------------------------------------- #
@@ -422,13 +419,13 @@ class RunOutput:
             self.conv.steps if self.conv is not None else 0)
 
 
-def checkpoint_paths(cfg: HeliosConfig):
+def checkpoint_paths(cfg: HeliosConfig, default: str = "restart.ckpt.npz"):
     """(radiation, convection) checkpoint paths: ``cfg.checkpoint_path`` or
-    ``<output_dir>/<name>/restart.ckpt.npz``, and the same with ``_conv``
-    before the (possibly compound) extension, so that any path gives two
-    distinct files."""
+    ``<output_dir>/<name>/<default>``, and the same with ``_conv`` before
+    the (possibly compound) extension, so that any path gives two distinct
+    files."""
     path = cfg.checkpoint_path or os.path.join(cfg.output_dir, cfg.name,
-                                               "restart.ckpt.npz")
+                                               default)
     base, ext = os.path.splitext(path)
     if base.endswith(".ckpt"):
         base, ext = base[:-5], ".ckpt" + ext
@@ -547,39 +544,8 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
     final = conv if conv is not None else rad
     t_end = clock()
 
-    if thermo is not None:
-        kappa_lay, c_p_lay = kappa_cp_lay(thermo, final.T_lay, arrays.p_lay)
-        T_int = interp_ops.interface_temperatures(final.T_lay)
-        conv_unstable = convect.conv_check(
-            final.T_lay, arrays.p_lay, arrays.p_int, kappa_lay,
-            kappa_int(thermo, T_int, arrays.p_int))
-    else:
-        kappa_lay = c_p_lay = conv_unstable = None
-
-    # entropy / water-phase diagnostics from the thermodynamics table
-    # (computation.py:252-292, entropy_interpol / phase_number_interpol)
-    entropy_lay = phase_number_lay = None
-    if thermo is not None and thermo.from_table:
-        T_lay = final.T_lay[:phys.nlayer]
-        entropy_lay = interp_ops.interpolate_entropy(
-            thermo.entropy_table, thermo.temps, thermo.press, T_lay,
-            arrays.p_lay)
-        if thermo.has_phase:
-            phase_number_lay = interp_ops.interpolate_phase_number(
-                thermo.phase_table, thermo.temps, thermo.press, T_lay,
-                arrays.p_lay)
-
-    post = post_process(phys, arrays, final.T_lay, final.flux, sset)
-    final_limit = final.local_limit
-    result = collect_result(
-        cfg, phys, arrays, final.T_lay, post, conv_unstable=conv_unstable,
-        conv_layer=conv.conv_layer if conv is not None else None,
-        F_smooth_sum=final.F_smooth_sum, kappa_lay=kappa_lay,
-        c_p_lay=c_p_lay, entropy_lay=entropy_lay,
-        phase_number_lay=phase_number_lay,
-        relaxed=int(final_limit > phys.rad_convergence_limit * 1.5),
-        final_limit=final_limit, cloud_result=cloud_result)
-
+    result = final_result(cfg, phys, arrays, thermo, final, conv,
+                          cloud_result, sset)
     if write_output:
         writers.write_all(result)
         if final.aborted:
@@ -611,6 +577,47 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
                      wall_seconds=time.perf_counter() - t0,
                      rad_seconds=t_conv - t_rad, conv_seconds=t_end - t_conv,
                      rad_it0=rad_it0)
+
+
+def final_result(cfg: HeliosConfig, phys: Phys, arrays: ModelArrays,
+                 thermo: Optional[ThermoProps], final, conv, cloud_result,
+                 sset=None) -> writers.RunResult:
+    """The end-of-run bookkeeping of one planet: the thermodynamics and
+    entropy / water-phase diagnostics at the final T, the post-processing
+    diagnostics and the RunResult.  ``final``: the last loop's state;
+    ``conv``: the convection loop's, or None."""
+    if thermo is not None:
+        kappa_lay, c_p_lay = kappa_cp_lay(thermo, final.T_lay, arrays.p_lay)
+        T_int = interp_ops.interface_temperatures(final.T_lay)
+        conv_unstable = convect.conv_check(
+            final.T_lay, arrays.p_lay, arrays.p_int, kappa_lay,
+            kappa_int(thermo, T_int, arrays.p_int))
+    else:
+        kappa_lay = c_p_lay = conv_unstable = None
+
+    # entropy / water-phase diagnostics from the thermodynamics table
+    # (computation.py:252-292, entropy_interpol / phase_number_interpol)
+    entropy_lay = phase_number_lay = None
+    if thermo is not None and thermo.from_table:
+        T_lay = final.T_lay[:phys.nlayer]
+        entropy_lay = interp_ops.interpolate_entropy(
+            thermo.entropy_table, thermo.temps, thermo.press, T_lay,
+            arrays.p_lay)
+        if thermo.has_phase:
+            phase_number_lay = interp_ops.interpolate_phase_number(
+                thermo.phase_table, thermo.temps, thermo.press, T_lay,
+                arrays.p_lay)
+
+    post = post_process(phys, arrays, final.T_lay, final.flux, sset)
+    final_limit = final.local_limit
+    return collect_result(
+        cfg, phys, arrays, final.T_lay, post, conv_unstable=conv_unstable,
+        conv_layer=conv.conv_layer if conv is not None else None,
+        F_smooth_sum=final.F_smooth_sum, kappa_lay=kappa_lay,
+        c_p_lay=c_p_lay, entropy_lay=entropy_lay,
+        phase_number_lay=phase_number_lay,
+        relaxed=int(final_limit > phys.rad_convergence_limit * 1.5),
+        final_limit=final_limit, cloud_result=cloud_result)
 
 
 def _observers(cfg: HeliosConfig, phys: Phys, arrays: ModelArrays,

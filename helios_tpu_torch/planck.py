@@ -75,6 +75,7 @@ def build_planck_table(lambda_edge, delta_lambda, T_star, dim: int = 8000,
 
 def interpolate_planck(planck_grid, T, dim: int, step: int):
     """Linear lookup of band Planck values at temperatures T -> [..., nbin].
+    With a batch of P planets the grid is [dim+1, P, nbin] and T [..., P].
 
     Index math of kernels.cu:952-974: t = (T-1)/step clamped to
     [0.001, dim-1.001]."""
@@ -82,15 +83,23 @@ def interpolate_planck(planck_grid, T, dim: int, step: int):
     t = torch.clamp(t, 0.001, dim - 1.001)
     tdown = torch.floor(t).long()
     w = (t - tdown)[..., None]
-    lo = planck_grid[tdown]
-    hi = planck_grid[tdown + 1]
+    if planck_grid.dim() == 3:
+        # a batch's grids [dim+1, P, B]: T [..., P] looks up its own member
+        member = torch.arange(planck_grid.shape[1], device=T.device)
+        lo = planck_grid[tdown, member]
+        hi = planck_grid[tdown + 1, member]
+    else:
+        lo = planck_grid[tdown]
+        hi = planck_grid[tdown + 1]
     return lo * (1.0 - w) + hi * w
 
 
 def planckband_layers(planck_grid, T_lay, starflux, *, real_star: int,
                       dim: int, step: int):
     """[nlayer+2, nbin]: layer rows, the stellar row (starflux/pi or the
-    tabulated B(T_star) row), and the surface row at T_lay[nlayer]."""
+    tabulated B(T_star) row), and the surface row at T_lay[nlayer].  A
+    batch of P planets gives [nlayer+2, P, nbin] from T_lay [nlayer+1, P],
+    starflux [P, nbin] and grids [dim+1, P, nbin]."""
     nlayer = T_lay.shape[0] - 1
     lay_rows = interpolate_planck(planck_grid, T_lay[:nlayer], dim, step)
     surf_row = interpolate_planck(planck_grid, T_lay[nlayer], dim, step)
@@ -98,7 +107,7 @@ def planckband_layers(planck_grid, T_lay, starflux, *, real_star: int,
         star_row = starflux / pc.PI
     else:
         star_row = planck_grid[dim]
-    return torch.cat([lay_rows, star_row[None, :], surf_row[None, :]], dim=0)
+    return torch.cat([lay_rows, star_row[None], surf_row[None]], dim=0)
 
 
 def planckband_interfaces(planck_grid, T_int, *, dim: int, step: int):

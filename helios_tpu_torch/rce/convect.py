@@ -10,6 +10,11 @@ round.
 Index conventions follow the reference: layers 0..L-1 bottom-up, plus a
 surface/BOA "ghost layer" at index L.  A convective zone that includes the
 ghost layer starts at virtual index -1 (host_functions.py:388-389).
+
+A batch of P planets passes every per-layer array as [L, P] (the layer
+axis first): zones, segment sums and fudge factors are then per member,
+and the adjustment's host loop runs while any member is unstable,
+correcting only those.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from helios_tpu_torch import constants as pc
+from helios_tpu_torch.ops.members import memberwise
 
 # pressure above which the top atmosphere is ignored by the instability
 # check (artificial temperature peaks occur there); host_functions.py:345
@@ -35,10 +41,11 @@ def _pair_unstable(T_lay, p_lay, p_int, kappa_lay, kappa_int, pert):
     colder than the adiabat through layer i (host_functions.py:343-355,
     :552-565).  Layers with p_lay <= 10 ubar are masked."""
     L = T_lay.shape[0] - 1
-    T_between = T_lay[:L - 1] * (p_int[1:L] / p_lay[:L - 1]) ** (
-        kappa_lay[:L - 1] * (1.0 + pert))
-    T_ad = T_between * (p_lay[1:L] / p_int[1:L]) ** (
-        kappa_int[1:L] * (1.0 + pert))
+    pow_ = lambda x, e: memberwise(torch.pow, x, e, batched=T_lay.dim() > 1)
+    T_between = T_lay[:L - 1] * pow_(p_int[1:L] / p_lay[:L - 1],
+                                     kappa_lay[:L - 1] * (1.0 + pert))
+    T_ad = T_between * pow_(p_lay[1:L] / p_int[1:L],
+                            kappa_int[1:L] * (1.0 + pert))
     mask = p_lay[:L - 1] > P_TOP_IGNORE
     return (T_lay[1:L] < T_ad) & mask
 
@@ -46,15 +53,30 @@ def _pair_unstable(T_lay, p_lay, p_int, kappa_lay, kappa_int, pert):
 def _surface_unstable(T_lay, p_lay, p_int, kappa_int, pert):
     """Ghost-layer/BOA instability (host_functions.py:357-362, :572-577)."""
     L = T_lay.shape[0] - 1
-    T_ad = T_lay[L] * (p_lay[0] / p_int[0]) ** (kappa_int[0] * (1.0 + pert))
+    T_ad = T_lay[L] * memberwise(torch.pow, p_lay[0] / p_int[0],
+                                 kappa_int[0] * (1.0 + pert),
+                                 batched=T_lay.dim() > 1)
     return T_lay[0] < T_ad
+
+
+def _rows(n: int, like):
+    """arange(n) shaped to broadcast along the leading axis of ``like``."""
+    return torch.arange(n, device=like.device).reshape(
+        (n,) + (1,) * (like.dim() - 1))
+
+
+def _take(x, idx):
+    """x[idx] along the layer axis, per member of a batch (idx has x's
+    trailing shape)."""
+    return x.gather(0, idx)
 
 
 def _mark_pairs(pair, surf):
     """[L+1] flags: pair i marks layers i and i+1; the surface flag marks
     the ghost and layer 0."""
     L = pair.shape[0] + 1
-    flags = torch.zeros(L + 1, dtype=torch.bool, device=pair.device)
+    flags = torch.zeros((L + 1,) + pair.shape[1:], dtype=torch.bool,
+                        device=pair.device)
     flags[:L - 1] = pair
     flags[1:L] |= pair
     flags[L] = surf
@@ -77,7 +99,7 @@ def mark_convective_layers(T_lay, p_lay, p_int, kappa_lay, kappa_int, *,
     after iteration 5000 when ``stitching``."""
     L = T_lay.shape[0] - 1
     pair = _pair_unstable(T_lay, p_lay, p_int, kappa_lay, kappa_int, -1e-6)
-    conv = torch.zeros(L + 1, dtype=torch.bool, device=T_lay.device)
+    conv = torch.zeros(T_lay.shape, dtype=torch.bool, device=T_lay.device)
     conv[:L - 1] = pair
     conv[1:L] |= pair
     # kink removal at the top edge of convective zones (:568-570)
@@ -97,7 +119,7 @@ def stitch_zone_holes(conv, p_lay, p_int):
     above, and p_lay[above] / p_bot > 1/e."""
     L = p_lay.shape[0]
     dt = p_lay.dtype
-    idx = torch.arange(L, dtype=dt, device=p_lay.device)
+    idx = _rows(L, p_lay).to(dt)
     inf = torch.tensor(math.inf, dtype=dt, device=p_lay.device)
 
     # nearest convective index below (inclusive running max); ghost = -1
@@ -115,9 +137,9 @@ def stitch_zone_holes(conv, p_lay, p_int):
     below_i = torch.clamp(below, -1, L - 1).long()
     above_i = torch.clamp(above, 0, L - 1).long()
 
-    p_bot = torch.where(below_i >= 0, p_lay[torch.clamp(below_i, min=0)],
-                        p_int[0])
-    p_top = p_lay[above_i]
+    p_bot = torch.where(below_i >= 0,
+                        _take(p_lay, torch.clamp(below_i, min=0)), p_int[0])
+    p_top = _take(p_lay, above_i)
     fill = (~conv[:L]) & has_below & has_above & (p_top / p_bot > GAP_RATIO)
     out = conv.clone()
     out[:L] |= fill
@@ -145,7 +167,7 @@ def find_zones(corrected) -> Zones:
     L = corrected.shape[0] - 1
     dev = corrected.device
     ext = torch.cat([corrected[L:L + 1], corrected[:L]])
-    false = torch.zeros(1, dtype=torch.bool, device=dev)
+    false = torch.zeros_like(ext[:1])
     prev = torch.cat([false, ext[:-1]])
     is_start = ext & ~prev
     nxt = torch.cat([ext[1:], false])
@@ -154,18 +176,19 @@ def find_zones(corrected) -> Zones:
     zone_id_ext = torch.cumsum(is_start.long(), 0) - 1   # 0-based
     zone_id_ext = torch.where(ext, zone_id_ext, -1)
 
-    layer_index_ext = torch.arange(-1, L, device=dev)    # ghost = -1
+    layer_index_ext = (_rows(L + 1, ext) - 1).expand(ext.shape)  # ghost -1
     n_max = L + 1
     # slot n_max is a sentinel that takes every non-start/non-end position
     # and is sliced off (the JAX package drops such out-of-range updates)
     sidx = torch.where(is_start, zone_id_ext, n_max)
     eidx = torch.where(is_end, zone_id_ext, n_max)
-    start = torch.full((n_max + 1,), -2, dtype=torch.long, device=dev)
-    end = torch.full((n_max + 1,), -2, dtype=torch.long, device=dev)
+    shape = (n_max + 1,) + ext.shape[1:]
+    start = torch.full(shape, -2, dtype=torch.long, device=dev)
+    end = torch.full(shape, -2, dtype=torch.long, device=dev)
     start = start.scatter(0, sidx, layer_index_ext)[:n_max]
     end = end.scatter(0, eidx, layer_index_ext)[:n_max]
     return Zones(zone_of_layer=zone_id_ext[1:], start=start, end=end,
-                 n_zones=is_start.sum(), ghost_in_zone0=ext[0])
+                 n_zones=is_start.sum(dim=0), ghost_in_zone0=ext[0])
 
 
 # --------------------------------------------------------------------------- #
@@ -178,19 +201,21 @@ def _adiabat_factors(p_lay, p_int, kappa_lay, kappa_int, zones: Zones):
       a[j] = (p_lay[j]/p_int[j])^kappa_int[j] * (p_int[j+1]/p_lay[j])^kappa_lay[j]
       b[i] = (p_lay[i]/p_int[i])^kappa_int[i],  s = max(0, zone start)."""
     L = p_lay.shape[0]
-    log_a = (kappa_int[:L] * torch.log(p_lay / p_int[:L])
-             + kappa_lay * torch.log(p_int[1:] / p_lay))
-    log_b = kappa_int[:L] * torch.log(p_lay / p_int[:L])
+    batched = p_lay.dim() > 1
+    log = lambda x: memberwise(torch.log, x, batched=batched)
+    log_a = (kappa_int[:L] * log(p_lay / p_int[:L])
+             + kappa_lay * log(p_int[1:] / p_lay))
+    log_b = kappa_int[:L] * log(p_lay / p_int[:L])
 
     cs = torch.cumsum(log_a, 0)
     cs_prev = torch.cat([torch.zeros_like(cs[:1]), cs[:-1]])   # sum_{j<i}
 
-    s = torch.clamp(zones.start[torch.clamp(zones.zone_of_layer, min=0)],
-                    min=0)
-    seg_sum = cs_prev - cs_prev[s]
-    idx = torch.arange(L, device=p_lay.device)
+    s = torch.clamp(_take(zones.start,
+                          torch.clamp(zones.zone_of_layer, min=0)), min=0)
+    seg_sum = cs_prev - _take(cs_prev, s)
+    idx = _rows(L, p_lay)
     seg_sum = torch.where(idx > s, seg_sum, torch.zeros_like(seg_sum))
-    return torch.exp(log_b + seg_sum)
+    return memberwise(torch.exp, log_b + seg_sum, batched=batched)
 
 
 def _segment_sum(values, seg, n):
@@ -200,8 +225,8 @@ def _segment_sum(values, seg, n):
     deterministic on the card, unlike an atomic ``index_add_``, and the
     same order as the sequential scatter-add of the JAX package on the
     CPU, so a 1-ulp difference cannot flip a convergence decision."""
-    onehot = seg[None, :] == torch.arange(n, device=seg.device)[:, None]
-    masked = torch.where(onehot, values[None, :], torch.zeros_like(values))
+    onehot = seg[None] == _rows(n, seg[None])
+    masked = torch.where(onehot, values[None], torch.zeros_like(values))
     return torch.cumsum(masked, 1)[:, -1]
 
 
@@ -231,7 +256,8 @@ def conv_correct(T_lay, p_lay, p_int, kappa_lay, kappa_int, c_p_lay,
         torch.zeros_like(num))
     if fudge_per_zone is not None:
         mean_pot = mean_pot * fudge_per_zone
-    T_new_lay = torch.where(in_zone, mean_pot[seg] * factor, T_lay[:L])
+    T_new_lay = torch.where(in_zone, _take(mean_pot, seg) * factor,
+                            T_lay[:L])
 
     # ghost layer: if zone 0 includes the ghost, T_surface takes the zone's
     # mean potential temperature (host_functions.py:503-506)
@@ -252,15 +278,15 @@ def fudge_factors(zones: Zones, p_lay, p_int, T_star, input_dampara,
     L = p_lay.shape[0]
     n_max = L + 1
     dt, dev = p_lay.dtype, p_lay.device
-    z = torch.arange(n_max, device=dev)
+    z = _rows(n_max, p_lay)
     valid = z < zones.n_zones
     last = zones.n_zones - 1
 
-    start_next = zones.start[torch.clamp(z + 1, max=n_max - 1)]
-    end_m = zones.end[z]
-    p_bot = torch.where(end_m >= 0, p_lay[torch.clamp(end_m, min=0)],
+    start_next = torch.cat([zones.start[1:], zones.start[-1:]])
+    end_m = zones.end
+    p_bot = torch.where(end_m >= 0, _take(p_lay, torch.clamp(end_m, min=0)),
                         p_int[0])
-    p_top = p_lay[torch.clamp(start_next, 0, L - 1)]
+    p_top = _take(p_lay, torch.clamp(start_next, 0, L - 1))
     wide = ((p_top / p_bot) < GAP_RATIO) & (z < last) & valid
 
     cand_itf = torch.div(end_m + start_next + 1, 2, rounding_mode="floor")
@@ -272,28 +298,27 @@ def fudge_factors(zones: Zones, p_lay, p_int, T_star, input_dampara,
                             [0])
     has_wide = first_wide < n_max
 
-    end_last = zones.end[torch.clamp(last, min=0)]
+    end_last = _take(zones.end, torch.clamp(last, min=0)[None])[0]
     itf_top = (0.8 * end_last.to(dt) + 0.2 * L).long()
     itf = torch.where(has_wide,
-                      cand_itf[torch.clamp(first_wide, max=n_max - 1)],
+                      _take(cand_itf, torch.clamp(first_wide, max=n_max - 1)),
                       itf_top)
     itf = torch.clamp(itf, 1, L)   # itf-1 indexes F_*_sum
 
+    shape = zones.end.shape
+    full = lambda v: torch.full(shape, v, dtype=dt, device=dev)
     if input_dampara == "automatic":
         if T_star > 10.0:
-            dampara = torch.where(z < last,
-                                  torch.full((n_max,), 0.5, dtype=dt,
-                                             device=dev),
-                                  torch.full((n_max,), 4.0, dtype=dt,
-                                             device=dev))
+            dampara = torch.where(z < last, full(0.5), full(4.0))
         else:
-            dampara = torch.full((n_max,), 8.0, dtype=dt, device=dev)
+            dampara = full(8.0)
     else:
-        dampara = torch.full((n_max,), float(input_dampara), dtype=dt,
-                             device=dev)
+        dampara = full(float(input_dampara))
 
-    fudge = ((F_intern + F_add_heat_sum[itf - 1] + F_smooth_sum[itf - 1]
-              + F_down_tot[itf]) / F_up_tot[itf]) ** (1.0 / dampara)
+    fudge = memberwise(
+        torch.pow, (F_intern + _take(F_add_heat_sum, itf - 1)
+                    + _take(F_smooth_sum, itf - 1) + _take(F_down_tot, itf))
+        / _take(F_up_tot, itf), 1.0 / dampara, batched=p_lay.dim() > 1)
     fudge = torch.clamp(fudge, 0.99, 1.01)
     return torch.where(valid, fudge, torch.ones_like(fudge))
 
@@ -301,18 +326,30 @@ def fudge_factors(zones: Zones, p_lay, p_int, T_star, input_dampara,
 def convective_adjustment(T_lay, p_lay, p_int, kappa_lay, kappa_int,
                           c_p_lay, meanmolmass_lay, *, iter_value: int,
                           T_star, input_dampara, F_intern, F_add_heat_sum,
-                          F_smooth_sum, F_down_tot, F_up_tot):
+                          F_smooth_sum, F_down_tot, F_up_tot, members=None):
     """Full convective adjustment (host_functions.py:509-542): correct
     (mark -> correct -> re-check, a host loop reading one flag per round)
     until no instability remains, then apply the stitched, fudged final
-    correction.  Returns (T_lay, conv_layer [L+1] bool)."""
-    while bool(conv_check(T_lay, p_lay, p_int, kappa_lay, kappa_int).any()):
+    correction.  Returns (T_lay, conv_layer [L+1] bool).
+
+    A batch loops while any member is unstable, and a round changes only
+    the members unstable at its start, so each member goes through the
+    rounds of its own adjustment.  ``members`` [P] bool limits the loop to
+    those members (the batch's running ones)."""
+    def unstable_members(T):
+        unstable = conv_check(T, p_lay, p_int, kappa_lay, kappa_int)
+        active = unstable.any(dim=0)
+        return unstable, active if members is None else active & members
+
+    unstable, active = unstable_members(T_lay)
+    while bool(active.any()):
         conv_layer = mark_convective_layers(
             T_lay, p_lay, p_int, kappa_lay, kappa_int, stitching=0,
             iter_value=iter_value)
-        unstable = conv_check(T_lay, p_lay, p_int, kappa_lay, kappa_int)
-        T_lay = conv_correct(T_lay, p_lay, p_int, kappa_lay, kappa_int,
+        T_new = conv_correct(T_lay, p_lay, p_int, kappa_lay, kappa_int,
                              c_p_lay, meanmolmass_lay, unstable | conv_layer)
+        T_lay = torch.where(active, T_new, T_lay)
+        unstable, active = unstable_members(T_lay)
 
     conv_layer = mark_convective_layers(
         T_lay, p_lay, p_int, kappa_lay, kappa_int, stitching=1,
@@ -344,5 +381,5 @@ def check_for_radiative_eq(T_lay, conv_layer, F_net, F_down_tot, *,
     is_rad = ~conv_layer
     converged = is_rad & (local_diff < rad_convergence_limit * denom)
     marked_red = is_rad & ~converged
-    criterion = converged.sum() == is_rad.sum()
+    criterion = converged.sum(dim=0) == is_rad.sum(dim=0)
     return criterion, converged, marked_red

@@ -13,20 +13,25 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from helios_tpu_torch.forward import (CellCache, FluxState, ModelArrays, Phys,
                                       compute_cells, integrate_flux_flat,
-                                      solve_fluxes)
+                                      layer_index, solve_fluxes)
 from helios_tpu_torch.ops import integrate as int_ops
 from helios_tpu_torch.ops import interp as interp_ops
 from helios_tpu_torch.rce import convect
 from helios_tpu_torch.rce.radiative import (RadLoopState, ThermoProps,
+                                            DeviceCopy, freeze_members,
                                             kappa_cp_lay, kappa_int,
-                                            smoothing_flux)
+                                            shared_counter, smoothing_flux)
 
 
 class ConvLoopState(NamedTuple):
+    """The convection loop's state; for a batch of P planets laid out as
+    :class:`helios_tpu_torch.rce.radiative.RadLoopState` is, with the host
+    counters and flags (``keep_running`` too) numpy arrays [P]."""
     T_lay: torch.Tensor
     flux: FluxState
     cache: CellCache
@@ -61,12 +66,11 @@ def conv_temp_step(phys: Phys, m: ModelArrays, totals: int_ops.FluxTotals,
 
     # surface: F_intern - F_net[j+1] for the first marked_red layer j,
     # falling back to F_net[0] (kernels.cu:2825-2837)
-    idx = torch.arange(L, device=T_lay.device)
-    first_red = torch.min(torch.where(marked_red[:L], idx, L))
-    combined_surf = torch.where(
-        first_red < L,
-        phys.F_intern - F_net[torch.clamp(first_red, max=L - 1) + 1],
-        phys.F_intern - F_net[0])
+    idx = layer_index(L, T_lay)
+    first_red = torch.where(marked_red[:L], idx, L).amin(dim=0)
+    at_red = F_net.gather(0, (torch.clamp(first_red, max=L - 1) + 1)[None])[0]
+    combined_surf = torch.where(first_red < L, phys.F_intern - at_red,
+                                phys.F_intern - F_net[0])
     combined = torch.cat([combined_lay, combined_surf[None]])
 
     if it == 0:
@@ -93,25 +97,28 @@ def conv_temp_step(phys: Phys, m: ModelArrays, totals: int_ops.FluxTotals,
     return T_new, T_store, prefactor, F_smooth_sum
 
 
-def _one_convection_iteration(phys: Phys, m: ModelArrays,
-                              thermo: ThermoProps, s: ConvLoopState,
-                              sset=None) -> ConvLoopState:
-    """Body of the convection loop (computation.py:1030-1164)."""
+def _convection_step(phys: Phys, m: ModelArrays, thermo: ThermoProps,
+                     s: ConvLoopState, it: int, local_limit, sset,
+                     members=None):
+    """The device work of one convection iteration at counter ``it``, up to
+    the convergence test (computation.py:1030-1108): (adjusted T, flux,
+    cache, totals, conv_layer, marked_red, criterion).  ``members``: the
+    running members of a batch, the only ones the adjustment corrects."""
     # --- convective adjustment (uses the previous iteration's fluxes) ---
     kappa_lay, c_p_lay = kappa_cp_lay(thermo, s.T_lay, m.p_lay)
     T_int = interp_ops.interface_temperatures(s.T_lay)
     kap_int = kappa_int(thermo, T_int, m.p_int)
     T_adj, _conv = convect.convective_adjustment(
         s.T_lay, m.p_lay, m.p_int, kappa_lay, kap_int, c_p_lay,
-        s.cache.meanmolmass_lay, iter_value=s.it,
+        s.cache.meanmolmass_lay, iter_value=it,
         T_star=phys.T_star, input_dampara=phys.input_dampara,
         F_intern=phys.F_intern, F_add_heat_sum=s.cache.F_add_heat_sum,
         F_smooth_sum=s.F_smooth_sum, F_down_tot=s.totals.F_down_tot,
-        F_up_tot=s.totals.F_up_tot)
+        F_up_tot=s.totals.F_up_tot, members=members)
 
     # --- flux calculation with the adjusted profile ---
     T_int = interp_ops.interface_temperatures(T_adj)
-    if s.it % 10 == 0:
+    if it % 10 == 0:
         cache = compute_cells(phys, m, T_adj, T_int, sset)
     else:
         cache = s.cache
@@ -123,13 +130,22 @@ def _one_convection_iteration(phys: Phys, m: ModelArrays,
     kap_int = kappa_int(thermo, T_int, m.p_int)
     conv_layer = convect.mark_convective_layers(
         T_adj, m.p_lay, m.p_int, kappa_lay, kap_int, stitching=1,
-        iter_value=s.it)
+        iter_value=it)
 
     # --- convergence on radiative layers only; min 400 iterations ---
     criterion, _converged, marked_red = convect.check_for_radiative_eq(
         T_adj, conv_layer, totals.F_net, totals.F_down_tot,
         F_intern=phys.F_intern, F_add_heat_sum=cache.F_add_heat_sum,
-        F_smooth_sum=s.F_smooth_sum, rad_convergence_limit=s.local_limit)
+        F_smooth_sum=s.F_smooth_sum, rad_convergence_limit=local_limit)
+    return T_adj, flux, cache, totals, conv_layer, marked_red, criterion
+
+
+def _one_convection_iteration(phys: Phys, m: ModelArrays,
+                              thermo: ThermoProps, s: ConvLoopState,
+                              sset=None) -> ConvLoopState:
+    """Body of the convection loop (computation.py:1030-1164)."""
+    T_adj, flux, cache, totals, conv_layer, marked_red, criterion = (
+        _convection_step(phys, m, thermo, s, s.it, s.local_limit, sset))
     if phys.physical_tstep != 0.0:
         # one convective adjustment only, no temperature iteration
         # (computation.py:1109-1111)
@@ -163,6 +179,57 @@ def _one_convection_iteration(phys: Phys, m: ModelArrays,
         aborted=s.aborted or hit_cap, steps=s.steps + 1)
 
 
+def _one_batched_convection_iteration(phys: Phys, m: ModelArrays,
+                                      thermo: ThermoProps, s: ConvLoopState,
+                                      running: np.ndarray, copies,
+                                      sset=None) -> ConvLoopState:
+    """The body for a batch: the host branches follow the running members'
+    shared counter, ``not_done`` and the counter's advance are per member,
+    and a member that has stopped keeps its old state.  ``copies``: the
+    DeviceCopy of the criteria, the running members and ``not_done``."""
+    limits, run_copy, step_copy = copies
+    it = shared_counter(s, running)
+    run_dev = run_copy(running)
+    T_adj, flux, cache, totals, conv_layer, marked_red, criterion = (
+        _convection_step(phys, m, thermo, s, it, limits(s.local_limit),
+                         sset, members=run_dev))
+    P = running.shape[0]
+    if phys.physical_tstep != 0.0:
+        not_done = np.zeros(P, bool)
+    elif it < 400:
+        not_done = np.ones(P, bool)
+    else:
+        not_done = ((~criterion) | (conv_layer.sum(dim=0) == 0)).cpu().numpy()
+
+    T_new, T_store, prefactor, F_smooth_sum = (
+        T_adj, s.T_store, s.prefactor, s.F_smooth_sum)
+    if (not_done & running).any():
+        stepped = conv_temp_step(
+            phys, m, totals, T_adj, s.T_store, s.prefactor, marked_red, it,
+            F_add_heat_lay=cache.F_add_heat_lay)
+        step_dev = step_copy(not_done)
+        T_new, T_store, prefactor, F_smooth_sum = (
+            torch.where(step_dev, a, b) for a, b in zip(
+                stepped, (T_adj, s.T_store, s.prefactor, s.F_smooth_sum)))
+    it_next = it + not_done.astype(s.it.dtype)
+
+    local_limit = s.local_limit
+    for n in phys.crit_relaxation_numbers:
+        local_limit = np.where(it_next == int(n), local_limit * 10.0,
+                               local_limit)
+
+    hit_cap = it_next > phys.max_nr_iterations
+    new = ConvLoopState(
+        T_lay=T_new, flux=flux, cache=cache, totals=totals,
+        T_store=T_store, prefactor=prefactor, F_smooth_sum=F_smooth_sum,
+        conv_layer=conv_layer, marked_red=marked_red, it=it_next,
+        local_limit=local_limit, keep_running=not_done & ~hit_cap,
+        aborted=s.aborted | hit_cap, steps=s.steps + 1)
+    if running.all():
+        return new
+    return freeze_members(new, s, (run_dev, running))
+
+
 def convection_loop(phys: Phys, m: ModelArrays, thermo: ThermoProps,
                     rad: Optional[RadLoopState],
                     max_steps: Optional[int] = None,
@@ -176,34 +243,60 @@ def convection_loop(phys: Phys, m: ModelArrays, thermo: ThermoProps,
     overheat), computation.py:996-1009.  ``max_steps`` caps the counter
     (relative to entry); ``sset`` is the species set of on-the-fly opacity
     mixing; ``state0`` continues a previous state instead.
+
+    A batch (a batched ``rad`` or ``state0``) decides the entry per member
+    and iterates while any member runs; a member that is done keeps the
+    state of its own last iteration.
     """
     if state0 is not None:
         state = state0
-        start_it = state0.it
     else:
         L = phys.nlayer
-        kw = dict(dtype=rad.T_lay.dtype, device=rad.T_lay.device)
-        no = torch.zeros(L + 1, dtype=torch.bool, device=rad.T_lay.device)
+        T = rad.T_lay
+        batch = tuple(T.shape[1:])
+        no = torch.zeros(T.shape, dtype=torch.bool, device=T.device)
+        it, limit, keep, aborted, steps = (
+            0, float(phys.rad_convergence_limit), True, False, 0)
+        if batch:     # one host counter, criterion and flag per member
+            it, steps = np.zeros(batch, np.int64), np.zeros(batch, np.int64)
+            limit = np.full(batch, limit)
+            keep, aborted = np.ones(batch, bool), np.zeros(batch, bool)
         state = ConvLoopState(
-            T_lay=rad.T_lay, flux=rad.flux, cache=rad.cache,
-            totals=rad.totals, T_store=torch.zeros(L + 1, **kw),
-            prefactor=torch.full((L + 1,), 1e-2, **kw),
+            T_lay=T, flux=rad.flux, cache=rad.cache,
+            totals=rad.totals, T_store=torch.zeros_like(T),
+            prefactor=torch.full_like(T, 1e-2),
             F_smooth_sum=rad.F_smooth_sum, conv_layer=no, marked_red=no,
-            it=0, local_limit=float(phys.rad_convergence_limit),
-            keep_running=True, aborted=False)
-        start_it = 0
+            it=it, local_limit=limit, keep_running=keep, aborted=aborted,
+            steps=steps)
         if phys.singlewalk or not phys.convection or phys.iso:
-            return state._replace(keep_running=False)
+            return state._replace(keep_running=keep & False)
         # entry check: any convectively unstable layers?
-        kappa_lay, _ = kappa_cp_lay(thermo, rad.T_lay, m.p_lay)
-        T_int = interp_ops.interface_temperatures(rad.T_lay)
+        kappa_lay, _ = kappa_cp_lay(thermo, T, m.p_lay)
+        T_int = interp_ops.interface_temperatures(T)
         kap_int = kappa_int(thermo, T_int, m.p_int)
-        unstable = convect.conv_check(rad.T_lay, m.p_lay, m.p_int,
-                                      kappa_lay, kap_int)
-        state = state._replace(keep_running=bool(
-            torch.any(unstable) | rad.goto_convection))
+        unstable = convect.conv_check(T, m.p_lay, m.p_int, kappa_lay,
+                                      kap_int)
+        enter = unstable.any(dim=0) | rad.goto_convection
+        state = state._replace(keep_running=(
+            enter.cpu().numpy() if batch else bool(enter)))
 
-    while (state.keep_running
-           and (max_steps is None or state.it - start_it < max_steps)):
-        state = _one_convection_iteration(phys, m, thermo, state, sset)
+    if state.T_lay.dim() == 1:
+        start_it = state.it
+        while (state.keep_running
+               and (max_steps is None or state.it - start_it < max_steps)):
+            state = _one_convection_iteration(phys, m, thermo, state, sset)
+        return state
+    T = state.T_lay
+    copies = (DeviceCopy(T, T.dtype), DeviceCopy(T), DeviceCopy(T))
+    start_it = None
+    while True:
+        running = np.asarray(state.keep_running, bool)
+        if not running.any():
+            break
+        it = shared_counter(state, running)
+        start_it = it if start_it is None else start_it
+        if max_steps is not None and it - start_it >= max_steps:
+            break
+        state = _one_batched_convection_iteration(phys, m, thermo, state,
+                                                  running, copies, sset)
     return state

@@ -14,15 +14,18 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from helios_tpu_torch import constants as pc
 from helios_tpu_torch.device import resolve_device
 from helios_tpu_torch.forward import (CellCache, FluxState, ModelArrays, Phys,
                                       compute_cells, init_flux_state,
-                                      integrate_flux_flat, solve_fluxes)
+                                      integrate_flux_flat, layer_index,
+                                      solve_fluxes)
 from helios_tpu_torch.ops import integrate as int_ops
 from helios_tpu_torch.ops import interp as interp_ops
+from helios_tpu_torch.ops.members import memberwise
 
 
 class ThermoProps(NamedTuple):
@@ -75,9 +78,9 @@ def kappa_cp_lay(thermo: ThermoProps, T_lay, p_lay):
         cp = interp_ops.interpolate_cp(
             thermo.cp_table, thermo.temps, thermo.press, T_lay[:L], p_lay)
         return kappa, cp
-    kw = dict(dtype=T_lay.dtype, device=T_lay.device)
-    kappa = torch.full((L,), thermo.const_kappa, **kw)
-    cp = torch.full((L,), pc.R_UNIV / thermo.const_kappa, **kw)
+    kappa = torch.full_like(p_lay, thermo.const_kappa, dtype=T_lay.dtype)
+    cp = torch.full_like(p_lay, pc.R_UNIV / thermo.const_kappa,
+                         dtype=T_lay.dtype)
     return kappa, cp
 
 
@@ -86,8 +89,7 @@ def kappa_int(thermo: ThermoProps, T_int, p_int):
     if thermo.from_table:
         return interp_ops.interpolate_kappa(
             thermo.kappa_table, thermo.temps, thermo.press, T_int, p_int)
-    return torch.full((p_int.shape[0],), thermo.const_kappa,
-                      dtype=T_int.dtype, device=T_int.device)
+    return torch.full_like(p_int, thermo.const_kappa, dtype=T_int.dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -101,15 +103,16 @@ def smoothing_flux(phys: Phys, T_lay, p_lay):
     Returns (F_smooth [L], F_smooth_sum [L])."""
     L = phys.nlayer
     if not phys.smooth:
-        z = torch.zeros(L, dtype=T_lay.dtype, device=T_lay.device)
+        z = torch.zeros_like(T_lay[:L])
         return z, z
     t = T_lay[:L]
     mid = torch.cat([t[:1], 0.5 * (t[:-2] + t[2:]), t[-1:]])
-    idx = torch.arange(L, device=t.device)
+    idx = layer_index(L, t)
     use_mid = (p_lay < 1e6) & (idx > 0) & (idx < L - 1)
     t_mid = torch.where(use_mid, mid, t)
     # odd power of a signed base: pow keeps the sign, as in the reference
-    F_smooth = torch.pow(t_mid - t, 7.0)
+    F_smooth = memberwise(lambda x: torch.pow(x, 7.0), t_mid - t,
+                          batched=t.dim() > 1)
     return F_smooth, torch.cumsum(F_smooth, 0)
 
 
@@ -163,7 +166,9 @@ def rad_temp_step(phys: Phys, m: ModelArrays, totals: int_ops.FluxTotals,
         # package (algebraically kernels.cu:2695-2698)
         absc = torch.abs(combined)
         delta_T = (prefactor * m.p_lay[0] / (m.p_int[0] - m.p_int[1])
-                   * torch.sign(combined) * absc ** 0.1)
+                   * torch.sign(combined)
+                   * memberwise(lambda x: x ** 0.1, absc,
+                                batched=absc.dim() > 1))
         delta_T = torch.where(torch.abs(delta_T) > 500.0,
                               500.0 * torch.sign(combined), delta_T)
 
@@ -206,6 +211,10 @@ def rad_temp_step(phys: Phys, m: ModelArrays, totals: int_ops.FluxTotals,
 # --------------------------------------------------------------------------- #
 
 class RadLoopState(NamedTuple):
+    """The radiation loop's state.  For a batch of P planets the tensors
+    carry the planet axis after the layer axis ([L+1, P], [I, P, S]), the
+    device flags are [P], and the host counters and flags are numpy arrays
+    [P]: one value per member."""
     T_lay: torch.Tensor
     flux: FluxState
     cache: CellCache
@@ -221,12 +230,77 @@ class RadLoopState(NamedTuple):
     aborted: bool                   # max iteration cap hit
 
 
-def _one_radiation_iteration(phys: Phys, m: ModelArrays,
-                             thermo: Optional[ThermoProps],
-                             s: RadLoopState, sset=None) -> RadLoopState:
-    """Body of the radiation loop (computation.py:851-981)."""
+# fields whose planet axis is the first (boundary rows and per-member
+# flags); every other batched tensor has it second, after the layer axis
+ROW_FIELDS = frozenset(("scat_trigger", "boa_coeff", "boa_refl", "toa",
+                        "keep_running", "goto_convection"))
+
+
+def freeze_members(new, old, running):
+    """``new`` where a member runs, ``old`` where it has stopped, over the
+    NamedTuple tree of a batch's state: a member that has converged keeps
+    exactly its state of its own last iteration while the others go on.
+    ``running``: [P] bool on the device (tensors) and on the host (the
+    numpy counters)."""
+    run_dev, run_host = running
+
+    def pick(name, n, o):
+        if n is o:
+            return n
+        if hasattr(n, "_fields"):
+            return type(n)(*(pick(f, a, b) for f, a, b
+                             in zip(n._fields, n, o)))
+        if isinstance(n, np.ndarray):
+            return np.where(run_host, n, o)
+        axis = 0 if name in ROW_FIELDS else 1
+        mask = run_dev.reshape((1,) * axis + run_dev.shape
+                               + (1,) * (n.dim() - axis - 1))
+        return torch.where(mask, n, o)
+
+    return type(new)(*(pick(f, a, b) for f, a, b
+                       in zip(new._fields, new, old)))
+
+
+def running_members(state) -> np.ndarray:
+    """The members of a batch that still run, read from the device."""
+    keep = state.keep_running
+    return np.asarray(keep.cpu() if hasattr(keep, "cpu") else keep, bool)
+
+
+def shared_counter(state, running: np.ndarray) -> int:
+    """The iteration counter of a batch: its running members start and step
+    together, so they share one value."""
+    its = np.asarray(state.it)[running]
+    assert (its == its[0]).all(), its
+    return int(its[0])
+
+
+class DeviceCopy:
+    """A host array [P] of a batch (the members' criteria, a mask) as a
+    tensor on the device of ``like``, copied anew only when it changes: a
+    copy from host memory waits for the device's queued work.  ``dtype``
+    None keeps the array's (a mask); the criteria take the run's dtype,
+    which a planet's host float takes in its comparisons."""
+
+    def __init__(self, like, dtype=None):
+        self.like, self.dtype, self.key, self.t = like, dtype, None, None
+
+    def __call__(self, host: np.ndarray):
+        if self.key is None or not np.array_equal(self.key, host):
+            self.key = host.copy()
+            self.t = torch.as_tensor(host, dtype=self.dtype,
+                                     device=self.like.device)
+        return self.t
+
+
+def _radiation_step(phys: Phys, m: ModelArrays,
+                    thermo: Optional[ThermoProps], s: RadLoopState, it: int,
+                    local_limit, sset):
+    """The device work of one radiation iteration at counter ``it``
+    (computation.py:851-981): (cache, flux, totals, temperature result,
+    overheat, converged)."""
     L = phys.nlayer
-    if s.it % 10 == 0:
+    if it % 10 == 0:
         T_int = interp_ops.interface_temperatures(s.T_lay)
         cache = compute_cells(phys, m, s.T_lay, T_int, sset)
     else:
@@ -241,10 +315,10 @@ def _one_radiation_iteration(phys: Phys, m: ModelArrays,
 
     # temperature stepping only after the foreplay prerun
     # (computation.py:906-932)
-    stepping = s.it >= phys.foreplay
+    stepping = it >= phys.foreplay
     if stepping:
         res = rad_temp_step(phys, m, totals, s.T_lay, s.T_store,
-                            s.prefactor, s.it, s.local_limit,
+                            s.prefactor, it, local_limit,
                             c_p_lay=c_p_lay,
                             meanmolmass_lay=cache.meanmolmass_lay,
                             F_add_heat_lay=cache.F_add_heat_lay,
@@ -255,57 +329,108 @@ def _one_radiation_iteration(phys: Phys, m: ModelArrays,
                             F_smooth_sum=s.F_smooth_sum,
                             abort=torch.zeros_like(s.abort))
 
-    it_next = s.it + 1
-    # criterion relaxation x10 at the configured iteration numbers
-    # (computation.py:974-975, host_functions.py:243-248)
-    local_limit = s.local_limit
+    # surface overheat -> jump to the convection loop (computation.py:
+    # 946-952); checked every 100th iteration like the reference
+    no = torch.zeros_like(s.keep_running)
+    overheat = no
+    if it % 100 == 0:
+        overheat = (res.T_lay[L]
+                    >= phys.plancktable_dim * phys.plancktable_step - 2)
+    converged = res.abort.all(dim=0) if stepping else no
+    return cache, flux, totals, res, overheat, converged
+
+
+def _relaxed(phys: Phys, it_next: int, local_limit):
+    """The criterion relaxation x10 at the configured iteration numbers
+    (computation.py:974-975, host_functions.py:243-248)."""
     for n in phys.crit_relaxation_numbers:
         if it_next == int(n):
             local_limit = local_limit * 10.0
+    return local_limit
 
-    # surface overheat -> jump to the convection loop (computation.py:
-    # 946-952); checked every 100th iteration like the reference
-    no = torch.zeros((), dtype=torch.bool, device=s.T_lay.device)
-    overheat = no
-    if s.it % 100 == 0:
-        overheat = (res.T_lay[L]
-                    >= phys.plancktable_dim * phys.plancktable_step - 2)
-    goto_conv = s.goto_convection | overheat
 
-    converged = torch.all(res.abort) if stepping else no
+def _stop(phys: Phys, it_next: int):
+    """(iteration cap hit, out of time): a physical timestep runs until the
+    run time reaches its limit (computation.py:941-943)."""
     hit_cap = it_next > phys.max_nr_iterations
-    # a physical timestep runs until the run time reaches its limit
-    # (computation.py:941-943)
     out_of_time = (phys.physical_tstep != 0.0
                    and not it_next * phys.physical_tstep < phys.runtime_limit)
-    keep = no if hit_cap or out_of_time else ~converged & ~overheat
+    return hit_cap, out_of_time
 
+
+def _one_radiation_iteration(phys: Phys, m: ModelArrays,
+                             thermo: Optional[ThermoProps],
+                             s: RadLoopState, sset=None) -> RadLoopState:
+    """Body of the radiation loop (computation.py:851-981)."""
+    cache, flux, totals, res, overheat, converged = _radiation_step(
+        phys, m, thermo, s, s.it, s.local_limit, sset)
+    it_next = s.it + 1
+    hit_cap, out_of_time = _stop(phys, it_next)
+    no = torch.zeros_like(converged)
+    keep = no if hit_cap or out_of_time else ~converged & ~overheat
     return RadLoopState(
         T_lay=res.T_lay, flux=flux, cache=cache, totals=totals,
         T_store=res.T_store, prefactor=res.prefactor,
         F_smooth_sum=res.F_smooth_sum, abort=res.abort, it=it_next,
-        local_limit=local_limit, keep_running=keep,
-        goto_convection=goto_conv, aborted=s.aborted or hit_cap)
+        local_limit=_relaxed(phys, it_next, s.local_limit),
+        keep_running=keep, goto_convection=s.goto_convection | overheat,
+        aborted=s.aborted or hit_cap)
+
+
+def _one_batched_radiation_iteration(phys: Phys, m: ModelArrays,
+                                     thermo: Optional[ThermoProps],
+                                     s: RadLoopState, running: np.ndarray,
+                                     limits: DeviceCopy,
+                                     sset=None) -> RadLoopState:
+    """The body for a batch: every member computes, and a member that has
+    stopped keeps its old state (the JAX package's ``vmap`` of its
+    ``while_loop``).  The host branches follow the running members' shared
+    counter."""
+    it = shared_counter(s, running)
+    cache, flux, totals, res, overheat, converged = _radiation_step(
+        phys, m, thermo, s, it, limits(s.local_limit), sset)
+    it_next = it + 1
+    hit_cap, out_of_time = _stop(phys, it_next)
+    no = torch.zeros_like(converged)
+    keep = no if hit_cap or out_of_time else ~converged & ~overheat
+    new = RadLoopState(
+        T_lay=res.T_lay, flux=flux, cache=cache, totals=totals,
+        T_store=res.T_store, prefactor=res.prefactor,
+        F_smooth_sum=res.F_smooth_sum, abort=res.abort,
+        it=np.full_like(s.it, it_next),
+        local_limit=_relaxed(phys, it_next, s.local_limit),
+        keep_running=keep, goto_convection=s.goto_convection | overheat,
+        aborted=s.aborted | hit_cap)
+    if running.all():
+        return new
+    return freeze_members(new, s, (s.keep_running, running))
 
 
 def init_rad_state(phys: Phys, m: ModelArrays, T_lay0,
                    sset=None) -> RadLoopState:
+    """The state before the first iteration; T_lay0 [L+1], or [L+1, P] for
+    a batch (with stacked arrays)."""
     L = phys.nlayer
-    kw = dict(dtype=T_lay0.dtype, device=T_lay0.device)
+    dev = T_lay0.device
+    batch = tuple(T_lay0.shape[1:])
     T_int = interp_ops.interface_temperatures(T_lay0)
     cache = compute_cells(phys, m, T_lay0, T_int, sset)
-    flux = init_flux_state(phys, T_lay0.dtype, T_lay0.device)
+    flux = init_flux_state(phys, T_lay0.dtype, dev, batch)
     totals = integrate_flux_flat(phys, m, flux, cache.F_dir)
+    limit = float(phys.rad_convergence_limit)
+    it, aborted = 0, False
+    if batch:     # one host counter, criterion and flag per member
+        it, limit = np.zeros(batch, np.int64), np.full(batch, limit)
+        aborted = np.zeros(batch, bool)
     return RadLoopState(
         T_lay=T_lay0, flux=flux, cache=cache, totals=totals,
-        T_store=torch.zeros(L + 1, **kw), prefactor=torch.ones(L + 1, **kw),
-        F_smooth_sum=torch.zeros(L, **kw),
-        abort=torch.zeros(L + 1, dtype=torch.bool, device=T_lay0.device),
-        it=0, local_limit=float(phys.rad_convergence_limit),
-        keep_running=torch.ones((), dtype=torch.bool, device=T_lay0.device),
-        goto_convection=torch.zeros((), dtype=torch.bool,
-                                    device=T_lay0.device),
-        aborted=False)
+        T_store=torch.zeros_like(T_lay0), prefactor=torch.ones_like(T_lay0),
+        F_smooth_sum=torch.zeros_like(T_lay0[:L]),
+        abort=torch.zeros(T_lay0.shape, dtype=torch.bool, device=dev),
+        it=it, local_limit=limit,
+        keep_running=torch.ones(batch, dtype=torch.bool, device=dev),
+        goto_convection=torch.zeros(batch, dtype=torch.bool, device=dev),
+        aborted=aborted)
 
 
 def radiation_loop(phys: Phys, m: ModelArrays, thermo: Optional[ThermoProps],
@@ -322,6 +447,11 @@ def radiation_loop(phys: Phys, m: ModelArrays, thermo: Optional[ThermoProps],
     A post-processing run (``phys.singlewalk``) makes one flux solve with
     1000*scat+1 sweep passes and no temperature step
     (computation.py:983-984); it reads nothing back.
+
+    A batch of planets (T_lay0 [L+1, P] with stacked arrays, or a batched
+    ``state0``) iterates while any member runs, each flux solve one kernel
+    launch for all of them; a member that converges keeps the state of its
+    own last iteration, so it ends as its run alone would.
     """
     state = (state0 if state0 is not None
              else init_rad_state(phys, m, T_lay0, sset))
@@ -329,8 +459,19 @@ def radiation_loop(phys: Phys, m: ModelArrays, thermo: Optional[ThermoProps],
         flux = solve_fluxes(phys, m, state.cache, state.T_lay, state.flux)
         totals = integrate_flux_flat(phys, m, flux, state.cache.F_dir)
         return state._replace(flux=flux, totals=totals)
-    start_it = state.it
-    while ((max_steps is None or state.it - start_it < max_steps)
-           and bool(state.keep_running)):
-        state = _one_radiation_iteration(phys, m, thermo, state, sset)
+    steps = 0
+    if state.T_lay.dim() == 1:
+        while ((max_steps is None or steps < max_steps)
+               and bool(state.keep_running)):
+            state = _one_radiation_iteration(phys, m, thermo, state, sset)
+            steps += 1
+        return state
+    limits = DeviceCopy(state.T_lay, state.T_lay.dtype)
+    while max_steps is None or steps < max_steps:
+        running = running_members(state)
+        if not running.any():
+            break
+        state = _one_batched_radiation_iteration(phys, m, thermo, state,
+                                                 running, limits, sset)
+        steps += 1
     return state

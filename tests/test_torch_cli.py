@@ -116,14 +116,6 @@ def test_cli_without_cuda_exits_nonzero_with_the_message(no_cuda,
     assert "Done!" not in proc.stdout
 
 
-def test_cli_refuses_an_ensemble_file(param_file, tmp_path):
-    ens = tmp_path / "planets.dat"
-    ens.write_text(jexamples.ENSEMBLE_TEMPLATE)
-    with pytest.raises(NotImplementedError, match="planet ensembles"):
-        torch_main.main(["-parameter_file", str(param_file),
-                         "-planet_ensemble_file", str(ens)], device="cpu")
-
-
 def _fields(cfg):
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
 

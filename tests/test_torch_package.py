@@ -80,17 +80,14 @@ def test_default_device_raises_without_cuda(no_cuda):
 
 def test_unported_paths_raise(tmp_path):
     """What the port does not cover yet raises NotImplementedError with
-    its name: planet ensembles and meshes.  A stellar spectrum from a file,
-    tabulated thermodynamics and monitoring run (tests/test_torch_cli.py,
-    test_torch_thermo.py, test_torch_monitor.py)."""
+    its name: the mesh.  Planet ensembles, a stellar spectrum from a file,
+    tabulated thermodynamics and monitoring run (tests/
+    test_torch_ensemble.py, test_torch_cli.py, test_torch_thermo.py,
+    test_torch_monitor.py)."""
     table = synthetic_premixed_table(nbin=4, ny=2, ntemp=4, npress=4)
-    for kw, what in ((dict(n_spectral_shards=2), "meshes"),
-                     (dict(n_planet_batch=2), "planet ensembles"),
-                     (dict(planet_ensemble_file="planets.dat"),
-                      "planet ensembles")):
-        cfg = HeliosConfig(nlayer=6, **kw)
-        with pytest.raises(NotImplementedError, match=what):
-            torch_pipeline.run(cfg, table, write_output=False, device="cpu")
+    cfg = HeliosConfig(nlayer=6, n_spectral_shards=2)
+    with pytest.raises(NotImplementedError, match="meshes"):
+        torch_pipeline.run(cfg, table, write_output=False, device="cpu")
     phys, arrays = tf.build_model(
         HeliosConfig(nlayer=6, stellar_model="file").finalize(), table,
         starflux=np.full(4, 1e10), device="cpu")
@@ -410,3 +407,52 @@ def test_cuda_chunked_and_resumed_runs_equal_the_straight_run(cuda_device,
     for out in (chunked, resumed):
         assert torch.equal(out.T_lay, plain.T_lay)
         assert (out.rad.it, out.conv.it) == (plain.rad.it, plain.conv.it)
+
+
+def test_cuda_ensemble_matches_cpu(cuda_device, tmp_path):
+    """A batch of two planets (surface albedos 0.1 and 0.7) on the card:
+    one batched forward solve against the same batch on the CPU at 1e-10
+    with one noniso_sweep launch for both planets, and run_ensemble to
+    convergence with one launch per batched flux solve (no member runs
+    alone); each member's final T within 1e-8 of the CPU batch's."""
+    from helios_tpu_torch.parallel import ensemble as ens
+
+    table = synthetic_premixed_table(nbin=16, ny=4, ntemp=8, npress=6,
+                                     seed=1)
+    table.kpoints *= 10.0
+    kw = dict(planet="manual", g=2288.0, a=0.0153, R_planet=1.0,
+              R_star=30.0, T_star=30.0, T_intern=700.0, scattering="yes",
+              direct_beam="no", convection="yes", kappa_value=0.1,
+              run_type="iterative", nlayer=10, p_boa=1e9, p_toa=1e3,
+              adapt_interval=6, output_dir=str(tmp_path) + "/")
+    cfgs = [HeliosConfig(name=f"m{k}", surf_albedo=a, **kw)
+            for k, a in enumerate((0.1, 0.7))]
+    models = [torch_pipeline.prepare_model(c.finalize(), table,
+                                           device=cuda_device)
+              for c in cfgs]
+    phys = models[0][0]
+    m = ens.stack_models([arrays for _, arrays, _ in models])
+    T = torch.stack([torch.linspace(1500.0, 500.0, phys.nlayer + 1,
+                                    dtype=torch.float64)] * 2, dim=1)
+    before = noniso_sweep.launches
+    gpu = tf.forward_fluxes(phys, m, T.to(cuda_device))[1]
+    torch.cuda.synchronize()
+    assert noniso_sweep.launches == before + 1
+    cpu = tf.forward_fluxes(phys, tf.ModelArrays(*(a.cpu() for a in m)),
+                            T)[1]
+    for f in ("F_up_tot", "F_down_tot"):
+        torch.testing.assert_close(getattr(gpu, f).cpu(), getattr(cpu, f),
+                                   rtol=1e-10, atol=0.0, msg=f)
+
+    before = noniso_sweep.launches
+    outs = ens.run_ensemble(cfgs, tables=[table, table], write_output=False,
+                            device=cuda_device)
+    torch.cuda.synchronize()
+    assert noniso_sweep.launches - before == (
+        max(o.rad.it for o in outs) + max(o.conv.steps for o in outs))
+    want = ens.run_ensemble(cfgs, tables=[table, table], write_output=False,
+                            device="cpu")
+    for got, w in zip(outs, want):
+        assert not got.conv.keep_running and not got.conv.aborted
+        torch.testing.assert_close(got.T_lay.cpu(), w.T_lay, rtol=1e-8,
+                                   atol=0.0)
