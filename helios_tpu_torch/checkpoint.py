@@ -40,6 +40,8 @@ from helios_tpu_torch import convert
 from helios_tpu_torch.forward import (ModelArrays, Phys, compute_cells,
                                       integrate_flux_flat)
 from helios_tpu_torch.ops import interp as interp_ops
+from helios_tpu_torch.ops.members import (loop_counter, planet_first,
+                                          planet_second, running_members)
 from helios_tpu_torch.rce.loop import ConvLoopState
 from helios_tpu_torch.monitor import run_radiation_chunked
 from helios_tpu_torch.rce.radiative import RadLoopState, init_rad_state
@@ -94,8 +96,7 @@ def _host(x, dtype, batched=False):
     host criterion in the run's dtype, host flags as bools (0-d, or [N]
     for a batch)."""
     if hasattr(x, "detach"):
-        a = x.detach().cpu().numpy()
-        return np.moveaxis(a, 1, 0) if batched and a.ndim >= 2 else a
+        return planet_first(x.detach().cpu().numpy(), batched)
     if isinstance(x, (bool, np.bool_)) or (
             isinstance(x, np.ndarray) and x.dtype == bool):
         return np.asarray(x, bool)
@@ -238,8 +239,7 @@ def restore_conv_state(phys: Phys, m: ModelArrays, ckpt: dict,
     _check_fingerprint(phys, ckpt)
     d = _nested(ckpt)
     dev, dt = m.p_lay.device, m.p_lay.dtype
-    T_lay = torch.tensor(convert.planet_second(d["T_lay"],
-                                               np.ndim(d["T_lay"]) == 2),
+    T_lay = torch.tensor(planet_second(d["T_lay"], np.ndim(d["T_lay"]) == 2),
                          dtype=dt, device=dev)
     cache = compute_cells(phys, m, T_lay,
                           interp_ops.interface_temperatures(T_lay), sset)
@@ -260,8 +260,8 @@ class CheckpointCallback:
         self._last_saved = None
 
     def __call__(self, info) -> None:
-        it = int(info.state.it)
-        done = not bool(info.state.keep_running)
+        it = loop_counter(info.state)
+        done = not running_members(info.state).any()
         if (self._last_saved is None or done
                 or it - self._last_saved >= self.every):
             self.save(self.path, info.state, self.phys)

@@ -12,8 +12,8 @@ counters and flags are plain numbers.
 A batch of planets comes as the JAX package's ``vmap`` gives it (and its
 ensemble checkpoints hold it): every array with a leading planet axis
 [N, ...].  The port puts that axis after the layer axis
-(:mod:`helios_tpu_torch.parallel.ensemble`), so :func:`planet_second`
-moves it, and the counters and flags become numpy arrays [N].
+(:mod:`helios_tpu_torch.ops.members`), so ``planet_second`` moves it,
+and the counters and flags become numpy arrays [N].
 """
 
 from __future__ import annotations
@@ -27,16 +27,9 @@ from helios_tpu_torch import chem
 from helios_tpu_torch import fastpath as fp
 from helios_tpu_torch.forward import CellCache, FluxState, ModelArrays
 from helios_tpu_torch.ops.integrate import FluxTotals
+from helios_tpu_torch.ops.members import planet_second
 from helios_tpu_torch.rce.loop import ConvLoopState
 from helios_tpu_torch.rce.radiative import RadLoopState
-
-
-def planet_second(a, batched: bool):
-    """A batch's [N, n, ...] array as the port lays it out, [n, N, ...]
-    (vectors [N] stay as they are); anything of a single planet as it
-    is."""
-    a = np.asarray(a)
-    return np.moveaxis(a, 0, 1) if batched and a.ndim >= 2 else a
 
 
 def _tensor(x, device, dtype, batched=False):

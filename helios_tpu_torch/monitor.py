@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from helios_tpu_torch.forward import ModelArrays, Phys
+from helios_tpu_torch.ops.members import loop_counter, running_members
 from helios_tpu_torch.rce.loop import convection_loop
 from helios_tpu_torch.rce.radiative import (RadLoopState, init_rad_state,
                                             radiation_loop)
@@ -60,18 +61,20 @@ def _sync(t: torch.Tensor) -> None:
 
 def _run_chunks(state, step, phase: str, callbacks: Sequence[Callback],
                 profile_dir: Optional[str] = None):
-    """Call ``step`` until the state stops, the callbacks after each call;
-    the second call under the profiler when ``profile_dir`` is set."""
+    """Call ``step`` until the state stops (every member of a batch), the
+    callbacks after each call; the second call under the profiler when
+    ``profile_dir`` is set."""
     chunk_idx = 0
-    while bool(state.keep_running):
-        it_before = int(state.it)
+    while running_members(state).any():
+        it_before = loop_counter(state)
         t0 = time.perf_counter()
         if chunk_idx == 1 and profile_dir:
             state = _profiled(step, state, profile_dir)
         else:
             state = step(state)
             _sync(state.T_lay)
-        info = ChunkInfo(state=state, its_done=int(state.it) - it_before,
+        info = ChunkInfo(state=state,
+                         its_done=loop_counter(state) - it_before,
                          wall_s=time.perf_counter() - t0, phase=phase,
                          includes_compile=(chunk_idx == 0))
         for cb in callbacks:

@@ -1,26 +1,161 @@
-"""Elementwise functions of a batch's per-layer arrays, rounded as each
-member's own run rounds them.
+"""The planet axis of a batch (:mod:`helios_tpu_torch.parallel.ensemble`):
+where each array carries it, one member taken out, a stopped member's
+state kept, the move to and from the JAX package's [N, ...] order, and
+elementwise functions rounded as each member's own run rounds them.
 
-A batch of P planets keeps per-layer arrays as [n, P] and per-planet
-values as [P] (:mod:`helios_tpu_torch.parallel.ensemble`).  PyTorch's CPU
-kernels evaluate a transcendental function (exp, log, pow) with vector
-code over a tensor and finish its last elements with scalar code, and the
-two can differ in the last bit; a member's n values sit at other positions
-of the batch's [n, P] than of its own [n].  So on the CPU such a function
-of a batch is evaluated member by member, each on a contiguous copy, and
-every member rounds exactly as its run alone does.  On the card every
-element takes the same code, and the batch is one call.
+A batch of P planets keeps the planet axis after the layer axis: per-layer
+arrays [n, P], spectral arrays [n, P, S], so that a contiguous [L, P, S]
+is the kernels' [L, P*S].  Boundary rows ([P, S]) and per-member flags
+([P]) carry it first.  The loops' host counters and flags are numpy
+arrays [P]; for one planet they are Python numbers.
+
+PyTorch's CPU kernels evaluate a transcendental function (exp, log, pow)
+with vector code over a tensor and finish its last elements with scalar
+code, and the two can differ in the last bit; a member's n values sit at
+other positions of the batch's [n, P] than of its own [n].  So on the CPU
+such a function of a batch is evaluated member by member
+(:func:`memberwise`), and every member rounds exactly as its run alone
+does.  On the card every element takes the same code, and the batch is
+one call.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+# ModelArrays fields: where each takes the planet axis (after the layer
+# axis of per-layer arrays, after the (T, P) axes of the opacity tables
+# and their grids, first in per-band rows); None: one tensor for the batch
+MODEL_AXIS = dict(
+    p_lay=1, p_int=1, delta_colmass=1, delta_col_upper=1, delta_col_lower=1,
+    ktable=2, scat_cross_table=2, meanmolmass_table=2, ktemps=1, kpress=1,
+    lambda_centers=0, lambda_edges=0, delta_lambda=0, gauss_y=None,
+    gauss_weight=None, planck_grid=1, starflux=0, surf_albedo=0,
+    cloud_abs_cross_lay=1, cloud_scat_cross_lay=1, g_0_cloud_lay=1,
+    cloud_abs_cross_int=1, cloud_scat_cross_int=1, g_0_cloud_int=1,
+    add_heat_dens=1, star_corr_factor=0)
+
+# loop-state fields whose planet axis is the first (boundary rows and
+# per-member flags); every other batched tensor has it second
+ROW_FIELDS = frozenset(("scat_trigger", "boa_coeff", "boa_refl", "toa",
+                        "keep_running", "goto_convection"))
+
+
+def state_axis(name: str, x: torch.Tensor) -> int:
+    """The planet axis of a batched loop-state tensor."""
+    return 0 if name in ROW_FIELDS or x.dim() == 1 else 1
+
+
+def _map_state(fn, state, *others):
+    """``fn(name, leaf, *other_leaves)`` over a NamedTuple tree."""
+    def walk(name, x, *ys):
+        if hasattr(x, "_fields"):
+            return type(x)(*(walk(f, *v) for f, *v
+                             in zip(x._fields, x, *ys)))
+        return fn(name, x, *ys)
+
+    return type(state)(*(walk(f, *v) for f, *v
+                         in zip(state._fields, state, *others)))
+
+
+def member_state(state, i: int):
+    """Member ``i`` of a batched loop state, shaped as a single planet's
+    (tensors are views; the host counters and flags become numbers)."""
+    def pick(name, x):
+        if isinstance(x, np.ndarray):
+            return x[i].item()
+        return x.select(state_axis(name, x), i)
+
+    return _map_state(pick, state)
+
+
+def freeze_members(new, old, running):
+    """``new`` where a member runs, ``old`` where it has stopped, over the
+    NamedTuple tree of a batch's state: a member that has converged keeps
+    exactly its state of its own last iteration while the others go on.
+    ``running``: ([P] bool on the device, the same on the host)."""
+    run_dev, run_host = running
+
+    def pick(name, n, o):
+        if n is o:
+            return n
+        if isinstance(n, np.ndarray):
+            return np.where(run_host, n, o)
+        axis = state_axis(name, n)
+        mask = run_dev.reshape((1,) * axis + run_dev.shape
+                               + (1,) * (n.dim() - axis - 1))
+        return torch.where(mask, n, o)
+
+    return _map_state(pick, new, old)
+
+
+def running_members(state) -> np.ndarray:
+    """Whether the planet, or each member of a batch, still runs: the
+    state's keep_running read to the host (a bool, or [P])."""
+    keep = state.keep_running
+    return np.asarray(keep.cpu() if hasattr(keep, "cpu") else keep, bool)
+
+
+def shared_counter(state, running: np.ndarray) -> int:
+    """The iteration counter of the running members: they start and step
+    together, so they share one value (a planet's own counter)."""
+    its = np.asarray(state.it)[running]
+    assert (its == its[0]).all(), its
+    return int(its[0])
+
+
+def loop_counter(state) -> int:
+    """The counter of a loop state, also after its last member stopped: a
+    stopped member's counter stays behind the running ones'."""
+    return int(np.max(state.it))
+
+
+def host_value(value, like):
+    """A host counter or flag computed with numpy, as ``like`` holds it:
+    an array [P] for a batch, a Python number for one planet."""
+    return value if isinstance(like, np.ndarray) else np.asarray(value).item()
+
+
+class DeviceCopy:
+    """A host array [P] of a batch (the members' criteria, a mask) as a
+    tensor on the device of ``like``, copied anew only when it changes: a
+    copy from host memory waits for the device's queued work.  ``dtype``
+    None keeps the array's (a mask); the criteria take the run's dtype,
+    which a planet's host float takes in its comparisons, and a planet's
+    host number is passed on as it is."""
+
+    def __init__(self, like, dtype=None):
+        self.like, self.dtype, self.key, self.t = like, dtype, None, None
+
+    def __call__(self, host):
+        if not isinstance(host, np.ndarray):
+            return host
+        if self.key is None or not np.array_equal(self.key, host):
+            self.key = host.copy()
+            self.t = torch.as_tensor(host, dtype=self.dtype,
+                                     device=self.like.device)
+        return self.t
+
+
+def planet_first(a: np.ndarray, batched: bool) -> np.ndarray:
+    """A batch's [n, N, ...] array in the JAX package's order, [N, n, ...]
+    (vectors [N] stay as they are); anything of a single planet as it
+    is."""
+    return np.moveaxis(a, 1, 0) if batched and a.ndim >= 2 else a
+
+
+def planet_second(a, batched: bool) -> np.ndarray:
+    """The inverse of :func:`planet_first`: a batch's [N, n, ...] array as
+    the port lays it out, [n, N, ...]."""
+    a = np.asarray(a)
+    return np.moveaxis(a, 0, 1) if batched and a.ndim >= 2 else a
 
 
 def memberwise(fn, *args, batched: bool):
     """``fn(*args)`` for an elementwise ``fn``.  With ``batched``, the
     tensor arguments carry the planet axis last ([n, P] or [P]) and on the
-    CPU ``fn`` runs once per member."""
+    CPU ``fn`` runs once per member, each on a contiguous copy."""
     shaped = [a for a in args if isinstance(a, torch.Tensor) and a.dim() > 0]
     if not batched or not shaped or shaped[0].device.type != "cpu":
         return fn(*args)

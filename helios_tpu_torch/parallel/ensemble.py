@@ -39,33 +39,21 @@ from helios_tpu_torch.config import HeliosConfig
 from helios_tpu_torch.device import resolve_device, torch_dtype
 from helios_tpu_torch.forward import ModelArrays, Phys
 from helios_tpu_torch.io import writers
-from helios_tpu_torch.rce.loop import convection_loop
-from helios_tpu_torch.rce.radiative import (ROW_FIELDS, init_rad_state,
-                                            radiation_loop, running_members)
-
-# where each ModelArrays field takes the planet axis: after the layer axis
-# of per-layer arrays, after the (T, P) axes of the opacity tables and
-# their grids, first in per-band rows; None: one tensor for the batch
-_PLANET_AXIS = dict(
-    p_lay=1, p_int=1, delta_colmass=1, delta_col_upper=1, delta_col_lower=1,
-    ktable=2, scat_cross_table=2, meanmolmass_table=2, ktemps=1, kpress=1,
-    lambda_centers=0, lambda_edges=0, delta_lambda=0, gauss_y=None,
-    gauss_weight=None, planck_grid=1, starflux=0, surf_albedo=0,
-    cloud_abs_cross_lay=1, cloud_scat_cross_lay=1, g_0_cloud_lay=1,
-    cloud_abs_cross_int=1, cloud_scat_cross_int=1, g_0_cloud_int=1,
-    add_heat_dens=1, star_corr_factor=0)
-
+from helios_tpu_torch.monitor import (run_convection_chunked,
+                                      run_radiation_chunked)
+from helios_tpu_torch.ops.members import (MODEL_AXIS, member_state,
+                                          running_members)
 
 def stack_models(models: Sequence[ModelArrays]) -> ModelArrays:
     """N ModelArrays as one batch: each field with the planet axis where
-    the batched loops read it (``_PLANET_AXIS``).  A field equal in every
-    member is an expanded view of member 0's tensor (no copy); the Gauss
-    points, set by ``ny``, must be equal."""
+    the batched loops read it (``members.MODEL_AXIS``).  A field equal in
+    every member is an expanded view of member 0's tensor (no copy); the
+    Gauss points, set by ``ny``, must be equal."""
     fields = {}
     for name in ModelArrays._fields:
         xs = [getattr(m, name) for m in models]
         same = all(torch.equal(xs[0], x) for x in xs[1:])
-        axis = _PLANET_AXIS[name]
+        axis = MODEL_AXIS[name]
         if axis is None:
             if not same:
                 raise ValueError(f"ensemble members must share {name}")
@@ -94,51 +82,22 @@ def _check_same_phys(physes: Sequence[Phys]) -> Phys:
     return p0
 
 
-def member_state(state, i: int):
-    """Member ``i`` of a batched loop state, shaped as a single planet's
-    (tensors are views; the host counters and flags become numbers)."""
-    def pick(name, x):
-        if hasattr(x, "_fields"):
-            return type(x)(*(pick(f, v) for f, v in zip(x._fields, x)))
-        if isinstance(x, np.ndarray):
-            return x[i].item()
-        return x[i] if name in ROW_FIELDS or x.dim() == 1 else x[:, i]
+class EnsembleProgress:
+    """Chunk callback: ``[ensemble/<phase>] iters=a..b  converged k/N
+    planets  (x s/chunk)``, as the JAX package's ensemble prints it."""
 
-    return type(state)(*(pick(f, v) for f, v in zip(state._fields, state)))
+    def __init__(self, n_planets: int, stream=None):
+        self.n_planets = n_planets
+        self.stream = stream
 
-
-def run_ensemble_loops(phys: Phys, models: Sequence[ModelArrays], thermo,
-                       T0s, max_steps: Optional[int] = None,
-                       conv_max_steps: Optional[int] = None, sset=None):
-    """Run the radiation (and, when enabled, convection) loops for N
-    planets as one batch.
-
-    Args:
-      models: one ModelArrays per planet (same shapes, one device).
-      T0s: [N, L+1] initial profiles (array or tensor).
-
-    Returns (rad_state, conv_state or None), batched: the planet axis
-    after the layer axis (:func:`member_state` takes one member out).
-    """
-    m = stack_models(models)
-    T0 = torch.as_tensor(np.asarray(T0s), dtype=m.p_lay.dtype,
-                         device=m.p_lay.device).T.contiguous()
-    rad = radiation_loop(phys, m, thermo, T0, max_steps=max_steps, sset=sset)
-    conv = None
-    if phys.convection and not phys.singlewalk and not phys.iso:
-        conv = convection_loop(phys, m, thermo, rad,
-                               max_steps=conv_max_steps, sset=sset)
-    return rad, conv
-
-
-def _ensemble_progress(phase, state, names, wall_s, stream=None):
-    stream = stream or sys.stdout
-    its = np.asarray(state.it).astype(int)
-    n_done = int((~running_members(state)).sum())
-    stream.write(f"[ensemble/{phase}] iters={its.min()}..{its.max()}  "
-                 f"converged {n_done}/{len(names)} planets  "
-                 f"({wall_s:.1f} s/chunk)\n")
-    stream.flush()
+    def __call__(self, info) -> None:
+        its = np.asarray(info.state.it).astype(int)
+        n_done = int((~running_members(info.state)).sum())
+        stream = self.stream or sys.stdout
+        stream.write(f"[ensemble/{info.phase}] iters={its.min()}..{its.max()}"
+                     f"  converged {n_done}/{self.n_planets} planets  "
+                     f"({info.wall_s:.1f} s/chunk)\n")
+        stream.flush()
 
 
 def _check_single_device(cfg0: HeliosConfig, dev: torch.device):
@@ -164,9 +123,9 @@ def run_ensemble(cfgs: Sequence, tables: Optional[Sequence] = None,
     own writes them; the loops run batched (every flux solve one kernel
     launch for all members).  Compile-time physics (``Phys``) must match
     across members.  With progress or checkpoints (config 0's) the loops
-    run in chunks of ``chunk_iters`` (capped at ``checkpoint_every``,
-    rounded down to a multiple of 10) with a progress line per chunk and
-    one checkpoint pair for the batch, and a second call resumes from it.
+    run in chunks of :func:`helios_tpu_torch.pipeline.monitored_chunk`
+    iterations with a progress line per chunk and one checkpoint pair for
+    the batch, and a second call resumes from it.
     ``device`` defaults to CUDA; ``device="cpu"`` runs the plain kernel
     versions.  Returns one RunOutput per member; the walls are the
     batch's."""
@@ -200,77 +159,49 @@ def run_ensemble(cfgs: Sequence, tables: Optional[Sequence] = None,
     thermo = pl.make_thermo(cfg0, device=dev)
     want_conv = phys.convection and not phys.singlewalk and not phys.iso
 
-    progress = bool(cfg0.progress)
-    ckpt_path = conv_ckpt_path = None
-    if cfg0.checkpoint_every > 0:
-        # one pair for the whole batch, under the first member's directory
-        ckpt_path, conv_ckpt_path = pl.checkpoint_paths(
-            cfg0, "ensemble.ckpt.npz")
-    chunk = None
-    if (progress or ckpt_path is not None) and not phys.singlewalk:
-        chunk = cfg0.chunk_iters
-        if cfg0.checkpoint_every > 0:
-            chunk = min(chunk, cfg0.checkpoint_every)
-        chunk = max(chunk // 10 * 10, 10)   # cache-refresh cadence
-
     m = stack_models(models)
     T0 = torch.as_tensor(np.stack(T0s, axis=1), dtype=torch_dtype(cfg0.dtype),
                          device=dev)
-    names = [c.name for c in cfgs]
 
     def clock():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return time.perf_counter()
 
-    rads = conv_resume = None
-    if ckpt_path is not None and chunk is not None:
-        if want_conv:
-            cck = ckpt_mod.load_conv_checkpoint(conv_ckpt_path)
-            if (cck is not None
-                    and ckpt_mod.checkpoint_phase(cck) == "convection"):
-                conv_resume = ckpt_mod.restore_conv_state(phys, m, cck, sset)
-        ck = ckpt_mod.load_rad_checkpoint(ckpt_path)
+    # config 0 drives the chunking, the progress lines and one checkpoint
+    # pair for the whole batch, under the first member's directory, written
+    # after every chunk as the JAX package's ensemble writes it
+    chunk = None
+    rad_cbs, conv_cbs = [], []
+    rad0 = conv0 = None
+    rad_it0 = np.zeros(len(cfgs), int)
+    if (cfg0.progress or cfg0.checkpoint_every > 0) and not phys.singlewalk:
+        chunk = pl.monitored_chunk(cfg0, 0)
+    if chunk is not None and cfg0.progress:
+        rad_cbs.append(EnsembleProgress(len(cfgs)))
+        conv_cbs.append(EnsembleProgress(len(cfgs)))
+    if chunk is not None and cfg0.checkpoint_every > 0:
+        path, conv_path = pl.checkpoint_paths(cfg0, "ensemble.ckpt.npz")
+        ck = ckpt_mod.load_rad_checkpoint(path)
         if ck is not None and ckpt_mod.checkpoint_phase(ck) == "radiation":
-            rads = ckpt_mod.restore_rad_state(phys, m, ck, sset)
-    rad_it0 = rads.it.copy() if rads is not None else np.zeros(len(cfgs), int)
-    if rads is None:
-        rads = init_rad_state(phys, m, T0, sset)
+            rad0 = ckpt_mod.restore_rad_state(phys, m, ck, sset)
+            rad_it0 = rad0.it.copy()
+        cck = ckpt_mod.load_conv_checkpoint(conv_path) if want_conv else None
+        if cck is not None and ckpt_mod.checkpoint_phase(cck) == "convection":
+            conv0 = ckpt_mod.restore_conv_state(phys, m, cck, sset)
+        rad_cbs.append(ckpt_mod.CheckpointCallback(path, chunk, phys))
+        conv_cbs.append(ckpt_mod.ConvCheckpointCallback(conv_path, chunk,
+                                                        phys))
 
     t_rad = clock()
+    rads = run_radiation_chunked(phys, m, thermo, T0, chunk_iters=chunk,
+                                 sset=sset, callbacks=rad_cbs, state0=rad0)
+    t_conv = clock()
     convs = None
-    if chunk is None:
-        rads = radiation_loop(phys, m, thermo, None, sset=sset, state0=rads)
-        t_conv = clock()
-        if want_conv:
-            convs = convection_loop(phys, m, thermo, rads, sset=sset)
-    else:
-        if conv_resume is None:
-            while running_members(rads).any():
-                tc = clock()
-                rads = radiation_loop(phys, m, thermo, None, max_steps=chunk,
-                                      sset=sset, state0=rads)
-                if progress:
-                    _ensemble_progress("radiation", rads, names,
-                                       clock() - tc)
-                if ckpt_path is not None:
-                    ckpt_mod.save_rad_checkpoint(ckpt_path, rads, phys)
-        t_conv = clock()
-        if want_conv:
-            convs = (conv_resume if conv_resume is not None
-                     else convection_loop(phys, m, thermo, rads, max_steps=0,
-                                          sset=sset))
-            while np.asarray(convs.keep_running).any():
-                tc = clock()
-                convs = convection_loop(phys, m, thermo, None,
-                                        max_steps=chunk, sset=sset,
-                                        state0=convs)
-                if progress:
-                    _ensemble_progress("convection", convs, names,
-                                       clock() - tc)
-                if conv_ckpt_path is not None:
-                    ckpt_mod.save_conv_checkpoint(conv_ckpt_path, convs,
-                                                  phys)
+    if want_conv:
+        convs = run_convection_chunked(phys, m, thermo, rads,
+                                       chunk_iters=chunk, sset=sset,
+                                       callbacks=conv_cbs, state0=conv0)
     t_end = clock()
 
     outs = []

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from helios_tpu_torch import constants as pc
+from helios_tpu_torch.forward import layer_index
 from helios_tpu_torch.ops.members import memberwise
 
 # pressure above which the top atmosphere is ignored by the instability
@@ -57,12 +58,6 @@ def _surface_unstable(T_lay, p_lay, p_int, kappa_int, pert):
                                  kappa_int[0] * (1.0 + pert),
                                  batched=T_lay.dim() > 1)
     return T_lay[0] < T_ad
-
-
-def _rows(n: int, like):
-    """arange(n) shaped to broadcast along the leading axis of ``like``."""
-    return torch.arange(n, device=like.device).reshape(
-        (n,) + (1,) * (like.dim() - 1))
 
 
 def _take(x, idx):
@@ -119,7 +114,7 @@ def stitch_zone_holes(conv, p_lay, p_int):
     above, and p_lay[above] / p_bot > 1/e."""
     L = p_lay.shape[0]
     dt = p_lay.dtype
-    idx = _rows(L, p_lay).to(dt)
+    idx = layer_index(L, p_lay).to(dt)
     inf = torch.tensor(math.inf, dtype=dt, device=p_lay.device)
 
     # nearest convective index below (inclusive running max); ghost = -1
@@ -176,7 +171,8 @@ def find_zones(corrected) -> Zones:
     zone_id_ext = torch.cumsum(is_start.long(), 0) - 1   # 0-based
     zone_id_ext = torch.where(ext, zone_id_ext, -1)
 
-    layer_index_ext = (_rows(L + 1, ext) - 1).expand(ext.shape)  # ghost -1
+    # ghost -1
+    layer_index_ext = (layer_index(L + 1, ext) - 1).expand(ext.shape)
     n_max = L + 1
     # slot n_max is a sentinel that takes every non-start/non-end position
     # and is sliced off (the JAX package drops such out-of-range updates)
@@ -213,7 +209,7 @@ def _adiabat_factors(p_lay, p_int, kappa_lay, kappa_int, zones: Zones):
     s = torch.clamp(_take(zones.start,
                           torch.clamp(zones.zone_of_layer, min=0)), min=0)
     seg_sum = cs_prev - _take(cs_prev, s)
-    idx = _rows(L, p_lay)
+    idx = layer_index(L, p_lay)
     seg_sum = torch.where(idx > s, seg_sum, torch.zeros_like(seg_sum))
     return memberwise(torch.exp, log_b + seg_sum, batched=batched)
 
@@ -225,7 +221,7 @@ def _segment_sum(values, seg, n):
     deterministic on the card, unlike an atomic ``index_add_``, and the
     same order as the sequential scatter-add of the JAX package on the
     CPU, so a 1-ulp difference cannot flip a convergence decision."""
-    onehot = seg[None] == _rows(n, seg[None])
+    onehot = seg[None] == layer_index(n, seg[None])
     masked = torch.where(onehot, values[None], torch.zeros_like(values))
     return torch.cumsum(masked, 1)[:, -1]
 
@@ -278,7 +274,7 @@ def fudge_factors(zones: Zones, p_lay, p_int, T_star, input_dampara,
     L = p_lay.shape[0]
     n_max = L + 1
     dt, dev = p_lay.dtype, p_lay.device
-    z = _rows(n_max, p_lay)
+    z = layer_index(n_max, p_lay)
     valid = z < zones.n_zones
     last = zones.n_zones - 1
 

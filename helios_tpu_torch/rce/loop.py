@@ -21,11 +21,13 @@ from helios_tpu_torch.forward import (CellCache, FluxState, ModelArrays, Phys,
                                       layer_index, solve_fluxes)
 from helios_tpu_torch.ops import integrate as int_ops
 from helios_tpu_torch.ops import interp as interp_ops
+from helios_tpu_torch.ops.members import (DeviceCopy, freeze_members,
+                                          host_value, running_members,
+                                          shared_counter)
 from helios_tpu_torch.rce import convect
 from helios_tpu_torch.rce.radiative import (RadLoopState, ThermoProps,
-                                            DeviceCopy, freeze_members,
                                             kappa_cp_lay, kappa_int,
-                                            shared_counter, smoothing_flux)
+                                            smoothing_flux)
 
 
 class ConvLoopState(NamedTuple):
@@ -142,76 +144,45 @@ def _convection_step(phys: Phys, m: ModelArrays, thermo: ThermoProps,
 
 def _one_convection_iteration(phys: Phys, m: ModelArrays,
                               thermo: ThermoProps, s: ConvLoopState,
+                              running: np.ndarray, copies,
                               sset=None) -> ConvLoopState:
-    """Body of the convection loop (computation.py:1030-1164)."""
-    T_adj, flux, cache, totals, conv_layer, marked_red, criterion = (
-        _convection_step(phys, m, thermo, s, s.it, s.local_limit, sset))
-    if phys.physical_tstep != 0.0:
-        # one convective adjustment only, no temperature iteration
-        # (computation.py:1109-1111)
-        not_done = False
-    else:
-        not_done = s.it < 400 or bool((~criterion)
-                                      | (conv_layer.sum() == 0))
-
-    # --- radiative forward step while not converged ---
-    if not_done:
-        T_new, T_store, prefactor, F_smooth_sum = conv_temp_step(
-            phys, m, totals, T_adj, s.T_store, s.prefactor, marked_red,
-            s.it, F_add_heat_lay=cache.F_add_heat_lay)
-        it_next = s.it + 1
-    else:
-        T_new, T_store, prefactor, F_smooth_sum = (
-            T_adj, s.T_store, s.prefactor, s.F_smooth_sum)
-        it_next = s.it
-
-    local_limit = s.local_limit
-    for n in phys.crit_relaxation_numbers:
-        if it_next == int(n):
-            local_limit = local_limit * 10.0
-
-    hit_cap = it_next > phys.max_nr_iterations
-    return ConvLoopState(
-        T_lay=T_new, flux=flux, cache=cache, totals=totals,
-        T_store=T_store, prefactor=prefactor, F_smooth_sum=F_smooth_sum,
-        conv_layer=conv_layer, marked_red=marked_red, it=it_next,
-        local_limit=local_limit, keep_running=not_done and not hit_cap,
-        aborted=s.aborted or hit_cap, steps=s.steps + 1)
-
-
-def _one_batched_convection_iteration(phys: Phys, m: ModelArrays,
-                                      thermo: ThermoProps, s: ConvLoopState,
-                                      running: np.ndarray, copies,
-                                      sset=None) -> ConvLoopState:
-    """The body for a batch: the host branches follow the running members'
-    shared counter, ``not_done`` and the counter's advance are per member,
-    and a member that has stopped keeps its old state.  ``copies``: the
-    DeviceCopy of the criteria, the running members and ``not_done``."""
+    """Body of the convection loop (computation.py:1030-1164).  In a batch
+    the host branches follow the running members' shared counter,
+    ``not_done`` and the counter's advance are per member, and a member
+    that has stopped keeps its old state.  ``copies``: the DeviceCopy of
+    the criteria, the running members and ``not_done``."""
     limits, run_copy, step_copy = copies
     it = shared_counter(s, running)
-    run_dev = run_copy(running)
+    every = running.all()
+    run_dev = None if every else run_copy(running)
     T_adj, flux, cache, totals, conv_layer, marked_red, criterion = (
         _convection_step(phys, m, thermo, s, it, limits(s.local_limit),
                          sset, members=run_dev))
-    P = running.shape[0]
     if phys.physical_tstep != 0.0:
-        not_done = np.zeros(P, bool)
+        # one convective adjustment only, no temperature iteration
+        # (computation.py:1109-1111)
+        not_done = np.zeros(running.shape, bool)
     elif it < 400:
-        not_done = np.ones(P, bool)
+        not_done = np.ones(running.shape, bool)
     else:
         not_done = ((~criterion) | (conv_layer.sum(dim=0) == 0)).cpu().numpy()
 
+    # --- radiative forward step while not converged ---
     T_new, T_store, prefactor, F_smooth_sum = (
         T_adj, s.T_store, s.prefactor, s.F_smooth_sum)
     if (not_done & running).any():
         stepped = conv_temp_step(
             phys, m, totals, T_adj, s.T_store, s.prefactor, marked_red, it,
             F_add_heat_lay=cache.F_add_heat_lay)
-        step_dev = step_copy(not_done)
-        T_new, T_store, prefactor, F_smooth_sum = (
-            torch.where(step_dev, a, b) for a, b in zip(
-                stepped, (T_adj, s.T_store, s.prefactor, s.F_smooth_sum)))
-    it_next = it + not_done.astype(s.it.dtype)
+        if not_done.all():
+            T_new, T_store, prefactor, F_smooth_sum = stepped
+        else:
+            step_dev = step_copy(not_done)
+            T_new, T_store, prefactor, F_smooth_sum = (
+                torch.where(step_dev, a, b) for a, b in zip(
+                    stepped, (T_adj, s.T_store, s.prefactor,
+                              s.F_smooth_sum)))
+    it_next = it + not_done
 
     local_limit = s.local_limit
     for n in phys.crit_relaxation_numbers:
@@ -222,10 +193,13 @@ def _one_batched_convection_iteration(phys: Phys, m: ModelArrays,
     new = ConvLoopState(
         T_lay=T_new, flux=flux, cache=cache, totals=totals,
         T_store=T_store, prefactor=prefactor, F_smooth_sum=F_smooth_sum,
-        conv_layer=conv_layer, marked_red=marked_red, it=it_next,
-        local_limit=local_limit, keep_running=not_done & ~hit_cap,
-        aborted=s.aborted | hit_cap, steps=s.steps + 1)
-    if running.all():
+        conv_layer=conv_layer, marked_red=marked_red,
+        it=host_value(it_next, s.it),
+        local_limit=host_value(local_limit, s.local_limit),
+        keep_running=host_value(not_done & ~hit_cap, s.keep_running),
+        aborted=host_value(s.aborted | hit_cap, s.aborted),
+        steps=s.steps + 1)
+    if every:
         return new
     return freeze_members(new, s, (run_dev, running))
 
@@ -280,23 +254,17 @@ def convection_loop(phys: Phys, m: ModelArrays, thermo: ThermoProps,
         state = state._replace(keep_running=(
             enter.cpu().numpy() if batch else bool(enter)))
 
-    if state.T_lay.dim() == 1:
-        start_it = state.it
-        while (state.keep_running
-               and (max_steps is None or state.it - start_it < max_steps)):
-            state = _one_convection_iteration(phys, m, thermo, state, sset)
-        return state
     T = state.T_lay
     copies = (DeviceCopy(T, T.dtype), DeviceCopy(T), DeviceCopy(T))
     start_it = None
     while True:
-        running = np.asarray(state.keep_running, bool)
+        running = running_members(state)
         if not running.any():
             break
         it = shared_counter(state, running)
         start_it = it if start_it is None else start_it
         if max_steps is not None and it - start_it >= max_steps:
             break
-        state = _one_batched_convection_iteration(phys, m, thermo, state,
-                                                  running, copies, sset)
+        state = _one_convection_iteration(phys, m, thermo, state, running,
+                                          copies, sset)
     return state

@@ -25,7 +25,9 @@ from helios_tpu_torch.forward import (CellCache, FluxState, ModelArrays, Phys,
                                       solve_fluxes)
 from helios_tpu_torch.ops import integrate as int_ops
 from helios_tpu_torch.ops import interp as interp_ops
-from helios_tpu_torch.ops.members import memberwise
+from helios_tpu_torch.ops.members import (DeviceCopy, freeze_members,
+                                          memberwise, running_members,
+                                          shared_counter)
 
 
 class ThermoProps(NamedTuple):
@@ -230,69 +232,6 @@ class RadLoopState(NamedTuple):
     aborted: bool                   # max iteration cap hit
 
 
-# fields whose planet axis is the first (boundary rows and per-member
-# flags); every other batched tensor has it second, after the layer axis
-ROW_FIELDS = frozenset(("scat_trigger", "boa_coeff", "boa_refl", "toa",
-                        "keep_running", "goto_convection"))
-
-
-def freeze_members(new, old, running):
-    """``new`` where a member runs, ``old`` where it has stopped, over the
-    NamedTuple tree of a batch's state: a member that has converged keeps
-    exactly its state of its own last iteration while the others go on.
-    ``running``: [P] bool on the device (tensors) and on the host (the
-    numpy counters)."""
-    run_dev, run_host = running
-
-    def pick(name, n, o):
-        if n is o:
-            return n
-        if hasattr(n, "_fields"):
-            return type(n)(*(pick(f, a, b) for f, a, b
-                             in zip(n._fields, n, o)))
-        if isinstance(n, np.ndarray):
-            return np.where(run_host, n, o)
-        axis = 0 if name in ROW_FIELDS else 1
-        mask = run_dev.reshape((1,) * axis + run_dev.shape
-                               + (1,) * (n.dim() - axis - 1))
-        return torch.where(mask, n, o)
-
-    return type(new)(*(pick(f, a, b) for f, a, b
-                       in zip(new._fields, new, old)))
-
-
-def running_members(state) -> np.ndarray:
-    """The members of a batch that still run, read from the device."""
-    keep = state.keep_running
-    return np.asarray(keep.cpu() if hasattr(keep, "cpu") else keep, bool)
-
-
-def shared_counter(state, running: np.ndarray) -> int:
-    """The iteration counter of a batch: its running members start and step
-    together, so they share one value."""
-    its = np.asarray(state.it)[running]
-    assert (its == its[0]).all(), its
-    return int(its[0])
-
-
-class DeviceCopy:
-    """A host array [P] of a batch (the members' criteria, a mask) as a
-    tensor on the device of ``like``, copied anew only when it changes: a
-    copy from host memory waits for the device's queued work.  ``dtype``
-    None keeps the array's (a mask); the criteria take the run's dtype,
-    which a planet's host float takes in its comparisons."""
-
-    def __init__(self, like, dtype=None):
-        self.like, self.dtype, self.key, self.t = like, dtype, None, None
-
-    def __call__(self, host: np.ndarray):
-        if self.key is None or not np.array_equal(self.key, host):
-            self.key = host.copy()
-            self.t = torch.as_tensor(host, dtype=self.dtype,
-                                     device=self.like.device)
-        return self.t
-
-
 def _radiation_step(phys: Phys, m: ModelArrays,
                     thermo: Optional[ThermoProps], s: RadLoopState, it: int,
                     local_limit, sset):
@@ -360,44 +299,23 @@ def _stop(phys: Phys, it_next: int):
 
 def _one_radiation_iteration(phys: Phys, m: ModelArrays,
                              thermo: Optional[ThermoProps],
-                             s: RadLoopState, sset=None) -> RadLoopState:
-    """Body of the radiation loop (computation.py:851-981)."""
-    cache, flux, totals, res, overheat, converged = _radiation_step(
-        phys, m, thermo, s, s.it, s.local_limit, sset)
-    it_next = s.it + 1
-    hit_cap, out_of_time = _stop(phys, it_next)
-    no = torch.zeros_like(converged)
-    keep = no if hit_cap or out_of_time else ~converged & ~overheat
-    return RadLoopState(
-        T_lay=res.T_lay, flux=flux, cache=cache, totals=totals,
-        T_store=res.T_store, prefactor=res.prefactor,
-        F_smooth_sum=res.F_smooth_sum, abort=res.abort, it=it_next,
-        local_limit=_relaxed(phys, it_next, s.local_limit),
-        keep_running=keep, goto_convection=s.goto_convection | overheat,
-        aborted=s.aborted or hit_cap)
-
-
-def _one_batched_radiation_iteration(phys: Phys, m: ModelArrays,
-                                     thermo: Optional[ThermoProps],
-                                     s: RadLoopState, running: np.ndarray,
-                                     limits: DeviceCopy,
-                                     sset=None) -> RadLoopState:
-    """The body for a batch: every member computes, and a member that has
-    stopped keeps its old state (the JAX package's ``vmap`` of its
-    ``while_loop``).  The host branches follow the running members' shared
-    counter."""
+                             s: RadLoopState, running: np.ndarray,
+                             limits: DeviceCopy, sset=None) -> RadLoopState:
+    """Body of the radiation loop (computation.py:851-981).  In a batch
+    every member computes, the host branches follow the running members'
+    shared counter, and a member that has stopped keeps its old state (the
+    JAX package's ``vmap`` of its ``while_loop``)."""
     it = shared_counter(s, running)
     cache, flux, totals, res, overheat, converged = _radiation_step(
         phys, m, thermo, s, it, limits(s.local_limit), sset)
     it_next = it + 1
     hit_cap, out_of_time = _stop(phys, it_next)
-    no = torch.zeros_like(converged)
-    keep = no if hit_cap or out_of_time else ~converged & ~overheat
+    keep = (torch.zeros_like(converged) if hit_cap or out_of_time
+            else ~converged & ~overheat)
     new = RadLoopState(
         T_lay=res.T_lay, flux=flux, cache=cache, totals=totals,
         T_store=res.T_store, prefactor=res.prefactor,
-        F_smooth_sum=res.F_smooth_sum, abort=res.abort,
-        it=np.full_like(s.it, it_next),
+        F_smooth_sum=res.F_smooth_sum, abort=res.abort, it=s.it + 1,
         local_limit=_relaxed(phys, it_next, s.local_limit),
         keep_running=keep, goto_convection=s.goto_convection | overheat,
         aborted=s.aborted | hit_cap)
@@ -460,18 +378,12 @@ def radiation_loop(phys: Phys, m: ModelArrays, thermo: Optional[ThermoProps],
         totals = integrate_flux_flat(phys, m, flux, state.cache.F_dir)
         return state._replace(flux=flux, totals=totals)
     steps = 0
-    if state.T_lay.dim() == 1:
-        while ((max_steps is None or steps < max_steps)
-               and bool(state.keep_running)):
-            state = _one_radiation_iteration(phys, m, thermo, state, sset)
-            steps += 1
-        return state
     limits = DeviceCopy(state.T_lay, state.T_lay.dtype)
     while max_steps is None or steps < max_steps:
         running = running_members(state)
         if not running.any():
             break
-        state = _one_batched_radiation_iteration(phys, m, thermo, state,
-                                                 running, limits, sset)
+        state = _one_radiation_iteration(phys, m, thermo, state, running,
+                                         limits, sset)
         steps += 1
     return state

@@ -41,6 +41,7 @@ from helios_tpu_torch import pipeline as torch_pipeline
 from helios_tpu_torch.__main__ import main as torch_main
 from helios_tpu_torch.config import HeliosConfig as TorchConfig
 from helios_tpu_torch.config import config_from_cli as torch_config_from_cli
+from helios_tpu_torch.ops.members import member_state
 from helios_tpu_torch.parallel import ensemble as tens
 from helios_tpu_torch.rce import radiative as trad
 from helios_tpu_torch.rce.loop import convection_loop
@@ -231,14 +232,13 @@ def test_a_member_that_stops_first_keeps_its_state(runs):
         T0s.append(torch_pipeline.initial_temperatures(c, phys, arrays))
     its = [o.rad.it for o in runs["solos"]]
     first, last = int(np.argmin(its)), int(np.argmax(its))
-    rad, _ = tens.run_ensemble_loops(phys, models,
-                                     trad.make_const_thermo(0.1),
-                                     np.stack(T0s),
-                                     max_steps=its[first] + 10,
-                                     conv_max_steps=0)
+    T0 = torch.tensor(np.stack(T0s, axis=1))
+    rad = trad.radiation_loop(phys, tens.stack_models(models),
+                              trad.make_const_thermo(0.1), T0,
+                              max_steps=its[first] + 10)
     assert list(rad.it) == [min(i, its[first] + 10) for i in its]
     assert bool(rad.keep_running[last]) and not bool(rad.keep_running[first])
-    _same_tree(tens.member_state(rad, first), runs["solos"][first].rad,
+    _same_tree(member_state(rad, first), runs["solos"][first].rad,
                "rad")
 
 
