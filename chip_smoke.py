@@ -29,14 +29,26 @@ Phases (any failure exits non-zero before the last line is printed):
      counted; then, in fp64, each kernel at the width of path n's
      ensemble: 8 x 7700 = 61,600 columns for the sweeps and the Thomas
      solve, 8 x 105 x 385 = 323,400 cells for the Random Overlap mix;
+     the fixed-order sums and scans (ordered_sum) at the loops' shapes,
+     bit for bit the in-order loop, within rounding of torch.sum /
+     torch.cumsum, and every member of a batch of copies bit for bit the
+     call alone, fp64 and fp32, timed at the Gauss sum of the flagship
+     and of path n's batch; then the host tools: the port's ktable
+     library (kdistr.cpp) built by g++ on this machine, its
+     k-distribution of a 4.1-million-point line list (0.01 cm^-1 over
+     0.244-500 um) into 385 bins x 20 and its bilinear regrid onto the
+     final (T, P) grid, each against the numpy version at rtol 1e-12,
+     with both host CPU times;
   4. the paths, each with every launch count set to 0 just before it and
-     read just after:
+     read just after (ordered_sum: at least once wherever a flux solve
+     runs):
      a. the flagship RCE run (105 layers x 385 bins x 20 Gauss points,
         non-isothermal, scattering, convection, fp64) to convergence
         through helios_tpu_torch.pipeline.run; then one forward_fluxes on
         the card against the same call on the CPU, and where a radiation
         iteration's time goes (host wall against device busy time,
-        torch.profiler);
+        torch.profiler), the same with torch's sums in place of the
+        fixed-order ones;
      b. the post-processing run of the converged flagship profile, read
         back from a "PT" file, with the direct beam and the output files
         (one solve of 1001 sweep passes); its TOA spectrum against the
@@ -105,28 +117,27 @@ Phases (any failure exits non-zero before the last line is printed):
         surface albedos 0.0, 0.1, ..., 0.7, the table in memory, to
         convergence: every member finite and converged, one noniso_sweep
         launch per batched flux solve over the 61,600 columns (not one per
-        member), member 0 against path a's run (bit for bit, or every
-        layer within 1e-2 K, the surface ghost too unless it ends in a
-        convective zone in one run only, and the same radiation count;
-        the gap logged beside whether one batched forward solve is bit
-        for bit the solo one, beside path a's convection loop entered
-        again from its radiation result with the last solve's fluxes or
-        every temperature moved by one ulp, beside path a's convection
-        loop stopped at member 0's count, and beside a batch of 8 copies
-        of path a's planet), the batch's wall against 8 x path a's,
-        planets per hour, the peak device memory per member, a batched
-        radiation iteration's time breakdown, and one batched
-        forward_fluxes on the card against the CPU;
+        member); where a member's bits could part from its run alone: one
+        forward solve and one convective adjustment of path a's planet,
+        alone and as 8 copies in a batch, every op's output compared
+        member by member, with torch's sums (the first op that differs
+        and its slots are logged) and with the fixed-order ones (no op may
+        differ); the 8 copies run to convergence, each bit for bit path
+        a; member 0's forward solve bit for bit its solve alone, and
+        member 0 bit for bit path a's run (T and both iteration counts);
+        the batch's wall against 8 x path a's, planets per hour, the peak
+        device memory per member, a batched radiation iteration's time
+        breakdown with the fixed-order sums and with torch's, and one
+        batched forward_fluxes on the card against the CPU;
      o. the ensemble command line: the quickstart's param.dat with the
         shipped planets.dat (dark, gray and bright, surface albedo 0.0,
         0.25, 0.5) through helios_tpu_torch.__main__.main in this process
         with progress lines and a checkpoint every 100 iterations: each
         member's file set, the ensemble checkpoint pair, one launch per
-        batched flux solve, the dark member against path k's unmonitored
-        run (bit for bit, or every layer within 1e-2 K, the surface ghost
-        as in n); then the same command again, which
-        resumes from the converged checkpoints, launches nothing and
-        leaves the files unchanged;
+        batched flux solve, the dark member bit for bit path k's
+        unmonitored run; then the same command again, which
+        resumes from the converged checkpoints, solves no flux (only
+        the restore's sums run) and leaves the files unchanged;
   5. a JSON line of the kernels, the nvidia-smi line, and the result line.
 
 Needs one CUDA card; exits non-zero without one.  Imports neither JAX nor
@@ -254,11 +265,13 @@ def copy_bandwidth():
 
 
 def kernel_counters():
+    from helios_tpu_torch.kernels.ordered import ordered_sum
     from helios_tpu_torch.kernels.ro import ro_mix
     from helios_tpu_torch.kernels.sweep import iso_sweep, noniso_sweep
     from helios_tpu_torch.kernels.thomas import thomas_solve
     return {"noniso_sweep": noniso_sweep, "iso_sweep": iso_sweep,
-            "thomas_solve": thomas_solve, "ro_mix": ro_mix}
+            "thomas_solve": thomas_solve, "ro_mix": ro_mix,
+            "ordered_sum": ordered_sum}
 
 
 def reset_counts():
@@ -270,9 +283,25 @@ def read_counts():
     return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
+class AtLeastOnce:
+    """A launch count that has to be positive: the fixed-order sums run
+    several times per flux solve and per convective adjustment, a number
+    the checks do not pin."""
+
+    def __eq__(self, n):
+        return isinstance(n, int) and n > 0
+
+    def __repr__(self):
+        return ">= 1"
+
+
 def only(**counts):
-    """The launch counts of a path that runs just the named kernels."""
-    return {name: counts.get(name, 0) for name in kernel_counters()}
+    """The launch counts of a path that runs just the named kernels; with
+    any flux solve (a named count), also the fixed-order sums of its
+    integration, at least once."""
+    sums = AtLeastOnce() if any(counts.values()) else 0
+    return {name: counts.get(name, sums if name == "ordered_sum" else 0)
+            for name in kernel_counters()}
 
 
 def sweep_inputs(dtype, seed=0, L=L_FLAG, S=NBIN_FLAG * NY_FLAG):
@@ -515,6 +544,213 @@ def ragged_case(dtype, rtol):
         f"{worst['iso_sweep']:.3e}; thomas_solve at (n, S) in "
         f"{RAGGED_THOMAS}: {worst['thomas_solve']:.3e}")
     return worst
+
+
+def profiled_kernel_ms(fn, kernel, n=20):
+    """The device time of one fn() in the named CUDA kernel, by
+    torch.profiler over n calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.key)
+    check(us > 0, f"the profiler saw no {kernel}")
+    return us / 1e3 / n
+
+
+def ordered_inputs(dtype, shape, seed):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.uniform(1.0, 1e4, shape), dtype=dtype,
+                        device=DEVICE)
+
+
+def ordered_case(dtype, rtol, bandwidth):
+    """The fixed-order sums and scans at the main path's shapes: the Gauss
+    sums ([L+1, nbin, ny] over ny), the band sums ([L+1, nbin] over nbin),
+    the beam's layer scan ([L, S] along L) and a per-layer scan ([L]), each
+    also as ENSEMBLE_P copies at every slot of a batch ([L+1, P, ...],
+    [L, P, S], [L, P]).  Each result bit for bit the in-order loop
+    (kernels.ordered.in_order_reference); within ``rtol`` of the plain
+    version (torch.sum / torch.cumsum, another order); every batch member
+    bit for bit the call alone, where the plain version's members are
+    counted that are not.  Times the Gauss sum, the main path's largest."""
+    from helios_tpu_torch.kernels.ordered import (in_order_reference,
+                                                  ordered_cumsum, ordered_sum)
+    L, B, Y, P = L_FLAG, NBIN_FLAG, NY_FLAG, ENSEMBLE_P
+    name = str(dtype).split(".")[-1]
+    cases = (("gauss sum", (L + 1, B, Y), 2, False),
+             ("band sum", (L + 1, B), 1, False),
+             ("beam layer scan", (L, B * Y), 0, True),
+             ("layer scan", (L,), 0, True))
+    res = {}
+    for k, (label, shape, dim, scan) in enumerate(cases):
+        kernel = ordered_cumsum if scan else ordered_sum
+        plain = ((lambda t, d: torch.cumsum(t, d)) if scan
+                 else (lambda t, d: torch.sum(t, d)))
+        x = ordered_inputs(dtype, shape, seed=10 + k)
+        # the batch: P copies, the planet axis after the first (layer) axis
+        xb = torch.stack([x] * P, dim=1).contiguous()
+        dimb = dim + 1 if dim > 0 else 0
+        got, got_b = kernel(x, dim), kernel(xb, dimb)
+        want, in_order = plain(x, dim), in_order_reference(x, dim, scan)
+        want_b = plain(xb, dimb)
+        torch.cuda.synchronize()
+        check(torch.equal(got, in_order), f"ordered_sum {name} {label}: "
+              "not bit for bit the in-order loop")
+        rel = float(((got - want).abs() / want.abs()).max())
+        err = float((got - want).abs().max())
+        check(rel <= rtol, f"ordered_sum {name} {label}: {rel:.3e} off "
+              f"torch's sum (limit {rtol:.0e})")
+        members = lambda t: [t.select(1 if t.dim() > 1 else 0, p)
+                             for p in range(P)]
+        same = [torch.equal(m, got) for m in members(got_b)]
+        plain_same = [torch.equal(m, want) for m in members(want_b)]
+        check(all(same), f"ordered_sum {name} {label}: batch members "
+              f"{[p for p, s in enumerate(same) if not s]} are not the "
+              "call alone")
+        res[label] = dict(shape=list(shape), max_rel_err_vs_plain=rel,
+                          max_abs_err_vs_plain=err,
+                          plain_members_off=[p for p, s in
+                                             enumerate(plain_same) if not s])
+        log(f"ordered_sum {name} {label} {list(shape)} along {dim}: bit for "
+            f"bit the in-order loop, {rel:.3e} off torch's "
+            f"{'cumsum' if scan else 'sum'} (limit {rtol:.0e}); as "
+            f"{P} copies in a batch every member bit for bit the call "
+            f"alone (torch's {'cumsum' if scan else 'sum'}: members "
+            f"{res[label]['plain_members_off']} differ from its call alone)")
+
+    x = ordered_inputs(dtype, (L + 1, B, Y), seed=10)
+    xb = torch.stack([x] * P, dim=1).contiguous()
+    size = x.element_size()
+    out = {}
+    for key, t, d in (("", x, 2), ("ensemble_", xb, 3)):
+        n_in, n_out = t.numel(), t.numel() // Y
+        bytes_ms = (n_in + n_out) * size / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_in / PEAK_FLOPS[dtype] * 1e3
+        ms = cuda_ms(lambda: ordered_sum(t, d), 20, 3, per_event=20)
+        plain_ms = cuda_ms(lambda: torch.sum(t, d), 20, 3, per_event=20)
+        in_order_ms = cuda_ms(lambda: in_order_reference(t, d, False), 5, 1)
+        device_ms = profiled_kernel_ms(lambda: ordered_sum(t, d),
+                                       "ordered_sum_kernel")
+        out.update({key + "ms": ms, key + "plain_ms": plain_ms,
+                    key + "device_ms": device_ms,
+                    key + "in_order_ms": in_order_ms,
+                    key + "bound_ms": max(bytes_ms, ops_ms),
+                    key + "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                       else "operations"),
+                    key + "bound_ms_measured_bw":
+                        (n_in + n_out) * size / bandwidth * 1e3})
+        log(f"ordered_sum {name} gauss sum {list(t.shape)}: kernel "
+            f"{ms:.4f} ms back to back (the wrapper's host launch time "
+            f"shows in so short a call; on the device {device_ms:.4f} ms by "
+            f"the profiler), torch.sum {plain_ms:.4f} ms, the in-order loop "
+            f"{in_order_ms:.3f} ms; bound {out[key + 'bound_ms']:.4f} ms "
+            f"({(n_in + n_out) * size / 1e6:.1f} MB at 3.35 TB/s)")
+    return dict(out, cases=res,
+                max_rel_err=max(r["max_rel_err_vs_plain"]
+                                for r in res.values()),
+                max_abs_err=max(r["max_abs_err_vs_plain"]
+                                for r in res.values()))
+
+
+# --------------------------------------------------------------------------- #
+# the host tools: the ktable library, built with g++ on this machine
+# --------------------------------------------------------------------------- #
+
+HK_STEP_CM = 0.01             # HELIOS-K's default wavenumber step [cm^-1]
+KTABLE_GRID = (0.244e-4, 500e-4, 50.0)   # the flagship grid: 385 bins, R 50
+HK_TEMPS = np.arange(100.0, 3100.0, 100.0)          # a HELIOS-K T grid
+HK_PRESS = 10.0 ** np.arange(0.0, 9.5, 0.5)         # and P grid [ubar]
+
+
+def cpu_model():
+    """The host CPU as lscpu names it: vendor, model name, family and
+    model numbers, and the architecture."""
+    import platform
+    out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                         timeout=60).stdout
+    keys = ("Vendor ID", "Model name", "CPU family", "Model")
+    fields = [" ".join(ln.split()) for ln in out.splitlines()
+              if ln.split(":", 1)[0].strip() in keys]
+    return f"{'; '.join(fields) or 'not reported'} ({platform.machine()})"
+
+
+def host_tools_phase():
+    """The port's native ktable library (ktable/native/kdistr.cpp) built by
+    g++ on this machine, each of its two functions held against the numpy
+    version at rtol 1e-12 at full width, with both times on this host's
+    CPU: kdistr_native on one (T, P) point of a synthetic line list at
+    HELIOS-K's 0.01 cm^-1 step over the flagship grid's 0.244-500 um (4.1
+    million points into 385 bins x 20 Gauss points), bilinear_tp_native
+    regridding a [30 T, 19 P, 385, 20] table onto the final grid of
+    combine.final_pt_grid.  The HDF5 files of the tools need h5py, which
+    this phase does not."""
+    from helios_tpu_torch.io.opacity import gauss_legendre_ypoints
+    from helios_tpu_torch.ktable import build as kb
+    from helios_tpu_torch.ktable import combine as kc
+    from helios_tpu_torch.ktable import native
+
+    cached = native.library_path().exists()
+    t = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t
+    lam_int = kb.gen_fixed_res_grid(*KTABLE_GRID)
+    dlam, (y, _) = np.diff(lam_int), gauss_legendre_ypoints(NY_FLAG)
+    nu = np.arange(1.0 / lam_int[-1], 1.0 / lam_int[0], HK_STEP_CM)
+    lam_hk = np.sort(1.0 / nu)
+    rng = np.random.default_rng(21)
+    opac = 10.0 ** (rng.uniform(-8.0, 2.0, len(nu))
+                    + 2.0 * np.sin(nu / 37.0))
+
+    def timed(fn):
+        t = time.perf_counter()
+        return fn(), time.perf_counter() - t
+
+    got, native_s = timed(lambda: native.kdistr_native(
+        lam_hk, opac, lam_int, dlam, y))
+    want, numpy_s = timed(lambda: kb.kdistribution_for_one_TP(
+        lam_hk, opac, lam_int, dlam, y, use_native=False))
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    check(got.shape == (len(dlam) * NY_FLAG,) and np.all(np.isfinite(got))
+          and rel <= 1e-12,
+          f"host tools: kdistr_native {rel:.3e} off numpy (limit 1e-12)")
+
+    temps, press = kc.final_pt_grid()
+    values = 10.0 ** rng.uniform(-6.0, 1.0, (len(HK_TEMPS), len(HK_PRESS),
+                                             len(dlam), NY_FLAG))
+    args = (values, HK_TEMPS, HK_PRESS, temps, press)
+    grid, bil_native_s = timed(lambda: native.bilinear_tp_native(*args))
+    grid_np, bil_numpy_s = timed(lambda: kc.interpolate_tp_grid(
+        *args, use_native=False))
+    bil_rel = float(np.max(np.abs(grid - grid_np) / np.abs(grid_np)))
+    check(grid.shape == (len(temps), len(press), len(dlam), NY_FLAG)
+          and bil_rel <= 1e-12,
+          f"host tools: bilinear_tp_native {bil_rel:.3e} off numpy (limit "
+          "1e-12)")
+    log(f"host tools [host CPU times on this machine: {cpu_model()}, "
+        f"{os.cpu_count()} cores; card {nvidia_smi_line()}]: kdistr.cpp "
+        f"{'found built' if cached else 'built by g++'} in {build_s:.2f} "
+        f"s; "
+        f"kdistr_native, one (T, P) point of {len(nu)} line-list points "
+        f"into {len(dlam)} bins x {NY_FLAG}: {native_s:.3f} s against "
+        f"numpy's {numpy_s:.3f} s, max rel difference {rel:.3e} (limit "
+        f"1e-12); bilinear_tp_native {list(values.shape)} onto "
+        f"{list(grid.shape)}: {bil_native_s:.3f} s against numpy's "
+        f"{bil_numpy_s:.3f} s, max rel difference {bil_rel:.3e} (limit "
+        f"1e-12)")
+    return dict(build_s=build_s, points=len(nu), kdistr_native_s=native_s,
+                kdistr_numpy_s=numpy_s, kdistr_rel=rel,
+                bilinear_native_s=bil_native_s,
+                bilinear_numpy_s=bil_numpy_s, bilinear_rel=bil_rel,
+                cpu=cpu_model())
 
 
 def chained_case(dtype):
@@ -1547,6 +1783,7 @@ CLI_FLAGS = ["-progress", "yes", "-checkpoint_every", "100"]
 CLI_PROCESS = """
 import json, sys
 from helios_tpu_torch import __main__ as cli, pipeline
+from helios_tpu_torch.kernels.ordered import ordered_sum
 from helios_tpu_torch.kernels.ro import ro_mix
 from helios_tpu_torch.kernels.sweep import iso_sweep, noniso_sweep
 from helios_tpu_torch.kernels.thomas import thomas_solve
@@ -1563,7 +1800,8 @@ print(json.dumps(dict(
     launches=dict(noniso_sweep=noniso_sweep.launches,
                   iso_sweep=iso_sweep.launches,
                   thomas_solve=thomas_solve.launches,
-                  ro_mix=ro_mix.launches),
+                  ro_mix=ro_mix.launches,
+                  ordered_sum=ordered_sum.launches),
     n_flux_solves=out.n_flux_solves, rad_it=out.rad.it,
     conv_it=out.conv.it, conv_steps=out.conv.steps,
     wall_s=out.wall_seconds, rad_s=out.rad_seconds,
@@ -2186,130 +2424,279 @@ def batched_flux_solves(outs):
             + max(o.conv.steps if o.conv is not None else 0 for o in outs))
 
 
-# a batch member against the same planet's run alone, on the card: every
-# layer within this (observed: 2.5e-4 K in path n, 1.5e-5 K in path o),
-# the surface ghost too unless it ends in the lowest convective zone in
-# one run and not in the other.  That decision sits within the
-# instability test's 1e-6 of the adiabat, and the batch's last bits,
-# which differ with a member's position in the batch, flip it: the ghost
-# then takes the zone's mean potential temperature (4.58 K off in path n;
-# gap_causes shows it with copies of one planet)
-MEMBER_GAP_K = 1e-2
-
-
-def ghost_zone(run):
-    """Whether the surface ghost layer ends in a convective zone, and its
-    neighbour layer 0 (the final conv_layer flags)."""
-    flags = run.conv.conv_layer.cpu()
-    return bool(flags[-1]), bool(flags[0])
-
-
-def member_against(label, member, ref, same_radiation_count):
+def member_against(label, member, ref):
     """A batch member against the same planet's run alone: T and both
-    iteration counts bit for bit, or the gap, logged; checks the layers
-    within MEMBER_GAP_K (the surface ghost as set out there) and, with
-    ``same_radiation_count``, the radiation loop's count equal.  Returns
-    (bitwise, |dT| of the ghost, max |dT| of the other layers, in K)."""
+    iteration counts bit for bit (checked; the gap logged first).
+    Returns (bitwise, |dT| of the surface ghost, max |dT| of the other
+    layers, in K)."""
     same = (torch.equal(member.T_lay.cpu(), ref.T_lay.cpu())
             and (member.rad.it, member.conv.it)
             == (ref.rad.it, ref.conv.it))
     diff = (member.T_lay.cpu() - ref.T_lay.cpu()).abs()
     ghost, rest = float(diff[-1]), float(diff[:-1].max())
-    at = int(diff[:-1].argmax())
     log(f"{label}: {'bit for bit' if same else 'NOT bit for bit'} its run "
         f"alone (iterations {member.rad.it} + {member.conv.it} against "
         f"{ref.rad.it} + {ref.conv.it}; |dT| {ghost:.3e} K in the surface "
-        f"ghost layer ({float(ref.T_lay[-1]):.1f} K; in a convective zone: "
-        f"{ghost_zone(member)} in the batch, {ghost_zone(ref)} alone), at "
-        f"most {rest:.3e} K elsewhere (layer {at}), "
-        f"{int((diff > 1e-3).sum())} layers above 1 mK)")
-    check(rest <= MEMBER_GAP_K,
-          f"{label}: layer {at} is {rest:.3e} K off its run alone (limit "
-          f"{MEMBER_GAP_K} K outside the surface ghost layer)")
-    check(ghost <= MEMBER_GAP_K or ghost_zone(member)[0] != ghost_zone(ref)[0],
-          f"{label}: the surface ghost is {ghost:.3e} K off its run alone "
-          f"(limit {MEMBER_GAP_K} K while it is in a convective zone in "
-          f"both or in neither)")
-    if same_radiation_count:
-        check(member.rad.it == ref.rad.it,
-              f"{label}: {member.rad.it} radiation iterations against "
-              f"{ref.rad.it} alone")
+        f"ghost layer, at most {rest:.3e} K elsewhere)")
+    check(same, f"{label}: not bit for bit its run alone")
     return same, ghost, rest
 
 
-def cloned(state):
-    """A copy of a loop state's tensors."""
-    if hasattr(state, "_fields"):
-        return type(state)(*(cloned(x) for x in state))
-    return state.clone() if isinstance(state, torch.Tensor) else state
+# --------------------------------------------------------------------------- #
+# C.8: the first op at which a batch member differs from its run alone
+# --------------------------------------------------------------------------- #
+
+# names of the loops' call sites of the fixed-order sums, and torch's sums
+# in their place: the route the port took before kernels.ordered
+ORDERED_SITES = (("fastpath", ("ordered_sum", "ordered_cumsum")),
+                 ("forward", ("ordered_sum", "ordered_cumsum")),
+                 ("rce.convect", ("ordered_cumsum",)),
+                 ("rce.radiative", ("ordered_cumsum",)))
+TORCH_ROUTE = {"ordered_sum": lambda x, dim: torch.sum(x, dim=dim),
+               "ordered_cumsum": lambda x, dim: torch.cumsum(x, dim=dim)}
 
 
-def one_ulp(x, toward):
-    """``x`` moved by one ulp toward +-inf (zeros stay)."""
-    return torch.where(x == 0, x, torch.nextafter(x, torch.full_like(
-        x, toward)))
+@contextlib.contextmanager
+def patched_sites(make):
+    """Each call site of ORDERED_SITES (and fastpath's noniso_sweep) bound
+    to make(name, function) while the block runs."""
+    import importlib
+    saved = []
+    sites = ORDERED_SITES + (("fastpath", ("noniso_sweep",)),)
+    for mod_name, names in sites:
+        mod = importlib.import_module("helios_tpu_torch." + mod_name)
+        for n in names:
+            saved.append((mod, n, getattr(mod, n)))
+            setattr(mod, n, make(n, getattr(mod, n)))
+    try:
+        yield
+    finally:
+        for mod, n, fn in reversed(saved):
+            setattr(mod, n, fn)
 
 
-def gap_causes(label, run, cfg, table, member):
-    """Where a batch member's gap to its run alone (``run``, path a's)
-    comes from, on the card.  (1) ``run``'s convection loop entered again
-    from its own radiation result: unchanged (checked bit for bit), with
-    the last radiation solve's spectral fluxes moved by one ulp (their
-    totals recomputed), and with every temperature moved by one ulp.
-    (2) ``run``'s convection loop stopped at the member's count.  (3) A
-    batch of ENSEMBLE_P copies of ``run``'s planet: no member differs and
-    none is frozen, only the arithmetic's shape is the batch's.  Logs each
-    against ``run``: the counts, the surface ghost's |dT| and the largest
-    elsewhere."""
-    from helios_tpu_torch.forward import integrate_flux_flat
+def port_callsite():
+    """file:line of the innermost caller inside helios_tpu_torch outside
+    its kernel wrappers."""
+    f = sys._getframe(2)
+    while f is not None:
+        name = f.f_code.co_filename.replace(os.sep, "/")
+        if "helios_tpu_torch/" in name and "/kernels/" not in name:
+            return (f"{name.split('helios_tpu_torch/')[-1]}:{f.f_lineno} "
+                    f"{f.f_code.co_name}")
+        f = f.f_back
+    return "?"
+
+
+class OpRecorder(torch.overrides.TorchFunctionMode):
+    """Every floating-point tensor that a torch function returns, with the
+    port's call site, in call order; the kernel wrappers' outputs are
+    added by ``kernel``.  Uninitialised allocations are left out (a
+    kernel fills them later, and its own record holds the result)."""
+    UNINITIALISED = {"empty", "empty_like", "empty_strided", "new_empty"}
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def add(self, name, out):
+        outs = out if isinstance(out, tuple) else (out,)
+        for k, t in enumerate(outs):
+            if isinstance(t, torch.Tensor) and t.is_floating_point():
+                self.ops.append((name + (f"[{k}]" if len(outs) > 1 else ""),
+                                 port_callsite(), t))
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = getattr(func, "__name__", str(func))
+        if name not in self.UNINITIALISED:
+            self.add(name, out)
+        return out
+
+    def kernel(self, name, fn):
+        def recorded(*a, **k):
+            out = fn(*a, **k)
+            self.add(name, out)
+            return out
+        return recorded
+
+
+def member_views(batched, solo, P):
+    """The P members of a batched op output against its solo output's
+    shape: the planet axis where dropping it gives the solo shape (after
+    the first axis first, as the port's layout has it), or a flattened
+    [.., P*n, ..] axis; None when neither fits."""
+    b, s = tuple(batched.shape), tuple(solo.shape)
+    for ax in sorted(range(len(b)), key=lambda a: (a != 1, a)):
+        if b[ax] == P and b[:ax] + b[ax + 1:] == s:
+            return [batched.select(ax, p) for p in range(P)]
+    if len(b) == len(s):
+        for ax in range(len(b)):
+            rest_b, rest_s = b[:ax] + b[ax + 1:], s[:ax] + s[ax + 1:]
+            if b[ax] == P * s[ax] and rest_b == rest_s:
+                v = batched.reshape(s[:ax] + (P, s[ax]) + s[ax + 1:])
+                return [v.select(ax, p) for p in range(P)]
+    return None
+
+
+def same_bits(a, b):
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def differing_ops(solo_ops, batch_ops, P):
+    """The ops (in the solo run's order) at which some member of the batch
+    differs from the solo output: [(name, call site, members that differ,
+    max relative difference)], and the number of ops compared."""
+    import difflib
+    keys = lambda ops: [(n, site) for n, site, _ in ops]
+    match = difflib.SequenceMatcher(None, keys(solo_ops), keys(batch_ops),
+                                    autojunk=False)
+    found, compared = [], 0
+    for i, j, n in match.get_matching_blocks():
+        for k in range(n):
+            name, site, solo = solo_ops[i + k]
+            views = member_views(batch_ops[j + k][2], solo, P)
+            if views is None:
+                continue
+            compared += 1
+            off = [p for p, v in enumerate(views) if not same_bits(v, solo)]
+            if off:
+                scale = float(solo.abs().max()) or 1.0
+                rel = max(float((views[p] - solo).abs().max()) for p in off)
+                found.append((name, site, off, rel / scale,
+                              slot_classes(views)))
+    return found, compared
+
+
+def slot_classes(views):
+    """The slots grouped by equal bits of their outputs."""
+    classes = []
+    for p, v in enumerate(views):
+        for c in classes:
+            if same_bits(views[c[0]], v):
+                c.append(p)
+                break
+        else:
+            classes.append([p])
+    return classes
+
+
+def op_diagnosis(label, P, solo_fn, batch_fn, routes=("torch", "ordered")):
+    """solo_fn() and batch_fn() (the same work on one planet and on P
+    copies of it) under an OpRecorder, once with each route of the loops'
+    sums: "torch" (torch.sum / torch.cumsum, the port before
+    kernels.ordered) and "ordered" (the port).  Logs the first op at which
+    a member differs from the solo output, with the members (slots) that
+    differ, and every other op that does.  Returns {route: (differing ops,
+    ops compared)}."""
+    res = {}
+    for route in routes:
+        runs = []
+        for fn in (solo_fn, batch_fn):
+            rec = OpRecorder()
+            make = lambda n, f: rec.kernel(
+                n, TORCH_ROUTE[n] if route == "torch" and n in TORCH_ROUTE
+                else f)
+            with patched_sites(make), rec:
+                fn()
+            torch.cuda.synchronize()
+            runs.append(rec.ops)
+        found, compared = differing_ops(runs[0], runs[1], P)
+        res[route] = (found, compared)
+        if found:
+            name, site, off, rel, classes = found[0]
+            rest = "; ".join(f"{n} at {s}: slots {o}, equal among "
+                             f"themselves in {c}" for n, s, o, _, c
+                             in found[1:13])
+            log(f"{label}, {route} sums: {compared} ops compared; the first "
+                f"that differs from the run alone is {name} at {site}: "
+                f"slots {off} of {P} differ (max {rel:.3e} of its scale), "
+                f"slots equal among themselves in {classes}; "
+                f"{len(found) - 1} later ops differ: {rest}")
+        else:
+            log(f"{label}, {route} sums: {compared} ops compared, every "
+                f"member bit for bit the run alone at every op")
+    return res
+
+
+def copies_of(x, P):
+    """P copies of a loop tensor, the planet axis after the layer axis."""
+    return torch.stack([x] * P, dim=1 if x.dim() > 0 else 0).contiguous()
+
+
+def gap_causes(label, run, cfg, table):
+    """Where a batch member's last bits part from its run alone, on the
+    card.  (1) One forward solve (compute_cells, solve_fluxes,
+    integrate_flux_flat) of ``run``'s planet at its final T, and its
+    convective adjustment from its radiation result, each alone and as
+    ENSEMBLE_P copies in one batch: the first op that differs, by
+    op_diagnosis, with torch's sums and with the fixed-order ones; with
+    the latter none may differ.  (2) The ENSEMBLE_P copies run to
+    convergence as one ensemble: each bit for bit ``run`` (checked)."""
+    from helios_tpu_torch import forward as fw
+    from helios_tpu_torch.ops import interp as interp_ops
     from helios_tpu_torch.parallel import ensemble as ens
     from helios_tpu_torch.pipeline import make_thermo
-    from helios_tpu_torch.rce.loop import convection_loop
+    from helios_tpu_torch.rce import convect
+    from helios_tpu_torch.rce.radiative import kappa_cp_lay, kappa_int
+
+    P = ENSEMBLE_P
+    phys, m = run.phys, run.arrays
+    mb = ens.stack_models([m] * P)
+    T = run.T_lay.clone()
+    forward = op_diagnosis(
+        f"{label}: one forward solve", P,
+        lambda: fw.forward_fluxes(phys, m, T),
+        lambda: fw.forward_fluxes(phys, mb, copies_of(T, P)))
 
     thermo = make_thermo(cfg, device=DEVICE)
+    rad = run.rad
 
-    def gap(T, ref=run.T_lay):
-        diff = (T - ref).abs().cpu()
-        return float(diff[-1]), float(diff[:-1].max())
+    def adjustment(batch):
+        wrap = (lambda x: copies_of(x, P)) if batch else (lambda x: x)
+        arrays = mb if batch else m
+        T0 = wrap(rad.T_lay)
+        kap, c_p = kappa_cp_lay(thermo, T0, arrays.p_lay)
+        kap_int = kappa_int(thermo, interp_ops.interface_temperatures(T0),
+                            arrays.p_int)
+        return convect.convective_adjustment(
+            T0, arrays.p_lay, arrays.p_int, kap, kap_int, c_p,
+            wrap(rad.cache.meanmolmass_lay), iter_value=0,
+            T_star=phys.T_star, input_dampara=phys.input_dampara,
+            F_intern=phys.F_intern,
+            F_add_heat_sum=wrap(rad.cache.F_add_heat_sum),
+            F_smooth_sum=wrap(rad.F_smooth_sum),
+            F_down_tot=wrap(rad.totals.F_down_tot),
+            F_up_tot=wrap(rad.totals.F_up_tot))
 
-    def fluxes_moved(rad):
-        flux = type(rad.flux)(*(one_ulp(f, np.inf) for f in rad.flux))
-        return rad._replace(flux=flux, totals=integrate_flux_flat(
-            run.phys, run.arrays, flux, rad.cache.F_dir))
+    adjust = op_diagnosis(f"{label}: the convective adjustment", P,
+                          lambda: adjustment(False), lambda: adjustment(True))
+    for what, res in (("forward solve", forward), ("adjustment", adjust)):
+        found, compared = res["ordered"]
+        check(compared > 0 and not found,
+              f"{label}: with the fixed-order sums a batch member differs "
+              f"from its {what} alone at {found[:1]}")
 
-    moves = [("unchanged", lambda rad: rad),
-             ("fluxes +1 ulp", fluxes_moved),
-             ("T +1 ulp", lambda rad: rad._replace(
-                 T_lay=one_ulp(rad.T_lay, np.inf)))]
-    rows = {}
-    for name, move in moves:
-        conv = convection_loop(run.phys, run.arrays, thermo,
-                               move(cloned(run.rad)))
-        rows[name] = (conv.it,) + gap(conv.T_lay)
-        if name == "unchanged":
-            check(torch.equal(conv.T_lay, run.T_lay)
-                  and conv.it == run.conv.it,
-                  f"{label}: path a's convection loop entered again from "
-                  f"its radiation result is not bit for bit path a")
-    stopped = convection_loop(run.phys, run.arrays, thermo, cloned(run.rad),
-                              max_steps=member.conv.it)
-    at_stop = dict(against_path_a=gap(stopped.T_lay),
-                   against_member=gap(stopped.T_lay, member.T_lay))
     copies = ens.run_ensemble(
-        [dataclasses.replace(cfg, name=f"copy_{k}")
-         for k in range(ENSEMBLE_P)], tables=[table] * ENSEMBLE_P,
-        write_output=False, device=DEVICE)
-    same = [(o.rad.it, o.conv.it) + gap(o.T_lay) + ghost_zone(o)
-            for o in copies]
-    log(f"{label}: path a's convection loop entered again from its "
-        f"radiation result, against path a's {run.conv.it} convection "
-        f"iterations (convection iterations, |dT| of the surface ghost, "
-        f"max |dT| elsewhere, in K): {rows}; stopped at the member's "
-        f"{member.conv.it} (|dT| of the ghost, max elsewhere): {at_stop}; "
-        f"{ENSEMBLE_P} copies of path a's planet as one batch (radiation "
-        f"and convection iterations, |dT| of the ghost, max elsewhere, "
-        f"against path a, ghost and layer 0 convective): {same}")
-    return dict(moves=rows, at_stop=at_stop, copies=same)
+        [dataclasses.replace(cfg, name=f"copy_{k}") for k in range(P)],
+        tables=[table] * P, write_output=False, device=DEVICE)
+    counts = [(o.rad.it, o.conv.it) for o in copies]
+    bitwise = [torch.equal(o.T_lay, run.T_lay) for o in copies]
+    log(f"{label}: {P} copies of path a's planet as one batch: iterations "
+        f"(radiation, convection) {counts} against path a's "
+        f"{(run.rad.it, run.conv.it)}; final T bit for bit path a's: "
+        f"{bitwise}")
+    check(len(set(counts)) == 1 and all(bitwise)
+          and counts[0] == (run.rad.it, run.conv.it),
+          f"{label}: the {P} copies stop at {counts}, T bit for bit "
+          f"{bitwise}")
+    summary = lambda res: {route: dict(
+        compared=c, differing=len(f),
+        first=(dict(op=f[0][0], site=f[0][1], slots=f[0][2],
+                    rel=f[0][3], slot_classes=f[0][4]) if f else None))
+        for route, (f, c) in res.items()}
+    return dict(forward=summary(forward), adjustment=summary(adjust),
+                copies=counts, copies_bitwise=bitwise)
 
 
 def batched_vs_solo_forward(phys, arrays, stacked, T, k=0):
@@ -2383,10 +2770,7 @@ def ensemble_path(tmpdir, launch_counts, flag_out, T_start):
         f"{ENSEMBLE_P / wall * 3600:.0f} planets per hour against "
         f"{3600 / solo_wall:.0f}; peak device memory {peak / 2**20:.0f} MiB "
         f"= {peak / 2**20 / ENSEMBLE_P:.0f} MiB per member")
-    same, ghost, rest = member_against(
-        "ensemble path, member 0 against path a", outs[0], flag_out,
-        same_radiation_count=True)
-    causes = gap_causes("ensemble path", flag_out, cfg0, table, outs[0])
+    causes = gap_causes("ensemble path", flag_out, cfg0, table)
     fwd_same, fwd_rel = batched_vs_solo_forward(
         flag_out.phys, flag_out.arrays,
         ens.stack_models([o.arrays for o in outs]), flag_out.T_lay)
@@ -2394,10 +2778,25 @@ def ensemble_path(tmpdir, launch_counts, flag_out, T_start):
         f"alone at path a's final T on the card: "
         f"{'bit for bit' if fwd_same else 'not bit for bit'} (max rel "
         f"difference of the totals {fwd_rel:.3e})")
+    check(fwd_same, "ensemble path: member 0's forward solve in the batch "
+          "is not bit for bit its solve alone")
+    same, ghost, rest = member_against(
+        "ensemble path, member 0 against path a", outs[0], flag_out)
     stacked = ens.stack_models([o.arrays for o in outs])
     T0b = torch.stack([T_start] * ENSEMBLE_P, dim=1)
     bd = time_breakdown(f"{ENSEMBLE_P}-planet flagship batch", outs[0].phys,
-                        stacked, T0b, ("noniso_sweep",))
+                        stacked, T0b, ("noniso_sweep", "ordered_sum"))
+    # the fixed order's cost: the same iterations with torch's sums
+    with patched_sites(lambda n, f: TORCH_ROUTE.get(n, f)):
+        bd_torch = time_breakdown(
+            f"{ENSEMBLE_P}-planet flagship batch with torch's sums",
+            outs[0].phys, stacked, T0b, ("noniso_sweep",))
+    log(f"ensemble path: the fixed-order sums cost "
+        f"{bd['busy_ms'] - bd_torch['busy_ms']:.3f} ms of device time per "
+        f"batched radiation iteration ({bd['busy_ms']:.3f} against "
+        f"{bd_torch['busy_ms']:.3f} ms with torch's sums, "
+        f"{100 * (bd['busy_ms'] / bd_torch['busy_ms'] - 1):.1f}%) and "
+        f"{bd['wall_ms'] - bd_torch['wall_ms']:.3f} ms of host wall")
     worst = totals_cuda_vs_cpu(
         "ensemble path", outs[0].phys, stacked,
         torch.stack([o.T_lay for o in outs], dim=1),
@@ -2409,7 +2808,8 @@ def ensemble_path(tmpdir, launch_counts, flag_out, T_start):
                 member0_bitwise=same, member0_ghost_dT=ghost,
                 member0_rest_dT=rest, gap_causes=causes,
                 forward_bitwise=fwd_same, forward_rel=fwd_rel,
-                breakdown=bd, cuda_vs_cpu=worst, iterations=its)
+                breakdown=bd, breakdown_torch_sums=bd_torch,
+                cuda_vs_cpu=worst, iterations=its)
 
 
 def capture_ensemble_main(argv, table):
@@ -2487,7 +2887,7 @@ def ensemble_cli_path(k, tmpdir, launch_counts, resumed_counts):
         files[name] = output_files(run_dir)
     same, ghost, rest = member_against(
         "ensemble CLI, the dark member against path k's run", outs[0],
-        k["ref"], same_radiation_count=False)
+        k["ref"])
     wall = outs[0].wall_seconds
 
     torch.cuda.synchronize()
@@ -2498,7 +2898,10 @@ def ensemble_cli_path(k, tmpdir, launch_counts, resumed_counts):
     resumed_counts.update(read_counts())
     check(code == 0 and "Done! Ensemble of 3 planets" in printed,
           "ensemble CLI: the second call failed")
-    check(resumed_counts == only(),
+    # the restore rebuilds the radiation state's band totals from the
+    # checkpoint (ordered_sum), and no flux is solved
+    check(all(n == 0 for name, n in resumed_counts.items()
+              if name != "ordered_sum"),
           f"ensemble CLI: the resumed call launched {resumed_counts}")
     for name in names:
         check(output_files(os.path.join(out_dir, name)) == files[name],
@@ -2542,6 +2945,9 @@ def main():
     r32 = ro_case(torch.float32, bandwidth)
     q64 = ro_ragged_case(torch.float64)
     q32 = ro_ragged_case(torch.float32)
+    o64 = ordered_case(torch.float64, 1e-13, bandwidth)
+    o32 = ordered_case(torch.float32, 1e-4, bandwidth)
+    host_tools_phase()
     # the same kernels at an ensemble's width: P = 8 planets' columns
     ens_S = ENSEMBLE_P * NBIN_FLAG * NY_FLAG
     e64 = sweep_case(torch.float64, 1e-12, bandwidth, S=ens_S)
@@ -2564,8 +2970,15 @@ def main():
                               "ensemble_cli", "ensemble_cli_resumed")}
     out, T_start = main_path(counts["flagship_rce"])
     T_start = torch.as_tensor(T_start, dtype=out.T_lay.dtype, device=DEVICE)
-    time_breakdown("flagship", out.phys, out.arrays, T_start,
-                   ("noniso_sweep",))
+    flag_bd = time_breakdown("flagship", out.phys, out.arrays, T_start,
+                             ("noniso_sweep", "ordered_sum"))
+    with patched_sites(lambda n, f: TORCH_ROUTE.get(n, f)):
+        flag_torch = time_breakdown("flagship with torch's sums", out.phys,
+                                    out.arrays, T_start, ("noniso_sweep",))
+    log(f"flagship: the fixed-order sums cost "
+        f"{flag_bd['busy_ms'] - flag_torch['busy_ms']:.3f} ms of device "
+        f"time and {flag_bd['wall_ms'] - flag_torch['wall_ms']:.3f} ms of "
+        f"host wall per radiation iteration")
     with tempfile.TemporaryDirectory() as ens_dir:
         ensemble_path(ens_dir, counts["flagship_ensemble"], out, T_start)
     pp = postprocessing_path(out, counts["post_processing"], i64["ms_1001"])
@@ -2687,9 +3100,31 @@ def main():
                            on_the_fly_of=otf["general_cells_of"]),
         fp32=pick(r32, base),
         ensemble=dict(pick(er64, base), cells=er64["C"]))
+    ordered = dict(
+        name="ordered_sum", route="cuda",
+        source="helios_tpu_torch/csrc/ordered_sum.cu",
+        replaces="helios_tpu/forward.py:668 (jnp.sum of the band totals, "
+                 "no pallas_call: the loops' sums and scans in a fixed "
+                 "order, ROADMAP C.8)",
+        launches=counts["flagship_rce"]["ordered_sum"],
+        max_abs_err=o64["max_abs_err"], ms=o64["ms"],
+        plain_ms=o64["plain_ms"], bound_ms=o64["bound_ms"],
+        bound_by=o64["bound_by"], library_ms=o64["plain_ms"],
+        library="torch.sum, which is also the plain version",
+        launches_by_path=by_path("ordered_sum"),
+        max_rel_err=o64["max_rel_err"],
+        bound_ms_measured_bw=o64["bound_ms_measured_bw"],
+        in_order_ms=o64["in_order_ms"], bitwise_vs_in_order=True,
+        cases=o64["cases"],
+        fp32=pick(o32, base + ("in_order_ms", "device_ms")),
+        device_ms=o64["device_ms"],
+        ensemble={k: o64["ensemble_" + k] for k in (
+            "ms", "device_ms", "plain_ms", "in_order_ms", "bound_ms",
+            "bound_by")})
     log(f"matrix flagship converged: {mat['converged']}; chip_smoke took "
         f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [noniso, iso, thomas, ro]}), flush=True)
+    print(json.dumps({"kernels": [noniso, iso, thomas, ro, ordered]}),
+          flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from helios_tpu_torch import constants as pc
+from helios_tpu_torch.kernels.ordered import ordered_cumsum, ordered_sum
 from helios_tpu_torch.kernels.sweep import iso_sweep, noniso_sweep
 from helios_tpu_torch.ops.twostream import (E_maybe, G_limiter, _G_pm,
                                             single_scat_albedo, trans_func,
@@ -96,7 +97,7 @@ def cell_quantities_flat(opac_flat, meanmolmass, ray_band, cloud_abs_band,
 def _rev_cumsum_above(dtau):
     """[L, S] -> [L+1, S]: row i = sum of dtau over layers l >= i (the
     optical depth above interface i); row L (TOA) is zero."""
-    rev = torch.flip(torch.cumsum(torch.flip(dtau, [0]), dim=0), [0])
+    rev = torch.flip(ordered_cumsum(torch.flip(dtau, [0]), 0), [0])
     return torch.cat([rev, torch.zeros_like(dtau[:1])], dim=0)
 
 
@@ -415,6 +416,7 @@ def fband_noniso_flat(C: FlatNonIsoCoeffs, F_dir0, F_up_prev, Fc_up_prev,
 # --------------------------------------------------------------------------- #
 
 def gauss_band_flat(f_flat, gauss_weight):
-    """[.., S] -> [.., B]: 0.5 * sum_y w_y f."""
+    """[.., S] -> [.., B]: 0.5 * sum_y w_y f, the sum in y order on the
+    card (kernels.ordered)."""
     ny = gauss_weight.shape[0]
-    return 0.5 * torch.sum(flat_to_cube(f_flat, ny) * gauss_weight, dim=-1)
+    return 0.5 * ordered_sum(flat_to_cube(f_flat, ny) * gauss_weight, -1)

@@ -36,6 +36,7 @@ from helios_tpu_torch import planck as planck_mod
 from helios_tpu_torch.config import HeliosConfig
 from helios_tpu_torch.device import resolve_device, torch_dtype
 from helios_tpu_torch.io.opacity import OpacityTable, gauss_legendre_ypoints
+from helios_tpu_torch.kernels.ordered import ordered_cumsum, ordered_sum
 from helios_tpu_torch.ops import integrate as int_ops
 from helios_tpu_torch.ops import interp as interp_ops
 from helios_tpu_torch.ops import thomas as thomas_ops
@@ -325,7 +326,7 @@ def altitude_z(phys: Phys, m: ModelArrays, T_lay, meanmolmass_lay):
                * memberwise(torch.log, m.p_int[:L] / m.p_int[1:],
                             batched=T_lay.dim() > 1))
     mid = 0.5 * (delta_z[:-1] + delta_z[1:])
-    s = torch.cat([torch.zeros_like(delta_z[:1]), torch.cumsum(mid, 0)])
+    s = torch.cat([torch.zeros_like(delta_z[:1]), ordered_cumsum(mid, 0)])
     if phys.planet_type == "gas":
         mask = m.p_lay >= 1e7
         idx = torch.where(mask, layer_index(L, mask), -1).amax(dim=0)
@@ -487,7 +488,7 @@ def compute_cells(phys: Phys, m: ModelArrays, T_lay, T_int,
     # additional heating flux per layer: volumetric density * layer height
     # (host_functions.py:701-711), refreshed with delta_z
     F_add_heat_lay = m.add_heat_dens * delta_z
-    F_add_heat_sum = torch.cumsum(F_add_heat_lay, 0)
+    F_add_heat_sum = ordered_cumsum(F_add_heat_lay, 0)
 
     return CellCache(cells_or_upper=upper, lower=lower,
                      scat_trigger=scat_trigger, F_dir=F_dir, Fc_dir=Fc_dir,
@@ -559,9 +560,8 @@ def integrate_flux_flat(phys: Phys, m: ModelArrays, flux_state: FluxState,
     F_down_band = fp.gauss_band_flat(flux_state.F_down, m.gauss_weight)
     F_up_band = fp.gauss_band_flat(flux_state.F_up, m.gauss_weight)
     F_dir_band = fp.gauss_band_flat(F_dir_flat, m.gauss_weight)
-    F_up_tot = torch.sum(F_up_band * m.delta_lambda, dim=-1)
-    F_down_tot = torch.sum((F_dir_band + F_down_band) * m.delta_lambda,
-                           dim=-1)
+    F_up_tot = ordered_sum(F_up_band * m.delta_lambda, -1)
+    F_down_tot = ordered_sum((F_dir_band + F_down_band) * m.delta_lambda, -1)
     return int_ops.FluxTotals(
         F_down_band=F_down_band, F_up_band=F_up_band,
         F_dir_band=F_dir_band, F_down_tot=F_down_tot, F_up_tot=F_up_tot,

@@ -114,6 +114,22 @@ def _check_single_device(cfg0: HeliosConfig, dev: torch.device):
             f"{need} devices (n_planet_batch={n_pl}, ROADMAP A.13)")
 
 
+def ensemble_chunk(cfg0: HeliosConfig, phys: Phys) -> Optional[int]:
+    """Iterations per chunk of an ensemble, by the JAX package's ensemble
+    rule (helios_tpu/parallel/ensemble.py:349-357): None (one straight
+    run) without progress lines and checkpoints or in a single-walk run;
+    else ``chunk_iters``, capped at ``checkpoint_every`` when checkpoints
+    are on, rounded down to the 10-iteration cache-refresh cadence, at
+    least 10.  Unlike a single run's (pipeline.monitored_chunk), the plot
+    interval plays no part: an ensemble draws no plots."""
+    if not (cfg0.progress or cfg0.checkpoint_every > 0) or phys.singlewalk:
+        return None
+    chunk = cfg0.chunk_iters
+    if cfg0.checkpoint_every > 0:
+        chunk = min(chunk, cfg0.checkpoint_every)
+    return max(chunk // 10 * 10, 10)
+
+
 def run_ensemble(cfgs: Sequence, tables: Optional[Sequence] = None,
                  write_output: bool = True, sset=None,
                  device="cuda") -> List[pl.RunOutput]:
@@ -171,12 +187,10 @@ def run_ensemble(cfgs: Sequence, tables: Optional[Sequence] = None,
     # config 0 drives the chunking, the progress lines and one checkpoint
     # pair for the whole batch, under the first member's directory, written
     # after every chunk as the JAX package's ensemble writes it
-    chunk = None
+    chunk = ensemble_chunk(cfg0, phys)
     rad_cbs, conv_cbs = [], []
     rad0 = conv0 = None
     rad_it0 = np.zeros(len(cfgs), int)
-    if (cfg0.progress or cfg0.checkpoint_every > 0) and not phys.singlewalk:
-        chunk = pl.monitored_chunk(cfg0, 0)
     if chunk is not None and cfg0.progress:
         rad_cbs.append(EnsembleProgress(len(cfgs)))
         conv_cbs.append(EnsembleProgress(len(cfgs)))

@@ -26,6 +26,7 @@ import torch
 
 from helios_tpu_torch import constants as pc
 from helios_tpu_torch.forward import layer_index
+from helios_tpu_torch.kernels.ordered import ordered_cumsum
 from helios_tpu_torch.ops.members import memberwise
 
 # pressure above which the top atmosphere is ignored by the instability
@@ -203,7 +204,7 @@ def _adiabat_factors(p_lay, p_int, kappa_lay, kappa_int, zones: Zones):
              + kappa_lay * log(p_int[1:] / p_lay))
     log_b = kappa_int[:L] * log(p_lay / p_int[:L])
 
-    cs = torch.cumsum(log_a, 0)
+    cs = ordered_cumsum(log_a, 0)
     cs_prev = torch.cat([torch.zeros_like(cs[:1]), cs[:-1]])   # sum_{j<i}
 
     s = torch.clamp(_take(zones.start,
@@ -217,13 +218,14 @@ def _adiabat_factors(p_lay, p_int, kappa_lay, kappa_int, zones: Zones):
 def _segment_sum(values, seg, n):
     """sum of values[j] over j with seg[j] == k, for k < n.
 
-    A one-hot [n, len] mask summed in index order (cumsum's last column):
-    deterministic on the card, unlike an atomic ``index_add_``, and the
+    A one-hot [n, len] mask summed in index order (cumsum's last column,
+    kernels.ordered on the card): deterministic, unlike an atomic
+    ``index_add_``, the same for a planet alone and in a batch, and the
     same order as the sequential scatter-add of the JAX package on the
     CPU, so a 1-ulp difference cannot flip a convergence decision."""
     onehot = seg[None] == layer_index(n, seg[None])
     masked = torch.where(onehot, values[None], torch.zeros_like(values))
-    return torch.cumsum(masked, 1)[:, -1]
+    return ordered_cumsum(masked, 1)[:, -1]
 
 
 def conv_correct(T_lay, p_lay, p_int, kappa_lay, kappa_int, c_p_lay,

@@ -23,6 +23,7 @@ from helios_tpu_torch.forward import (CellCache, FluxState, ModelArrays, Phys,
                                       compute_cells, init_flux_state,
                                       integrate_flux_flat, layer_index,
                                       solve_fluxes)
+from helios_tpu_torch.kernels.ordered import ordered_cumsum
 from helios_tpu_torch.ops import integrate as int_ops
 from helios_tpu_torch.ops import interp as interp_ops
 from helios_tpu_torch.ops.members import (DeviceCopy, freeze_members,
@@ -115,7 +116,7 @@ def smoothing_flux(phys: Phys, T_lay, p_lay):
     # odd power of a signed base: pow keeps the sign, as in the reference
     F_smooth = memberwise(lambda x: torch.pow(x, 7.0), t_mid - t,
                           batched=t.dim() > 1)
-    return F_smooth, torch.cumsum(F_smooth, 0)
+    return F_smooth, ordered_cumsum(F_smooth, 0)
 
 
 # --------------------------------------------------------------------------- #

@@ -1,11 +1,11 @@
-"""Spectrum tools (a copy of the parts of :mod:`helios_tpu.tools` that the
-cloud preprocessing calls; that module imports only numpy, keep the two
-alike): energy-conserving rebinning and its analytic Planck bin integral
-for the extrapolation.
+"""Spectrum tools: energy-conserving rebinning, Gaussian convolution,
+analytic Planck bin integrals, and the readers of the output files.
 
-Math parity with reference source/tools.py:35-294, with the
-O(n_new * n_old) per-bin trapezoid loops replaced by one cumulative
-trapezoid over the old grid (identical sums, vectorized).
+A copy of :mod:`helios_tpu.tools`, which imports only numpy; keep the two
+alike.  Host-side numpy utilities shared by the clouds, star-tool and
+ktable pipelines.  Math parity with reference source/tools.py:35-294,
+with the O(n_new * n_old) per-bin trapezoid loops replaced by one
+cumulative trapezoid over the old grid (identical sums, vectorized).
 """
 
 from __future__ import annotations
@@ -106,3 +106,153 @@ def convert_spectrum(old_lambda, old_flux, new_lambda, int_lambda=None,
     bad = (~inside[:-1]) | (~inside[1:]) | edge_zero[:-1] | edge_zero[1:]
     new_flux = np.where(bad, extrapol, new_flux)
     return new_flux
+
+
+def read_helios_spectrum(file, type: str = "emission",
+                         star_fudge_factor=None):
+    """Read a ``*_TOA_flux_eclipse.dat`` output file (tools.py:297-343).
+
+    type: 'star', 'emission' or 'eclipse' selects the column; the
+    optional fudge factor scales the stellar spectrum (divides the
+    eclipse depth, where the star is in the denominator).
+    Returns (wavelength in the file's units [micron], spectrum) as
+    numpy arrays.
+    """
+    col = {"star": 4, "emission": 5, "eclipse": 6}.get(type)
+    if col is None:
+        raise ValueError("Unknown input for spectrum type!")
+    lamda, spec = [], []
+    with open(file) as f:
+        for _ in range(3):
+            next(f)
+        for line in f:
+            c = line.split()
+            if c:
+                lamda.append(float(c[1]))
+                spec.append(float(c[col]))
+    lamda, spec = np.asarray(lamda), np.asarray(spec)
+    if star_fudge_factor is not None:
+        if type == "star":
+            spec = spec * star_fudge_factor
+        elif type == "eclipse":
+            spec = spec / star_fudge_factor
+    return lamda, spec
+
+
+def rebin_spectrum_to_resolution(old_lamda, old_flux, resolution,
+                                 w_unit: str = "cm",
+                                 type: str = "linear"):
+    """Rebin a spectrum to a fixed resolution R = lamda/dlamda
+    (tools.py:346-394).
+
+    type 'linear' conserves bin energy, 'log' suits opacities, and
+    'gaussian' convolves with a Gaussian of FWHM = R.  w_unit 'cm' or
+    'micron' applies to both input and output wavelengths.
+    """
+    old_lamda = np.asarray(old_lamda, float)
+    old_flux = np.asarray(old_flux, float)
+    if w_unit == "micron":
+        old_lamda = old_lamda * 1e-4
+
+    ratio = (resolution + 1.0) / resolution
+    n = int(np.floor(np.log(old_lamda[-1] / old_lamda[0]) / np.log(ratio)))
+    rebin_lamda = old_lamda[0] * ratio ** np.arange(n + 1)
+    rebin_lamda = rebin_lamda[rebin_lamda < old_lamda[-1]]
+
+    if type == "gaussian":
+        _, rebin_flux = convolve_with_gaussian(old_lamda, old_flux,
+                                               resolution, rebin_lamda)
+    else:
+        rebin_flux = convert_spectrum(old_lamda, old_flux, rebin_lamda,
+                                      type=type, extrapolate_with_BB_T=0)
+
+    if w_unit == "micron":
+        rebin_lamda = rebin_lamda * 1e4
+    return rebin_lamda, rebin_flux
+
+
+def read_helios_tp(file, coupling_format: int = 0):
+    """Read a ``*_tp.dat`` TP profile incl. up to four convective zones
+    (tools.py:397-486).
+
+    Returns (press [bar], temp, press_conv0, temp_conv0, ...,
+    press_conv3, temp_conv3) -- the reference's 10-tuple, with the
+    convective zones being the first four contiguous runs of the
+    convective-layer flag (last row excluded, as in the reference).
+    coupling_format=1 reads the two-column coupling TP layout instead
+    (no convective zones).
+    """
+    press, temp, convective = [], [], []
+    if coupling_format == 0:
+        with open(file) as f:
+            next(f)
+            next(f)
+            for line in f:
+                c = line.split()
+                if not c:
+                    continue
+                press.append(float(c[2]) * 1e-6)
+                temp.append(float(c[1]))
+                try:
+                    convective.append(float(c[6]))
+                except (IndexError, ValueError):
+                    convective.append(0.0)
+    else:
+        with open(file) as f:
+            next(f)
+            for line in f:
+                c = line.split()
+                if c:
+                    press.append(float(c[0]) * 1e-6)
+                    temp.append(float(c[1]))
+
+    zones = [([], []) for _ in range(4)]
+    if coupling_format == 0 and len(press) > 1:
+        z = -1
+        prev = 0.0
+        for i in range(len(press) - 1):     # last row never examined
+            if convective[i] == 1:
+                if prev != 1:
+                    z += 1
+                if z >= 4:
+                    break
+                zones[z][0].append(press[i])
+                zones[z][1].append(temp[i])
+            prev = convective[i]
+
+    return (press, temp, zones[0][0], zones[0][1], zones[1][0],
+            zones[1][1], zones[2][0], zones[2][1], zones[3][0],
+            zones[3][1])
+
+
+def gauss_pdf(x, mu, hwhm):
+    """Gaussian pdf parameterized by half-width at half-maximum
+    (tools.py's gauss_pdf)."""
+    sigma = hwhm / np.sqrt(2.0 * np.log(2.0))
+    return (1.0 / (sigma * np.sqrt(2 * np.pi))
+            * np.exp(-0.5 * ((x - mu) / sigma) ** 2))
+
+
+def convolve_with_gaussian(old_lamda, old_flux, resolution, new_lamda=None):
+    """Gaussian convolution onto an R = ``resolution`` grid
+    (tools.py:66-113)."""
+    old_lamda = np.asarray(old_lamda, float)
+    old_flux = np.asarray(old_flux, float)
+
+    if new_lamda is None:
+        new_lamda = [old_lamda[0]]
+        while new_lamda[-1] < old_lamda[-1]:
+            new_lamda.append(new_lamda[-1] * (1.0 + 1.0 / resolution))
+    new_lamda = np.asarray(new_lamda, float)
+
+    delta = np.empty_like(old_lamda)
+    delta[0] = old_lamda[1] - old_lamda[0]
+    delta[-1] = old_lamda[-1] - old_lamda[-2]
+    delta[1:-1] = (old_lamda[2:] - old_lamda[:-2]) / 2
+
+    hwhm = new_lamda / (2.0 * resolution)
+    # [n_new, n_old] kernel, truncated at +-5 hwhm like the reference
+    d = old_lamda[None, :] - new_lamda[:, None]
+    k = gauss_pdf(d, 0.0, hwhm[:, None])
+    k = np.where(np.abs(d) <= 5.0 * hwhm[:, None], k, 0.0)
+    return new_lamda, k @ (old_flux * delta)

@@ -16,7 +16,8 @@ import re
 import pytest
 import torch
 
-from helios_tpu_torch.kernels import _build, _launch, ro, sweep, thomas
+from helios_tpu_torch.kernels import (_build, _launch, ordered, ro, sweep,
+                                      thomas)
 
 
 def _meta(dtype, *shape):
@@ -36,6 +37,8 @@ CALLS = {
         [_meta(dt, N, S)] * 3, {})),
     "ro_mix": (ro.ro_mix, lambda dt: (
         [_meta(dt, C, NY)] * 2 + [_meta(dt, NY)] * 2, {})),
+    "ordered_sum": (ordered.ordered_sum, lambda dt: (
+        [_meta(dt, L, S, NY)], dict(dim=1))),
 }
 CTYPE = {torch.float64: "double", torch.float32: "float"}
 

@@ -19,6 +19,8 @@ from helios_tpu_torch import pipeline as torch_pipeline
 from helios_tpu_torch.config import HeliosConfig
 from helios_tpu_torch.device import resolve_device, torch_dtype
 from helios_tpu_torch.io.opacity import synthetic_premixed_table
+from helios_tpu_torch.kernels.ordered import (in_order_reference,
+                                              ordered_cumsum, ordered_sum)
 from helios_tpu_torch.kernels.ro import ro_mix, ro_mix_reference
 from helios_tpu_torch.kernels.sweep import (iso_sweep, iso_sweep_reference,
                                             noniso_sweep,
@@ -50,15 +52,31 @@ def test_imports_neither_jax_nor_helios_tpu(path):
             f"{path.name} imports {mod}")
 
 
+HOST_TOOLS = ("chem_analytic", "realdata", "ktable/__init__",
+              "ktable/__main__", "ktable/build", "ktable/combine",
+              "ktable/continuous", "ktable/information", "ktable/params",
+              "ktable/rayleigh", "ktable/native/__init__",
+              "startool/__init__", "startool/__main__", "startool/functions")
+
+
 def test_import_check_holds_the_host_copies():
     """The JAX-free host modules the port keeps copies of (clouds and tools
-    among them) are held by the import check above, as is chip_smoke.py."""
+    among them, and the host tools: the analytic chemistry, the real-data
+    chain, ktable and startool) are held by the import check above, as is
+    chip_smoke.py."""
     checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for name in ("clouds", "tools", "host_physics", "config", "io/writers",
                  "io/opacity", "thermo", "plotting", "examples", "monitor",
-                 "checkpoint", "__main__"):
+                 "checkpoint", "__main__") + HOST_TOOLS:
         assert f"helios_tpu_torch/{name}.py" in checked, name
     assert "chip_smoke.py" in checked
+    # every module of helios_tpu's host tools has its copy
+    for sub in ("ktable", "startool"):
+        jax_side = {p.name for p in (ROOT / "helios_tpu" / sub).rglob("*.py")}
+        port = {p.name for p in (ROOT / "helios_tpu_torch" / sub).rglob(
+            "*.py")}
+        assert jax_side == port, sub
+    assert (ROOT / "helios_tpu_torch/ktable/native/kdistr.cpp").exists()
 
 
 @pytest.fixture
@@ -456,3 +474,65 @@ def test_cuda_ensemble_matches_cpu(cuda_device, tmp_path):
         assert not got.conv.keep_running and not got.conv.aborted
         torch.testing.assert_close(got.T_lay.cpu(), w.T_lay, rtol=1e-8,
                                    atol=0.0)
+
+
+# ordered sums: (shape, dim), the loops' Gauss, band and layer sums and
+# ragged rows
+ORDERED = [((7, 5, 4), 2), ((7, 13), 1), ((6, 9), 0), ((11,), 0),
+           ((3, 1, 5), 1), ((1,), 0)]
+
+
+@pytest.mark.parametrize("shape,dim", ORDERED)
+def test_ordered_sums_on_the_cpu_are_torch(shape, dim):
+    """On the CPU the wrappers are torch.sum and torch.cumsum, bit for bit,
+    and launch nothing; the in-order loop is a running sum from zero."""
+    x = torch.tensor(np.random.default_rng(8).uniform(-1.0, 1.0, shape))
+    before = ordered_sum.launches
+    assert torch.equal(ordered_sum(x, dim), torch.sum(x, dim=dim))
+    assert torch.equal(ordered_cumsum(x, dim), torch.cumsum(x, dim=dim))
+    assert ordered_sum.launches == before
+    scan = in_order_reference(x, dim, scan=True)
+    assert torch.equal(scan.select(dim, -1), in_order_reference(x, dim, False))
+    a = np.moveaxis(x.numpy(), dim, 0)
+    acc = np.zeros(a.shape[1:])
+    for k in range(a.shape[0]):
+        acc = acc + a[k]
+        np.testing.assert_array_equal(np.moveaxis(scan.numpy(), dim, 0)[k],
+                                      acc)
+
+
+@pytest.mark.parametrize("shape,dim", ORDERED)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_ordered_sums_are_in_order_at_any_slot(cuda_device, dtype,
+                                                    shape, dim):
+    """The kernel is the in-order loop bit for bit, within rounding of
+    torch's sums, and a row gives the same bits at every slot of a batch
+    of copies (the planet axis after the first axis)."""
+    x = torch.tensor(np.random.default_rng(9).uniform(1.0, 1e4, shape),
+                     dtype=dtype, device=cuda_device)
+    P = 5
+    xb = torch.stack([x] * P, dim=1).contiguous()
+    dimb = dim + 1 if dim > 0 else 0
+    for fn, scan in ((ordered_sum, False), (ordered_cumsum, True)):
+        got = fn(x, dim)
+        want = (torch.cumsum if scan else torch.sum)(x, dim)
+        torch.cuda.synchronize()
+        assert torch.equal(got, in_order_reference(x, dim, scan))
+        torch.testing.assert_close(got, want, rtol=1e-13 if dtype ==
+                                   torch.float64 else 1e-5, atol=0.0)
+        got_b = fn(xb, dimb)
+        axis = 0 if dim == 0 and not scan else 1
+        for p in range(P):
+            assert torch.equal(got_b.select(axis, p), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_ordered_sums_take_a_transposed_view(cuda_device, dtype):
+    """A non-contiguous input (a restored state's [P, L] transposed to
+    [L, P]) sums as its contiguous copy does, bit for bit."""
+    x = torch.tensor(np.random.default_rng(10).uniform(1.0, 1e4, (6, 40)),
+                     dtype=dtype, device=cuda_device).t()
+    assert not x.is_contiguous()
+    for fn in (ordered_sum, ordered_cumsum):
+        for dim in (0, 1):
+            assert torch.equal(fn(x, dim), fn(x.contiguous(), dim))
