@@ -2720,11 +2720,14 @@ def ensemble_path(tmpdir, launch_counts, flag_out, T_start):
     """Path n: run_ensemble of 8 flagship planets (path a's config and
     start profile, surface albedo 0.0, 0.1, ..., 0.7, the table in
     memory).  Every member finite and converged; one noniso_sweep launch
-    per batched flux solve (not 8); member 0 against path a's run (bit for
-    bit or the gap); the batch's wall against 8 x path a's, planets per
-    hour and the peak device memory per member; where a batched radiation
-    iteration's time goes; one batched forward_fluxes on the card against
-    the CPU."""
+    per batched flux solve (not 8); gap_causes (the first op at which a
+    member would differ with torch's sums; none with the fixed-order ones;
+    8 copies of path a's planet bit for bit path a); member 0's forward
+    solve and run bit for bit path a's; the batch's wall against 8 x path
+    a's, planets per hour and the peak device memory per member; where a
+    batched radiation iteration's time goes, with the fixed-order sums and
+    with torch's; one batched forward_fluxes on the card against the
+    CPU."""
     from helios_tpu_torch.parallel import ensemble as ens
 
     cfg0, table = flagship(tmpdir)
@@ -2848,9 +2851,9 @@ def ensemble_cli_path(k, tmpdir, launch_counts, resumed_counts):
     every 100 iterations, the table handed over as path k's is.  Each
     member's file set; the ensemble checkpoint pair under the first
     member's directory; one noniso_sweep launch per batched flux solve;
-    the dark member against path k's unmonitored run (bit for bit or the
-    gap); then the same command again, which resumes from the converged
-    checkpoints, makes no flux solve and leaves the files unchanged."""
+    the dark member bit for bit path k's unmonitored run; then the same
+    command again, which resumes from the converged checkpoints, makes no
+    flux solve and leaves the files unchanged."""
     from helios_tpu_torch import examples
     from helios_tpu_torch.config import config_from_cli
 
