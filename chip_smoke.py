@@ -138,6 +138,21 @@ Phases (any failure exits non-zero before the last line is printed):
         unmonitored run; then the same command again, which
         resumes from the converged checkpoints, solves no flux (only
         the restore's sums run) and leaves the files unchanged;
+     p. meshes of spectral slices on the one card: path a's flagship
+        through pipeline.run with n_spectral_shards 2 and 4 and the device
+        list cuda:0 x n (385 bins padded to 386 and 388): each run bit
+        for bit path a (final T, both iteration counts, the TOA band
+        fluxes), or else the forward fields that differ named and the run
+        held to rtol 1e-6; one noniso_sweep launch per slice and flux
+        solve; the walls and a radiation iteration's host and device time
+        against path a's; with one card, device="cuda" and 2 slices raise
+        the JAX package's RuntimeError;
+     q. the planet x spectral ensemble mesh: path n's first 4 members
+        through run_ensemble with n_planet_batch 2 and n_spectral_shards 2
+        on cuda:0 x 4 (two groups of two members, each over 2 slices):
+        each member bit for bit its path-n result (T, both counts), or else
+        held to rtol 1e-6; one noniso_sweep launch per slice and batched
+        flux solve of each group;
   5. a JSON line of the kernels, the nvidia-smi line, and the result line.
 
 Needs one CUDA card; exits non-zero without one.  Imports neither JAX nor
@@ -2812,7 +2827,174 @@ def ensemble_path(tmpdir, launch_counts, flag_out, T_start):
                 member0_rest_dT=rest, gap_causes=causes,
                 forward_bitwise=fwd_same, forward_rel=fwd_rel,
                 breakdown=bd, breakdown_torch_sums=bd_torch,
-                cuda_vs_cpu=worst, iterations=its)
+                cuda_vs_cpu=worst, iterations=its, outs=outs)
+
+
+# --------------------------------------------------------------------------- #
+# paths p and q: meshes of spectral slices on the one card
+# --------------------------------------------------------------------------- #
+
+SLICES = (2, 4)             # path p: 385 bins padded to 386 and to 388
+MESH_MEMBERS = 4            # path q: path n's first members on a 2 x 2 mesh
+
+
+def tensor_fields(x, prefix=""):
+    """(dotted name, tensor) of every tensor of a NamedTuple tree."""
+    for f, v in zip(x._fields, x):
+        if hasattr(v, "_fields"):
+            yield from tensor_fields(v, f"{prefix}{f}.")
+        elif isinstance(v, torch.Tensor):
+            yield prefix + f, v
+
+
+def sliced_forward_diff(phys, arrays, n, T):
+    """One forward solve at T, on one device and on n slices of the card
+    (gathered, the padded bins dropped): the fields of the cell cache, the
+    fluxes and the totals that are not bit for bit, in the order the
+    solve computes them, each with its largest difference relative to the
+    field's scale."""
+    from helios_tpu_torch.forward import forward_fluxes
+    from helios_tpu_torch.ops import slices
+    from helios_tpu_torch.parallel import sharding as shd
+
+    pphys, parr = shd.pad_spectral(phys, arrays, n)
+    m = shd.place_model(parr, shd.make_mesh(1, n, [DEVICE] * n))[0]
+    whole = forward_fluxes(phys, arrays, T)
+    sliced = [slices.gather(x, T.device) for x in forward_fluxes(pphys, m, T)]
+    found = []
+    for k, (w, g) in enumerate(zip(whole, sliced)):
+        for (name, a), (_, b) in zip(tensor_fields(w, f"{k}."),
+                                     tensor_fields(g, f"{k}.")):
+            b = b[..., :a.shape[-1]] if b.dim() else b
+            if not torch.equal(a, b):
+                scale = float(a.abs().max()) or 1.0
+                found.append((name, float((a - b).abs().max()) / scale))
+    return found
+
+
+def same_run(label, got, ref, fields=("F_up_band",)):
+    """A run against the same planet's reference run: final T, both
+    iteration counts and the TOA band fluxes bit for bit.  Returns
+    (bitwise, max rel |dT|)."""
+    counts = lambda o: (o.rad.it, o.conv.it if o.conv is not None else 0)
+    same = (torch.equal(got.T_lay.cpu(), ref.T_lay.cpu())
+            and counts(got) == counts(ref)
+            and all(np.array_equal(getattr(got.result, f)[-1],
+                                   getattr(ref.result, f)[-1])
+                    for f in fields))
+    rel = float(((got.T_lay.cpu() - ref.T_lay.cpu()).abs()
+                 / ref.T_lay.cpu().abs()).max())
+    log(f"{label}: {'bit for bit' if same else 'NOT bit for bit'} "
+        f"(iterations {counts(got)} against {counts(ref)}; max rel |dT| "
+        f"{rel:.3e})")
+    return same, rel
+
+
+def sliced_path(flag_out, flag_bd, T_start, counts_by_n):
+    """Path p: path a's flagship on 2 slices of the card and on 4 (385
+    bins padded to 386 and 388), through pipeline.run with
+    n_spectral_shards and a device list.  Each run bit for bit path a (T, both counts, the TOA
+    spectrum), or else the forward fields that differ are named and the run
+    is held to rtol 1e-6; noniso_sweep launched once per slice and flux
+    solve; the walls and a radiation iteration's host and device time
+    against path a's.  With one card, device="cuda" and 2 slices raise the
+    JAX package's RuntimeError."""
+    from helios_tpu_torch import pipeline
+    from helios_tpu_torch.parallel import sharding as shd
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        for n in SLICES:
+            cfg, table = flagship(tmpdir, n_spectral_shards=n)
+            reset_counts()
+            out = pipeline.run(cfg, table, write_output=False,
+                               device=[DEVICE] * n)
+            counts_by_n[n].update(read_counts())
+            label = f"sliced path, {n} slices"
+            check(np.all(np.isfinite(out.T_lay.cpu().numpy()))
+                  and not bool(out.rad.keep_running) and not out.rad.aborted
+                  and not out.conv.keep_running and not out.conv.aborted,
+                  f"{label}: the run did not converge")
+            solves = out.n_flux_solves
+            check(counts_by_n[n] == only(noniso_sweep=n * solves),
+                  f"{label}: launches {counts_by_n[n]} for {solves} flux "
+                  f"solves on {n} slices")
+            same, rel = same_run(f"{label} against path a", out, flag_out)
+            diff = []
+            if not same:
+                diff = sliced_forward_diff(flag_out.phys, flag_out.arrays, n,
+                                           flag_out.T_lay)
+                log(f"{label}: forward fields that differ from one device "
+                    f"(first computed first): {diff[:12]}")
+                check(rel <= 1e-6, f"{label}: T {rel:.3e} from path a's "
+                      "(limit 1e-6)")
+            pphys, parr = shd.pad_spectral(out.phys, out.arrays, n)
+            m = shd.place_model(parr, shd.make_mesh(1, n, [DEVICE] * n))[0]
+            bd = time_breakdown(f"{n}-slice flagship", pphys, m, T_start,
+                                ("noniso_sweep", "ordered_sum"))
+            log(f"{label}: wall {out.wall_seconds:.3f} s against path a's "
+                f"{flag_out.wall_seconds:.3f} s; a radiation iteration "
+                f"{bd['wall_ms']:.3f} ms of host wall and {bd['busy_ms']:.3f}"
+                f" ms of device time against {flag_bd['wall_ms']:.3f} and "
+                f"{flag_bd['busy_ms']:.3f} ms ({pphys.nbin} bins, "
+                f"{solves} flux solves = {counts_by_n[n]['noniso_sweep']} "
+                "noniso_sweep launches)")
+            res[n] = dict(bitwise=same, max_rel_dT=rel, differing=diff[:12],
+                          wall_s=out.wall_seconds, nbin=pphys.nbin,
+                          solves=solves, breakdown=bd)
+        if torch.cuda.device_count() == 1:
+            cfg, table = flagship(tmpdir, n_spectral_shards=2)
+            try:
+                pipeline.run(cfg, table, write_output=False, device="cuda")
+                raised = None
+            except RuntimeError as e:
+                raised = str(e)
+            check(raised is not None and "n_spectral_shards=2 but only 1 "
+                  "devices are visible" in raised,
+                  f"sliced path: device='cuda' on one card gave {raised!r}")
+            log(f"sliced path: device='cuda' with n_spectral_shards=2 on one "
+                f"card raises RuntimeError({raised!r})")
+    return res
+
+
+def ensemble_mesh_path(tmpdir, launch_counts, members):
+    """Path q: path n's first MESH_MEMBERS members through run_ensemble on
+    a 2 x 2 mesh of the card (n_planet_batch 2, n_spectral_shards 2, the
+    device list cuda:0 x 4): two groups of two members, each over 2 slices.
+    Each member bit for bit its path-n result (T and both counts), or else
+    held to rtol 1e-6; noniso_sweep launched once per slice and batched
+    flux solve of each group."""
+    from helios_tpu_torch.parallel import ensemble as ens
+
+    cfg0, table = flagship(tmpdir)
+    cfgs = [dataclasses.replace(cfg0, name=f"mesh_{k}",
+                                surf_albedo=max(1e-8, a), n_planet_batch=2,
+                                n_spectral_shards=2)
+            for k, a in enumerate(ENSEMBLE_ALBEDOS[:MESH_MEMBERS])]
+    reset_counts()
+    outs = ens.run_ensemble(cfgs, tables=[table] * MESH_MEMBERS,
+                            write_output=False, device=[DEVICE] * 4)
+    launch_counts.update(read_counts())
+    groups = [outs[:2], outs[2:]]
+    solves = [batched_flux_solves(g) for g in groups]
+    check(launch_counts == only(noniso_sweep=2 * sum(solves)),
+          f"ensemble mesh path: launches {launch_counts} for {solves} "
+          "batched flux solves of the two groups on 2 slices")
+    bitwise, rels = [], []
+    for k, (o, ref) in enumerate(zip(outs, members)):
+        same, rel = same_run(f"ensemble mesh path, member {k} against path "
+                             "n", o, ref)
+        bitwise.append(same)
+        rels.append(rel)
+        check(same or rel <= 1e-6, f"ensemble mesh path: member {k} T "
+              f"{rel:.3e} from path n's (limit 1e-6)")
+    log(f"ensemble mesh path: {MESH_MEMBERS} flagship planets on a 2 x 2 "
+        f"mesh of one card, wall {outs[0].wall_seconds:.3f} s (radiation "
+        f"loop {outs[0].rad_seconds:.3f} s, convection loop "
+        f"{outs[0].conv_seconds:.3f} s); batched flux solves per group "
+        f"{solves} = {launch_counts['noniso_sweep']} noniso_sweep launches")
+    return dict(bitwise=bitwise, max_rel_dT=rels, wall_s=outs[0].wall_seconds,
+                solves=solves)
 
 
 def capture_ensemble_main(argv, table):
@@ -2970,7 +3152,9 @@ def main():
                               "real_gas_coupling_1",
                               "real_gas_post_processing",
                               "real_gas_convection", "flagship_ensemble",
-                              "ensemble_cli", "ensemble_cli_resumed")}
+                              "ensemble_cli", "ensemble_cli_resumed",
+                              "sliced_flagship_2", "sliced_flagship_4",
+                              "ensemble_mesh")}
     out, T_start = main_path(counts["flagship_rce"])
     T_start = torch.as_tensor(T_start, dtype=out.T_lay.dtype, device=DEVICE)
     flag_bd = time_breakdown("flagship", out.phys, out.arrays, T_start,
@@ -2983,7 +3167,12 @@ def main():
         f"time and {flag_bd['wall_ms'] - flag_torch['wall_ms']:.3f} ms of "
         f"host wall per radiation iteration")
     with tempfile.TemporaryDirectory() as ens_dir:
-        ensemble_path(ens_dir, counts["flagship_ensemble"], out, T_start)
+        ens = ensemble_path(ens_dir, counts["flagship_ensemble"], out,
+                            T_start)
+        mesh_q = ensemble_mesh_path(ens_dir, counts["ensemble_mesh"],
+                                    ens["outs"][:MESH_MEMBERS])
+    sliced_p = sliced_path(out, flag_bd, T_start, {
+        n: counts[f"sliced_flagship_{n}"] for n in SLICES})
     pp = postprocessing_path(out, counts["post_processing"], i64["ms_1001"])
     iso_rce_path(counts["iso_rce"])
     mat = matrix_path(out, counts["matrix_rce"])
@@ -3035,6 +3224,8 @@ def main():
         max_rel_err=f64["max_rel_err"],
         bound_ms_measured_bw=f64["bound_ms_measured_bw"],
         also_replaces="helios_tpu/kernels/sweep_pallas.py:162",
+        sliced_bitwise={n: r["bitwise"] for n, r in sliced_p.items()},
+        ensemble_mesh_bitwise=mesh_q["bitwise"],
         ragged_max_rel_err=dict(fp64=g64["noniso_sweep"],
                                 fp32=g32["noniso_sweep"]),
         max_rel_err_7_1001_passes=dict(fp64=g64["noniso_sweep_7_1001"],

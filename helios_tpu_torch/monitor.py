@@ -21,6 +21,11 @@ Callbacks:
 Profiling: with ``profile_dir`` the second chunk of the radiation loop runs
 under ``torch.profiler`` and its Chrome trace is written there (the first
 chunk includes the kernels' first-use build and load).
+
+On a mesh (``mesh``, :mod:`helios_tpu_torch.parallel.sharding`) each chunk
+runs over the slices and the planet positions, and between chunks the state
+is whole on the home device, so that every callback reads it as a run on
+one device gives it.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 
 from helios_tpu_torch.forward import ModelArrays, Phys
 from helios_tpu_torch.ops.members import loop_counter, running_members
+from helios_tpu_torch.parallel import sharding as shd
 from helios_tpu_torch.rce.loop import convection_loop
 from helios_tpu_torch.rce.radiative import (RadLoopState, init_rad_state,
                                             radiation_loop)
@@ -104,35 +110,51 @@ def run_radiation_chunked(phys: Phys, m: ModelArrays, thermo, T_lay0, *,
                           chunk_iters: Optional[int] = 100, sset=None,
                           callbacks: Sequence[Callback] = (),
                           state0: Optional[RadLoopState] = None,
-                          profile_dir: Optional[str] = None) -> RadLoopState:
+                          profile_dir: Optional[str] = None,
+                          mesh: Optional[shd.Mesh] = None) -> RadLoopState:
     """Radiation loop with host observation every ``chunk_iters`` steps
     (None: one chunk).  The same trajectory as the straight loop, bit for
     bit: a chunk is one call of the loop with ``max_steps``.  ``state0``
     resumes from a restored state.  A post-processing run is one flux
-    solve, with no callbacks."""
-    if phys.singlewalk:
-        return radiation_loop(phys, m, thermo, T_lay0, sset=sset)
-    state = state0 if state0 is not None else init_rad_state(
-        phys, m, T_lay0, sset)
-    step = lambda s: radiation_loop(phys, m, thermo, s.T_lay,
-                                    max_steps=chunk_iters, sset=sset,
-                                    state0=s)
+    solve, with no callbacks.  ``mesh``: the loop runs on this mesh, ``m``
+    and ``sset`` placed on it (sharding.place_model, place_species)."""
+    if mesh is not None:
+        rad_init, rad_run, _, _ = shd.production_runners(
+            phys, mesh, thermo, sset, chunk_iters=chunk_iters)
+        state = state0 if state0 is not None else rad_init(m, T_lay0)
+        if phys.singlewalk:
+            return rad_run(m, state)
+        step = lambda s: rad_run(m, s)
+    else:
+        if phys.singlewalk:
+            return radiation_loop(phys, m, thermo, T_lay0, sset=sset)
+        state = state0 if state0 is not None else init_rad_state(
+            phys, m, T_lay0, sset)
+        step = lambda s: radiation_loop(phys, m, thermo, s.T_lay,
+                                        max_steps=chunk_iters, sset=sset,
+                                        state0=s)
     return _run_chunks(state, step, "radiation", callbacks, profile_dir)
 
 
 def run_convection_chunked(phys: Phys, m: ModelArrays, thermo, rad, *,
                            chunk_iters: Optional[int] = 100, sset=None,
                            callbacks: Sequence[Callback] = (),
-                           state0=None):
+                           state0=None, mesh: Optional[shd.Mesh] = None):
     """Convection loop with host observation every ``chunk_iters`` steps
     (the same continuation as run_radiation_chunked).  ``state0`` resumes
     from a restored ConvLoopState instead of entering from the radiation
-    result ``rad``."""
-    state = state0 if state0 is not None else convection_loop(
-        phys, m, thermo, rad, max_steps=0, sset=sset)
-    step = lambda s: convection_loop(phys, m, thermo, rad,
-                                     max_steps=chunk_iters, sset=sset,
-                                     state0=s)
+    result ``rad``.  ``mesh``: as in run_radiation_chunked."""
+    if mesh is not None:
+        _, _, conv_enter, conv_run = shd.production_runners(
+            phys, mesh, thermo, sset, chunk_iters=chunk_iters)
+        state = state0 if state0 is not None else conv_enter(m, rad)
+        step = lambda s: conv_run(m, s)
+    else:
+        state = state0 if state0 is not None else convection_loop(
+            phys, m, thermo, rad, max_steps=0, sset=sset)
+        step = lambda s: convection_loop(phys, m, thermo, rad,
+                                         max_steps=chunk_iters, sset=sset,
+                                         state0=s)
     return _run_chunks(state, step, "convection", callbacks)
 
 

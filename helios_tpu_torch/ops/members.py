@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from helios_tpu_torch.ops.slices import Slices
+
 # ModelArrays fields: where each takes the planet axis (after the layer
 # axis of per-layer arrays, after the (T, P) axes of the opacity tables
 # and their grids, first in per-band rows); None: one tensor for the batch
@@ -48,11 +50,14 @@ def state_axis(name: str, x: torch.Tensor) -> int:
 
 
 def _map_state(fn, state, *others):
-    """``fn(name, leaf, *other_leaves)`` over a NamedTuple tree."""
+    """``fn(name, leaf, *other_leaves)`` over a NamedTuple tree (the
+    values of spectral :class:`Slices` one by one)."""
     def walk(name, x, *ys):
         if hasattr(x, "_fields"):
             return type(x)(*(walk(f, *v) for f, *v
                              in zip(x._fields, x, *ys)))
+        if isinstance(x, Slices):
+            return Slices(walk(name, *v) for v in zip(x, *ys))
         return fn(name, x, *ys)
 
     return type(state)(*(walk(f, *v) for f, *v
@@ -83,11 +88,39 @@ def freeze_members(new, old, running):
         if isinstance(n, np.ndarray):
             return np.where(run_host, n, o)
         axis = state_axis(name, n)
-        mask = run_dev.reshape((1,) * axis + run_dev.shape
-                               + (1,) * (n.dim() - axis - 1))
+        mask = run_dev.to(n.device).reshape(
+            (1,) * axis + run_dev.shape + (1,) * (n.dim() - axis - 1))
         return torch.where(mask, n, o)
 
     return _map_state(pick, new, old)
+
+
+def member_groups(state, n: int):
+    """A batch's state (or temperatures [L+1, P]) as ``n`` batches of
+    consecutive members, views of it."""
+    is_state = hasattr(state, "_fields")
+    size = (state.T_lay if is_state else state).shape[1] // n
+
+    def part(g):
+        def pick(name, x):
+            if isinstance(x, np.ndarray):
+                return x[g * size:(g + 1) * size]
+            return x.narrow(state_axis(name, x), g * size, size)
+        return _map_state(pick, state) if is_state else pick(None, state)
+
+    return [part(g) for g in range(n)]
+
+
+def join_members(states, device):
+    """The inverse of :func:`member_groups`: whole batches' states joined
+    member by member on ``device``."""
+    def cat(name, *xs):
+        if isinstance(xs[0], np.ndarray):
+            return np.concatenate(xs)
+        return torch.cat([x.to(device) for x in xs],
+                         dim=state_axis(name, xs[0]))
+
+    return _map_state(cat, states[0], *states[1:])
 
 
 def running_members(state) -> np.ndarray:

@@ -18,9 +18,15 @@ opacity table), as may the initial TP profile.  Config 0 drives the
 shared machinery: the thermodynamics source, the species set of
 on-the-fly mixing, chunking, progress and checkpoints.
 
-One device, no mesh: the JAX package shards the batch over a ("planet",
-"spectral") mesh only when ``n_planet_batch`` > 1 and enough devices are
-visible; that mesh is ROADMAP A.13 here.
+With ``n_planet_batch`` > 1 and ``n_planet_batch`` x ``n_spectral_shards``
+devices at hand, the batch runs on a ("planet", "spectral") mesh
+(:mod:`helios_tpu_torch.parallel.sharding`), as the JAX package's does:
+the members split into ``n_planet_batch`` groups of consecutive members,
+each group a batch over its ``n_spectral_shards`` slices (the bin axis
+padded to a multiple of them), the groups one after another in every chunk;
+with fewer devices it runs on one.  Between chunks the batch's state is
+whole on the home device, so the progress lines and the one checkpoint
+pair hold every member.
 """
 
 from __future__ import annotations
@@ -36,13 +42,14 @@ import torch
 from helios_tpu_torch import checkpoint as ckpt_mod
 from helios_tpu_torch import pipeline as pl
 from helios_tpu_torch.config import HeliosConfig
-from helios_tpu_torch.device import resolve_device, torch_dtype
+from helios_tpu_torch.device import torch_dtype
 from helios_tpu_torch.forward import ModelArrays, Phys
 from helios_tpu_torch.io import writers
 from helios_tpu_torch.monitor import (run_convection_chunked,
                                       run_radiation_chunked)
 from helios_tpu_torch.ops.members import (MODEL_AXIS, member_state,
                                           running_members)
+from helios_tpu_torch.parallel import sharding as shd
 
 def stack_models(models: Sequence[ModelArrays]) -> ModelArrays:
     """N ModelArrays as one batch: each field with the planet axis where
@@ -100,18 +107,19 @@ class EnsembleProgress:
         stream.flush()
 
 
-def _check_single_device(cfg0: HeliosConfig, dev: torch.device):
-    """The JAX package shards the batch over a mesh when ``n_planet_batch``
-    > 1 and n_planet_batch * n_spectral_shards devices are visible, and
-    runs it on one device otherwise; so does the port, without the mesh."""
+def ensemble_mesh(cfg0: HeliosConfig, device):
+    """The JAX package's ensemble mesh (helios_tpu/parallel/ensemble.py:
+    364-372): n_planet_batch x n_spectral_shards devices when
+    ``n_planet_batch`` > 1 and that many are at hand (see
+    sharding.visible_devices), else None (one device)."""
     n_pl = int(cfg0.n_planet_batch)
-    if n_pl <= 1 or dev.type != "cuda":
-        return
-    need = n_pl * max(int(cfg0.n_spectral_shards), 1)
-    if torch.cuda.device_count() >= need:
-        raise NotImplementedError(
-            f"not ported to helios_tpu_torch yet: the planet mesh over "
-            f"{need} devices (n_planet_batch={n_pl}, ROADMAP A.13)")
+    if n_pl <= 1:
+        return None
+    n_spec = max(int(cfg0.n_spectral_shards), 1)
+    devs = shd.visible_devices(device, n_pl * n_spec)
+    if len(devs) < n_pl * n_spec:
+        return None
+    return shd.make_mesh(n_pl, n_spec, devs[:n_pl * n_spec])
 
 
 def ensemble_chunk(cfg0: HeliosConfig, phys: Phys) -> Optional[int]:
@@ -143,13 +151,17 @@ def run_ensemble(cfgs: Sequence, tables: Optional[Sequence] = None,
     iterations with a progress line per chunk and one checkpoint pair for
     the batch, and a second call resumes from it.
     ``device`` defaults to CUDA; ``device="cpu"`` runs the plain kernel
-    versions.  Returns one RunOutput per member; the walls are the
-    batch's."""
+    versions.  With ``n_planet_batch`` > 1 (config 0's) the batch runs on
+    the mesh of :func:`ensemble_mesh`: the first visible CUDA devices for
+    "cuda", the CPU for "cpu", or a sequence of devices (one per mesh
+    position, row by row; a device may repeat); the member count must
+    divide by ``n_planet_batch``.  Returns one RunOutput per member; the
+    walls are the batch's."""
     t0 = time.perf_counter()
-    dev = resolve_device(device)
+    dev = shd.home_device(device)
     cfgs = [c if c._finalized else c.finalize() for c in cfgs]
     cfg0 = cfgs[0]
-    _check_single_device(cfg0, dev)
+    mesh = ensemble_mesh(cfg0, device)
 
     if (sset is None and cfg0.opacity_mixing == "on-the-fly"
             and tables is None):
@@ -175,7 +187,18 @@ def run_ensemble(cfgs: Sequence, tables: Optional[Sequence] = None,
     thermo = pl.make_thermo(cfg0, device=dev)
     want_conv = phys.convection and not phys.singlewalk and not phys.iso
 
+    # on a mesh the loops run on a copy with the bin axis padded to a
+    # multiple of the slices, placed on the mesh; restores read the padded
+    # copy whole on the home device
     m = stack_models(models)
+    phys_run, sset_run = phys, sset
+    m_loop, sset_loop = m, sset
+    if mesh is not None:
+        n_spec = mesh.shape["spectral"]
+        phys_run, m = shd.pad_spectral(phys, m, n_spec)
+        sset_run = shd.pad_species(sset, n_spec)
+        m_loop = shd.place_model(m, mesh)
+        sset_loop = shd.place_species(sset_run, mesh)
     T0 = torch.as_tensor(np.stack(T0s, axis=1), dtype=torch_dtype(cfg0.dtype),
                          device=dev)
 
@@ -198,24 +221,26 @@ def run_ensemble(cfgs: Sequence, tables: Optional[Sequence] = None,
         path, conv_path = pl.checkpoint_paths(cfg0, "ensemble.ckpt.npz")
         ck = ckpt_mod.load_rad_checkpoint(path)
         if ck is not None and ckpt_mod.checkpoint_phase(ck) == "radiation":
-            rad0 = ckpt_mod.restore_rad_state(phys, m, ck, sset)
+            rad0 = ckpt_mod.restore_rad_state(phys_run, m, ck, sset_run)
             rad_it0 = rad0.it.copy()
         cck = ckpt_mod.load_conv_checkpoint(conv_path) if want_conv else None
         if cck is not None and ckpt_mod.checkpoint_phase(cck) == "convection":
-            conv0 = ckpt_mod.restore_conv_state(phys, m, cck, sset)
-        rad_cbs.append(ckpt_mod.CheckpointCallback(path, chunk, phys))
+            conv0 = ckpt_mod.restore_conv_state(phys_run, m, cck, sset_run)
+        rad_cbs.append(ckpt_mod.CheckpointCallback(path, chunk, phys_run))
         conv_cbs.append(ckpt_mod.ConvCheckpointCallback(conv_path, chunk,
-                                                        phys))
+                                                        phys_run))
 
     t_rad = clock()
-    rads = run_radiation_chunked(phys, m, thermo, T0, chunk_iters=chunk,
-                                 sset=sset, callbacks=rad_cbs, state0=rad0)
+    rads = run_radiation_chunked(phys_run, m_loop, thermo, T0,
+                                 chunk_iters=chunk, sset=sset_loop,
+                                 callbacks=rad_cbs, state0=rad0, mesh=mesh)
     t_conv = clock()
     convs = None
     if want_conv:
-        convs = run_convection_chunked(phys, m, thermo, rads,
-                                       chunk_iters=chunk, sset=sset,
-                                       callbacks=conv_cbs, state0=conv0)
+        convs = run_convection_chunked(phys_run, m_loop, thermo, rads,
+                                       chunk_iters=chunk, sset=sset_loop,
+                                       callbacks=conv_cbs, state0=conv0,
+                                       mesh=mesh)
     t_end = clock()
 
     outs = []
@@ -224,7 +249,8 @@ def run_ensemble(cfgs: Sequence, tables: Optional[Sequence] = None,
         conv_i = member_state(convs, i) if convs is not None else None
         final = conv_i if conv_i is not None else rad_i
         final = final._replace(T_lay=final.T_lay.contiguous(), flux=type(
-            final.flux)(*(f.contiguous() for f in final.flux)))
+            final.flux)(*(f.contiguous() for f in shd.strip_flux(
+                final.flux, phys.nbin, phys.ny))))
         # the end-of-run bookkeeping of pipeline.run, so that a member
         # writes exactly the file set its run alone writes
         result = pl.final_result(cfg, phys, arrays, thermo, final, conv_i,

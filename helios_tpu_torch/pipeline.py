@@ -2,7 +2,8 @@
 the run_helios equivalent, helios.py:35-137): config -> model -> radiation
 loop -> convection loop -> diagnostics -> output files.
 
-Covered: the single-planet, single-device run of ``helios_tpu``: an
+Covered: the single-planet run of ``helios_tpu``, on one device or on a
+mesh of spectral slices: an
 iterative run (isothermal or non-isothermal layers, the adaptive or a
 physical timestep) and a post-processing run, with a premixed opacity table
 or species mixed on the fly, with the iterative or the matrix flux method,
@@ -18,8 +19,10 @@ runner (progress, metrics, realtime plots, debug checks, a profiler trace,
 checkpoints, mid-run coupling TP writes) and coupling.  Planet ensembles
 are :mod:`helios_tpu_torch.parallel.ensemble`: as in ``helios_tpu``, this
 run ignores ``n_planet_batch`` and ``planet_ensemble_file`` (the command
-line reads the latter).  A mesh (``n_spectral_shards`` > 1) raises
-``NotImplementedError``.
+line reads the latter).  With ``n_spectral_shards`` > 1 the loops run on
+that many spectral slices (:mod:`helios_tpu_torch.parallel.sharding`), the
+bin axis padded to a multiple of them, and post-processing runs on the
+home device from the gathered fluxes without the padding.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from helios_tpu_torch import monitor as monitor_mod
 from helios_tpu_torch import planck as planck_mod
 from helios_tpu_torch import thermo as thermo_mod
 from helios_tpu_torch.config import HeliosConfig
-from helios_tpu_torch.device import resolve_device, torch_dtype
+from helios_tpu_torch.device import torch_dtype
 from helios_tpu_torch.forward import (FluxState, ModelArrays, Phys,
                                       altitude_z, build_model, compute_cells,
                                       integrate_flux_flat)
@@ -51,6 +54,7 @@ from helios_tpu_torch.io import writers
 from helios_tpu_torch.io.opacity import OpacityTable, load_opacity_file
 from helios_tpu_torch.ops import integrate as int_ops
 from helios_tpu_torch.ops import interp as interp_ops
+from helios_tpu_torch.parallel import sharding as shd
 from helios_tpu_torch.rce import convect
 from helios_tpu_torch.rce.loop import ConvLoopState
 from helios_tpu_torch.rce.radiative import (RadLoopState, ThermoProps,
@@ -141,15 +145,6 @@ def load_starflux(cfg: HeliosConfig, nbin: int) -> np.ndarray:
     if cfg.stellar_model == "blackbody":
         return np.zeros(nbin)
     raise IOError("Unknown stellar model. Please check your input.")
-
-
-def _check_run_supported(cfg: HeliosConfig):
-    """The spectral mesh is the part of helios_tpu's run that the port
-    does not have (ROADMAP A.13)."""
-    if int(cfg.n_spectral_shards) > 1:
-        raise NotImplementedError(
-            "not ported to helios_tpu_torch yet: meshes (n_spectral_shards, "
-            "ROADMAP A.13)")
 
 
 # --------------------------------------------------------------------------- #
@@ -471,12 +466,22 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
     of both loops, called after the built-in ones (and make a run
     monitored).  ``device`` defaults to CUDA and raises without it;
     ``device="cpu"`` runs the plain versions of the kernels on the CPU.
+    With ``n_spectral_shards`` = n > 1 the loops run on n spectral slices:
+    on the first n visible CUDA devices for "cuda" (a RuntimeError when
+    fewer are visible), all on the CPU for "cpu", or on a sequence of
+    devices, one per slice (a device may repeat).
     The times end after the device has finished."""
     t0 = time.perf_counter()
-    dev = resolve_device(device)
     if not cfg._finalized:
         cfg = cfg.finalize()
-    _check_run_supported(cfg)
+    n_spec = int(cfg.n_spectral_shards)
+    dev = shd.home_device(device)
+    if n_spec > 1:
+        devs = shd.visible_devices(device, n_spec)
+        if len(devs) < n_spec:
+            raise RuntimeError(
+                f"n_spectral_shards={n_spec} but only {len(devs)} "
+                "devices are visible")
     if cfg.opacity_mixing == "on-the-fly" and sset is None and table is None:
         sset, table = build_species_set_from_files(cfg, device=dev)
     if table is None:
@@ -487,6 +492,19 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
     thermo = make_thermo(cfg, device=dev)
     T0 = torch.as_tensor(initial_temperatures(cfg, phys, arrays),
                          dtype=torch_dtype(cfg.dtype), device=dev)
+
+    # a mesh: the loops run on a copy with the bin axis padded to a
+    # multiple of the slices (restores read it whole on the home device)
+    # and placed on the slices; post-processing keeps the unpadded model
+    mesh = None
+    phys_run, arrays_run, sset_run = phys, arrays, sset
+    m_loop, sset_loop = arrays, sset
+    if n_spec > 1:
+        phys_run, arrays_run = shd.pad_spectral(phys, arrays, n_spec)
+        sset_run = shd.pad_species(sset, n_spec)
+        mesh = shd.make_mesh(1, n_spec, devs[:n_spec])
+        m_loop = shd.place_model(arrays_run, mesh)
+        sset_loop = shd.place_species(sset_run, mesh)
 
     def clock():
         if dev.type == "cuda":
@@ -516,34 +534,37 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
             path, conv_path = checkpoint_paths(cfg)
             ckpt = ckpt_mod.load_rad_checkpoint(path)
             if ckpt is not None:
-                rad_state0 = ckpt_mod.restore_rad_state(phys, arrays, ckpt,
-                                                        sset)
+                rad_state0 = ckpt_mod.restore_rad_state(
+                    phys_run, arrays_run, ckpt, sset_run)
                 rad_it0 = rad_state0.it
             rad_cbs.append(ckpt_mod.CheckpointCallback(
-                path, cfg.checkpoint_every, phys))
+                path, cfg.checkpoint_every, phys_run))
             if convect_on:
                 cckpt = ckpt_mod.load_conv_checkpoint(conv_path)
                 if (cckpt is not None and ckpt_mod.checkpoint_phase(cckpt)
                         == "convection"):
                     conv_state0 = ckpt_mod.restore_conv_state(
-                        phys, arrays, cckpt, sset)
+                        phys_run, arrays_run, cckpt, sset_run)
                 conv_cbs.append(ckpt_mod.ConvCheckpointCallback(
-                    conv_path, cfg.checkpoint_every, phys))
+                    conv_path, cfg.checkpoint_every, phys_run))
         rad_cbs += callbacks
         conv_cbs += callbacks
     chunk = monitored_chunk(cfg, coupl_interval) if monitored else None
     rad = monitor_mod.run_radiation_chunked(
-        phys, arrays, thermo, T0, chunk_iters=chunk, sset=sset,
+        phys_run, m_loop, thermo, T0, chunk_iters=chunk, sset=sset_loop,
         callbacks=rad_cbs, state0=rad_state0,
-        profile_dir=cfg.profile_dir or None)
+        profile_dir=cfg.profile_dir or None, mesh=mesh)
     t_conv = clock()
     if convect_on:
         conv = monitor_mod.run_convection_chunked(
-            phys, arrays, thermo, rad, chunk_iters=chunk, sset=sset,
-            callbacks=conv_cbs, state0=conv_state0)
+            phys_run, m_loop, thermo, rad, chunk_iters=chunk, sset=sset_loop,
+            callbacks=conv_cbs, state0=conv_state0, mesh=mesh)
     final = conv if conv is not None else rad
     t_end = clock()
 
+    # the outputs carry the real bins only (padded bins had delta_lambda 0)
+    final = final._replace(flux=shd.strip_flux(final.flux, phys.nbin,
+                                               phys.ny))
     result = final_result(cfg, phys, arrays, thermo, final, conv,
                           cloud_result, sset)
     if write_output:

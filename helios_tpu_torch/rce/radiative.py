@@ -20,9 +20,9 @@ import torch
 from helios_tpu_torch import constants as pc
 from helios_tpu_torch.device import resolve_device
 from helios_tpu_torch.forward import (CellCache, FluxState, ModelArrays, Phys,
-                                      compute_cells, init_flux_state,
-                                      integrate_flux_flat, layer_index,
-                                      solve_fluxes)
+                                      compute_cells, integrate_flux_flat,
+                                      layer_index, solve_fluxes,
+                                      zero_fluxes)
 from helios_tpu_torch.kernels.ordered import ordered_cumsum
 from helios_tpu_torch.ops import integrate as int_ops
 from helios_tpu_torch.ops import interp as interp_ops
@@ -334,7 +334,7 @@ def init_rad_state(phys: Phys, m: ModelArrays, T_lay0,
     batch = tuple(T_lay0.shape[1:])
     T_int = interp_ops.interface_temperatures(T_lay0)
     cache = compute_cells(phys, m, T_lay0, T_int, sset)
-    flux = init_flux_state(phys, T_lay0.dtype, dev, batch)
+    flux = zero_fluxes(phys, m, T_lay0)
     totals = integrate_flux_flat(phys, m, flux, cache.F_dir)
     limit = float(phys.rad_convergence_limit)
     it, aborted = 0, False

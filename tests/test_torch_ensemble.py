@@ -564,7 +564,10 @@ def test_pipeline_run_ignores_n_planet_batch_as_jax_does(tmp_path,
     """helios_tpu.pipeline.run does not read n_planet_batch (its mesh knob
     is n_spectral_shards): with n_planet_batch=2 both packages run the one
     planet, here a post-processing solve: the port bit for bit its run
-    without the knob, the TOA flux within 1e-10 of JAX's."""
+    without the knob, the TOA flux within 1e-10 of JAX's.  With
+    n_spectral_shards=2 the solve runs on two spectral slices: within
+    1e-12 of the port's solve on one device, and within 1e-7 of JAX's
+    sharded solve (its Planck pairs, ROADMAP C)."""
     H.write_tp_file(tmp_path / "tp.dat", H.start_profile(L))
     kw = dict(H.SMALL_RUN, nlayer=L, run_type="post-processing",
               iso_input="no", temp_path=str(tmp_path / "tp.dat"),
@@ -580,6 +583,12 @@ def test_pipeline_run_ignores_n_planet_batch_as_jax_does(tmp_path,
                             write_output=False)
     np.testing.assert_allclose(got.result.F_up_tot, want.result.F_up_tot,
                                rtol=1e-10)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        torch_pipeline.run(TorchConfig(**kw, n_spectral_shards=2), table,
-                           write_output=False, device="cpu")
+    sliced = torch_pipeline.run(TorchConfig(**kw, n_spectral_shards=2),
+                                table, write_output=False, device="cpu")
+    np.testing.assert_allclose(sliced.result.F_up_tot,
+                               plain.result.F_up_tot, rtol=1e-12)
+    monkeypatch.undo()
+    jsliced = jax_pipeline.run(JaxConfig(**kw, n_spectral_shards=2),
+                               table=table, write_output=False)
+    np.testing.assert_allclose(sliced.result.F_up_tot,
+                               jsliced.result.F_up_tot, rtol=1e-7)

@@ -62,12 +62,13 @@ HOST_TOOLS = ("chem_analytic", "realdata", "ktable/__init__",
 def test_import_check_holds_the_host_copies():
     """The JAX-free host modules the port keeps copies of (clouds and tools
     among them, and the host tools: the analytic chemistry, the real-data
-    chain, ktable and startool) are held by the import check above, as is
-    chip_smoke.py."""
+    chain, ktable and startool), the mesh (parallel/sharding.py and its
+    slices) are held by the import check above, as is chip_smoke.py."""
     checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for name in ("clouds", "tools", "host_physics", "config", "io/writers",
                  "io/opacity", "thermo", "plotting", "examples", "monitor",
-                 "checkpoint", "__main__") + HOST_TOOLS:
+                 "checkpoint", "__main__", "parallel/sharding",
+                 "ops/slices") + HOST_TOOLS:
         assert f"helios_tpu_torch/{name}.py" in checked, name
     assert "chip_smoke.py" in checked
     # every module of helios_tpu's host tools has its copy
@@ -97,15 +98,18 @@ def test_default_device_raises_without_cuda(no_cuda):
 
 
 def test_unported_paths_raise(tmp_path):
-    """What the port does not cover yet raises NotImplementedError with
-    its name: the mesh.  Planet ensembles, a stellar spectrum from a file,
-    tabulated thermodynamics and monitoring run (tests/
-    test_torch_ensemble.py, test_torch_cli.py, test_torch_thermo.py,
-    test_torch_monitor.py)."""
+    """Nothing of helios_tpu's run is left unported: a mesh with fewer
+    devices than n_spectral_shards raises helios_tpu's RuntimeError (a
+    one-entry device list here; the mesh runs in tests/
+    test_torch_sharding.py and test_torch_mesh_*.py), and a stellar
+    spectrum from a file reaches the model.  Planet ensembles, tabulated
+    thermodynamics and monitoring run (tests/test_torch_ensemble.py,
+    test_torch_cli.py, test_torch_thermo.py, test_torch_monitor.py)."""
     table = synthetic_premixed_table(nbin=4, ny=2, ntemp=4, npress=4)
     cfg = HeliosConfig(nlayer=6, n_spectral_shards=2)
-    with pytest.raises(NotImplementedError, match="meshes"):
-        torch_pipeline.run(cfg, table, write_output=False, device="cpu")
+    with pytest.raises(RuntimeError,
+                       match="n_spectral_shards=2 but only 1 devices"):
+        torch_pipeline.run(cfg, table, write_output=False, device=["cpu"])
     phys, arrays = tf.build_model(
         HeliosConfig(nlayer=6, stellar_model="file").finalize(), table,
         starflux=np.full(4, 1e10), device="cpu")
