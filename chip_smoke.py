@@ -676,6 +676,80 @@ def ordered_case(dtype, rtol, bandwidth):
                                 for r in res.values()))
 
 
+def host_us(fn, n=1000, batch=100):
+    """The host time of one fn() in microseconds: time.perf_counter_ns
+    over n calls in batches of ``batch`` with no sync inside a batch (the
+    card drains between batches, so a full launch queue never blocks the
+    host), the median batch."""
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(n // batch):
+        t = time.perf_counter_ns()
+        for _ in range(batch):
+            fn()
+        per_call.append((time.perf_counter_ns() - t) / batch / 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
+def launch_breakdown():
+    """Where a kernel wrapper's host time goes, step by step, at the Gauss
+    sum's shape ([L+1, nbin, ny] fp64 summed over ny, the main path's most
+    frequent launch): the whole ordered_sum call and torch.sum beside it,
+    then each step of the launch path alone (host_us, microseconds)."""
+    import math
+    from helios_tpu_torch.kernels import _launch
+    from helios_tpu_torch.kernels.ordered import ordered_sum
+    x = ordered_inputs(torch.float64, (L_FLAG + 1, NBIN_FLAG, NY_FLAG), 10)
+    dev, shape = x.device, x.shape[:-1]
+    out = torch.empty(shape, dtype=x.dtype, device=dev)
+    O, K, I = math.prod(shape), NY_FLAG, 1
+    fn = _launch._library("ordered_sum", 2, 4).ordered_sum_f64
+    px, po = x.data_ptr(), out.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def switch():
+        with torch.cuda.device(dev):
+            pass
+
+    def counts():
+        for name, n in (("rows", O * I), ("K", K), ("O*K*I", O * K * I)):
+            _launch.check_count(name, n)
+        return math.prod(x.shape[:2]), math.prod(x.shape[3:])
+
+    steps = {
+        "ordered_sum(x, -1)": lambda: ordered_sum(x, -1),
+        "torch.sum(x, -1)": lambda: torch.sum(x, -1),
+        "check_tensors": lambda: _launch.check_tensors(
+            (x,), [tuple(x.shape)]),
+        "x.contiguous()": x.contiguous,
+        "x.is_contiguous()": x.is_contiguous,
+        "math.prod and check_count": counts,
+        "torch.empty": lambda: torch.empty(shape, dtype=x.dtype,
+                                           device=dev),
+        "with torch.cuda.device(dev)": switch,
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "current_stream(index).cuda_stream":
+            lambda: torch.cuda.current_stream(dev.index).cuda_stream,
+        "_library lookup and getattr": lambda: getattr(
+            _launch._library("ordered_sum", 2, 4), "ordered_sum_f64"),
+        "two data_ptr()": lambda: (x.data_ptr(), out.data_ptr()),
+        "ctypes call (launches)": lambda: fn(px, po, O, K, I, 0, stream),
+    }
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        steps["torch._C._cuda_getCurrentRawStream (private)"] = (
+            lambda: raw(dev.index))
+    res = {name: host_us(f) for name, f in steps.items()}
+    log("host time per call at the Gauss sum [106, 385, 20] fp64, "
+        "microseconds (median of 10 batches of 100 calls, no sync inside "
+        "a batch): " + "; ".join(f"{k} {v:.2f}" for k, v in res.items()))
+    return res
+
+
 # --------------------------------------------------------------------------- #
 # the host tools: the ktable library, built with g++ on this machine
 # --------------------------------------------------------------------------- #
