@@ -33,15 +33,25 @@ Phases (any failure exits non-zero before the last line is printed):
      bit for bit the in-order loop, within rounding of torch.sum /
      torch.cumsum, and every member of a batch of copies bit for bit the
      call alone, fp64 and fp32, timed at the Gauss sum of the flagship
-     and of path n's batch; then the host tools: the port's ktable
+     and of path n's batch; the flux integration (band_integrate) bit for
+     bit its in-order reference and the chain it replaced (through
+     ordered_sum) at the flagship [106, 7700], path n's batch [106, 8,
+     7700] with the members' shared delta_lambda and the flagship as 2
+     slices with the carry (the totals the flagship's), fp64 and fp32,
+     timed against that chain of 15 launches and its bound; the host time
+     of a kernel wrapper's launch, step by step, at the Gauss sum; then
+     the host tools: the port's ktable
      library (kdistr.cpp) built by g++ on this machine, its
      k-distribution of a 4.1-million-point line list (0.01 cm^-1 over
      0.244-500 um) into 385 bins x 20 and its bilinear regrid onto the
      final (T, P) grid, each against the numpy version at rtol 1e-12,
      with both host CPU times;
   4. the paths, each with every launch count set to 0 just before it and
-     read just after (ordered_sum: at least once wherever a flux solve
-     runs):
+     read just after (ordered_sum and band_integrate: at least once
+     wherever a flux solve runs); every flux integration on the card, on
+     every path run in this process, launches band_integrate once per
+     spectral slice (once on a whole model) and no ordered_sum (checked
+     at each integration):
      a. the flagship RCE run (105 layers x 385 bins x 20 Gauss points,
         non-isothermal, scattering, convection, fp64) to convergence
         through helios_tpu_torch.pipeline.run; then one forward_fluxes on
@@ -280,13 +290,14 @@ def copy_bandwidth():
 
 
 def kernel_counters():
+    from helios_tpu_torch.kernels.integrate import band_integrate
     from helios_tpu_torch.kernels.ordered import ordered_sum
     from helios_tpu_torch.kernels.ro import ro_mix
     from helios_tpu_torch.kernels.sweep import iso_sweep, noniso_sweep
     from helios_tpu_torch.kernels.thomas import thomas_solve
     return {"noniso_sweep": noniso_sweep, "iso_sweep": iso_sweep,
             "thomas_solve": thomas_solve, "ro_mix": ro_mix,
-            "ordered_sum": ordered_sum}
+            "ordered_sum": ordered_sum, "band_integrate": band_integrate}
 
 
 def reset_counts():
@@ -299,9 +310,11 @@ def read_counts():
 
 
 class AtLeastOnce:
-    """A launch count that has to be positive: the fixed-order sums run
-    several times per flux solve and per convective adjustment, a number
-    the checks do not pin."""
+    """A launch count that has to be positive: the fixed-order sums and
+    scans run at each cell refresh, radiation step and convective
+    adjustment, and the flux integration once per flux solve and per state
+    built or restored, numbers the paths' checks do not pin (each
+    integration's own launches are checked by checked_integrations)."""
 
     def __eq__(self, n):
         return isinstance(n, int) and n > 0
@@ -312,11 +325,66 @@ class AtLeastOnce:
 
 def only(**counts):
     """The launch counts of a path that runs just the named kernels; with
-    any flux solve (a named count), also the fixed-order sums of its
-    integration, at least once."""
+    any flux solve (a named count), also the flux integration and the
+    fixed-order sums and scans, at least once."""
     sums = AtLeastOnce() if any(counts.values()) else 0
-    return {name: counts.get(name, sums if name == "ordered_sum" else 0)
+    return {name: counts.get(name, sums if name in ("ordered_sum",
+                                                    "band_integrate") else 0)
             for name in kernel_counters()}
+
+
+# the modules that call forward.integrate_flux_flat by name
+INTEGRATION_SITES = ("forward", "rce.radiative", "rce.loop", "pipeline",
+                     "checkpoint")
+INTEGRATIONS = {"calls": 0, "on_card": 0, "launches": 0}
+
+
+@contextlib.contextmanager
+def checked_integrations():
+    """While the block runs, every flux integration on the card
+    (forward.integrate_flux_flat, at each of INTEGRATION_SITES) is checked
+    to launch band_integrate exactly once per spectral slice (once on a
+    whole model) and no ordered_sum; one on the CPU, nothing.  Counts the
+    integrations in INTEGRATIONS; those inside patched_sites (another
+    route of the integration) are not checked."""
+    import importlib
+    from helios_tpu_torch import forward
+    from helios_tpu_torch.kernels.integrate import band_integrate
+    from helios_tpu_torch.kernels.ordered import ordered_sum
+    from helios_tpu_torch.ops.slices import count, home
+
+    def checked(fn):
+        def integrate(phys, m, *args, **kw):
+            if forward.band_integrate is not band_integrate:
+                return fn(phys, m, *args, **kw)     # patched_sites' routes
+            before = (band_integrate.launches, ordered_sum.launches)
+            out = fn(phys, m, *args, **kw)
+            card = home(m).type == "cuda"
+            want = (max(1, count(m)) if card else 0, 0)
+            got = (band_integrate.launches - before[0],
+                   ordered_sum.launches - before[1])
+            check(got == want, f"a flux integration launched {got[0]} "
+                  f"band_integrate and {got[1]} ordered_sum, not {want}")
+            INTEGRATIONS["calls"] += 1
+            INTEGRATIONS["on_card"] += card
+            INTEGRATIONS["launches"] += got[0]
+            return out
+        return integrate
+
+    saved = []
+    for name in INTEGRATION_SITES:
+        mod = importlib.import_module("helios_tpu_torch." + name)
+        saved.append((mod, mod.integrate_flux_flat))
+    real = saved[0][1]
+    for mod, fn in saved:
+        check(fn is real, f"{mod.__name__}.integrate_flux_flat is not "
+              "forward's")
+        mod.integrate_flux_flat = checked(fn)
+    try:
+        yield
+    finally:
+        for mod, fn in saved:
+            mod.integrate_flux_flat = fn
 
 
 def sweep_inputs(dtype, seed=0, L=L_FLAG, S=NBIN_FLAG * NY_FLAG):
@@ -676,6 +744,110 @@ def ordered_case(dtype, rtol, bandwidth):
                                 for r in res.values()))
 
 
+def band_integrate_bound_ms(dtype, R, S, B, Y, dl_values):
+    """(bound in ms, "bytes" or "operations") of one band_integrate: the
+    three fluxes, the weights and delta_lambda read once, the three bands
+    and three totals written once; 2 operations per flux value (the Gauss
+    product and add), 8 per bin and row (three halvings, two products, an
+    add and the two totals)."""
+    size = torch.finfo(dtype).bits // 8
+    bytes_ms = ((3 * R * S + Y + dl_values) + (3 * R * B + 3 * R)) \
+        * size / HBM_BYTES_PER_S * 1e3
+    ops_ms = (2 * 3 * R * S + 8 * R * B) / PEAK_FLOPS[dtype] * 1e3
+    return ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+            else (ops_ms, "operations"))
+
+
+def band_integrate_case(dtype):
+    """The flux integration kernel against its in-order reference (the
+    chain the card ran before it, every sum in index order), bit for bit
+    (torch.equal), and against that chain through the ordered_sum kernel:
+    at the flagship [L+1, S], at path n's batch [L+1, 8, S] with the
+    members' shared delta_lambda (stack_models' expanded view), and the
+    flagship as 2 slices (385 bins padded to 386, the pad's delta_lambda
+    0), the second starting from the first's totals, whose totals are the
+    flagship's.  Times the kernel and the 14-launch chain (and F_net, a
+    15th) back to back, the kernel's device time by the profiler, and its
+    bound."""
+    from helios_tpu_torch.kernels.integrate import (band_integrate,
+                                                    band_integrate_reference)
+    L, B, Y, P = L_FLAG, NBIN_FLAG, NY_FLAG, ENSEMBLE_P
+    S = B * Y
+    name = str(dtype).split(".")[-1]
+    rng = np.random.default_rng(20)
+    mk = lambda lo, hi, *s: torch.tensor(rng.uniform(lo, hi, s), dtype=dtype,
+                                         device=DEVICE)
+    w = mk(0.01, 0.1, Y)
+    dl = mk(1e-7, 1e-5, B)
+    cases = {"flagship": ([mk(0.0, 1e6, L + 1, S) for _ in range(3)], dl),
+             "batch": ([mk(0.0, 1e6, L + 1, P, S) for _ in range(3)],
+                       dl.expand(P, B))}
+
+    def same(label, got, want, what):
+        torch.cuda.synchronize()
+        off = [f for f, g, x in zip(got._fields, got, want)
+               if not torch.equal(g, x)]
+        check(not off, f"band_integrate {name} {label}: {off} not bit for "
+              f"bit {what}")
+
+    res = {}
+    for label, (f, d) in cases.items():
+        got = band_integrate(*f, w, d)
+        same(label, got, band_integrate_reference(*f, w, d, in_order=True),
+             "the in-order reference")
+        same(label, got, band_integrate_reference(*f, w, d),
+             "the chain through ordered_sum")
+        res[label] = got
+
+    # two slices with the carry: the pad copies the last bin
+    h = (B + 1) // 2
+    pad = [torch.cat([x, x[..., -Y:]], -1) for x in cases["flagship"][0]]
+    dl_pad = torch.cat([dl, torch.zeros_like(dl[-1:])])
+    part = lambda k: ([x[..., k * h * Y:(k + 1) * h * Y].contiguous()
+                       for x in pad]
+                      + [w, dl_pad[k * h:(k + 1) * h].contiguous()])
+    a = band_integrate(*part(0))
+    want_a = band_integrate_reference(*part(0), in_order=True)
+    same("slice 0 of 2", a, want_a, "the in-order reference")
+    b = band_integrate(*part(1), carry=(a.F_up_tot, a.F_down_tot))
+    same("slice 1 of 2", b, band_integrate_reference(
+        *part(1), carry=(want_a.F_up_tot, want_a.F_down_tot),
+        in_order=True), "the in-order reference")
+    whole = res["flagship"]
+    check(all(torch.equal(getattr(b, k), getattr(whole, k))
+              for k in ("F_up_tot", "F_down_tot", "F_net")),
+          f"band_integrate {name}: the 2-slice totals are not the "
+          "flagship's")
+    log(f"band_integrate {name}: bit for bit the in-order reference and "
+        f"the chain through ordered_sum at the flagship [{L + 1}, {S}] and "
+        f"the {P}-planet batch [{L + 1}, {P}, {S}] (shared delta_lambda); "
+        f"on 2 slices with the carry (bins padded to {2 * h}) bit for bit "
+        "per slice, the totals the flagship's")
+
+    out = dict(max_abs_err=0.0, bitwise_vs_in_order=True)
+    for key, label in (("", "flagship"), ("ensemble_", "batch")):
+        f, d = cases[label]
+        R = f[0].numel() // S
+        call = lambda: band_integrate(*f, w, d)
+        ms = cuda_ms(call, 20, 3, per_event=20)
+        chain_ms = cuda_ms(lambda: band_integrate_reference(*f, w, d), 20, 3,
+                           per_event=20)
+        in_order_ms = cuda_ms(lambda: band_integrate_reference(
+            *f, w, d, in_order=True), 3, 1)
+        device_ms = profiled_kernel_ms(call, "band_integrate_kernel")
+        bound, by = band_integrate_bound_ms(dtype, R, S, B, Y, B)
+        out.update({key + "ms": ms, key + "chain_ms": chain_ms,
+                    key + "plain_ms": in_order_ms,
+                    key + "device_ms": device_ms, key + "bound_ms": bound,
+                    key + "bound_by": by, key + "rows": R})
+        log(f"band_integrate {name} {label} [{R} rows x {S}]: kernel "
+            f"{ms:.4f} ms back to back, {device_ms:.4f} ms on the device "
+            f"(profiler); the chain it replaces (ordered_sum, 15 launches) "
+            f"{chain_ms:.4f} ms; the in-order reference {in_order_ms:.3f} "
+            f"ms; bound {bound:.4f} ms by {by}")
+    return out
+
+
 def host_us(fn, n=1000, batch=100):
     """The host time of one fn() in microseconds: time.perf_counter_ns
     over n calls in batches of ``batch`` with no sync inside a batch (the
@@ -695,49 +867,61 @@ def host_us(fn, n=1000, batch=100):
 
 def launch_breakdown():
     """Where a kernel wrapper's host time goes, step by step, at the Gauss
-    sum's shape ([L+1, nbin, ny] fp64 summed over ny, the main path's most
-    frequent launch): the whole ordered_sum call and torch.sum beside it,
-    then each step of the launch path alone (host_us, microseconds)."""
+    sum's shape ([L+1, nbin, ny] fp64 summed over ny, the most frequent
+    launch of the loops): the whole ordered_sum call and torch.sum beside
+    it, then each step of the launch path alone, and the steps the path
+    no longer takes (host_us, microseconds)."""
     import math
     from helios_tpu_torch.kernels import _launch
     from helios_tpu_torch.kernels.ordered import ordered_sum
     x = ordered_inputs(torch.float64, (L_FLAG + 1, NBIN_FLAG, NY_FLAG), 10)
     dev, shape = x.device, x.shape[:-1]
-    out = torch.empty(shape, dtype=x.dtype, device=dev)
+    out = x.new_empty(shape)
     O, K, I = math.prod(shape), NY_FLAG, 1
-    fn = _launch._library("ordered_sum", 2, 4).ordered_sum_f64
+    lib = _launch._library("ordered_sum", 2, 4)
+    fn = _launch.entry("ordered_sum", x.dtype, 2, 4)
     px, po = x.data_ptr(), out.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(dev.index).cuda_stream
+
+    def shape_arithmetic():
+        d = -1 % len(x.shape)
+        I = math.prod(x.shape[d + 1:])
+        return _launch.check_count("O*K*I", x.numel()) // (x.shape[d] * I)
 
     def switch():
         with torch.cuda.device(dev):
             pass
 
-    def counts():
-        for name, n in (("rows", O * I), ("K", K), ("O*K*I", O * K * I)):
-            _launch.check_count(name, n)
-        return math.prod(x.shape[:2]), math.prod(x.shape[3:])
-
+    many = [x] * 14
     steps = {
         "ordered_sum(x, -1)": lambda: ordered_sum(x, -1),
         "torch.sum(x, -1)": lambda: torch.sum(x, -1),
-        "check_tensors": lambda: _launch.check_tensors(
-            (x,), [tuple(x.shape)]),
+        # the launch path, step by step
+        "argument test (isinstance, dim, numel)": lambda: (
+            isinstance(x, torch.Tensor) and x.dim() and x.numel()),
         "x.contiguous()": x.contiguous,
-        "x.is_contiguous()": x.is_contiguous,
-        "math.prod and check_count": counts,
-        "torch.empty": lambda: torch.empty(shape, dtype=x.dtype,
-                                           device=dev),
-        "with torch.cuda.device(dev)": switch,
-        "torch.cuda.current_device()": torch.cuda.current_device,
-        "current_stream(dev).cuda_stream":
-            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "shape arithmetic and check_count": shape_arithmetic,
+        "x.new_empty": lambda: x.new_empty(shape),
+        "is_cuda and the entry point": lambda: (
+            x.is_cuda and _launch.entry("ordered_sum", x.dtype, 2, 4)),
+        "get_device() against current_device()": lambda: (
+            x.get_device() != torch.cuda.current_device()),
         "current_stream(index).cuda_stream":
             lambda: torch.cuda.current_stream(dev.index).cuda_stream,
-        "_library lookup and getattr": lambda: getattr(
-            _launch._library("ordered_sum", 2, 4), "ordered_sum_f64"),
         "two data_ptr()": lambda: (x.data_ptr(), out.data_ptr()),
         "ctypes call (launches)": lambda: fn(px, po, O, K, I, 0, stream),
+        "ctypes call of one int, no launch":
+            lambda: lib.helios_cuda_error_string(0),
+        "_launch.launch (launches)": lambda: _launch.launch(
+            "ordered_sum", (x, out), (O, K, I, 0)),
+        "check_tensors of 14 tensors (a sweep's)": lambda: (
+            _launch.check_tensors(many, [shape + (NY_FLAG,)] * 14)),
+        # what the path no longer does
+        "torch.empty(shape, dtype=, device=)": lambda: torch.empty(
+            shape, dtype=x.dtype, device=dev),
+        "with torch.cuda.device(dev)": switch,
+        "current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
     }
     raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
     if raw is not None:
@@ -1872,6 +2056,7 @@ CLI_FLAGS = ["-progress", "yes", "-checkpoint_every", "100"]
 CLI_PROCESS = """
 import json, sys
 from helios_tpu_torch import __main__ as cli, pipeline
+from helios_tpu_torch.kernels.integrate import band_integrate
 from helios_tpu_torch.kernels.ordered import ordered_sum
 from helios_tpu_torch.kernels.ro import ro_mix
 from helios_tpu_torch.kernels.sweep import iso_sweep, noniso_sweep
@@ -1890,7 +2075,8 @@ print(json.dumps(dict(
                   iso_sweep=iso_sweep.launches,
                   thomas_solve=thomas_solve.launches,
                   ro_mix=ro_mix.launches,
-                  ordered_sum=ordered_sum.launches),
+                  ordered_sum=ordered_sum.launches,
+                  band_integrate=band_integrate.launches),
     n_flux_solves=out.n_flux_solves, rad_it=out.rad.it,
     conv_it=out.conv.it, conv_steps=out.conv.steps,
     wall_s=out.wall_seconds, rad_s=out.rad_seconds,
@@ -2535,14 +2721,28 @@ def member_against(label, member, ref):
 # C.8: the first op at which a batch member differs from its run alone
 # --------------------------------------------------------------------------- #
 
-# names of the loops' call sites of the fixed-order sums, and torch's sums
-# in their place: the route the port took before kernels.ordered
-ORDERED_SITES = (("fastpath", ("ordered_sum", "ordered_cumsum")),
-                 ("forward", ("ordered_sum", "ordered_cumsum")),
+def torch_route_integration(*args, **kw):
+    """The flux integration as the port ran it before kernels.ordered: the
+    chain of ops with torch's sums."""
+    from helios_tpu_torch.kernels import integrate
+    real = integrate.ordered_sum
+    integrate.ordered_sum = TORCH_ROUTE["ordered_sum"]
+    try:
+        return integrate.band_integrate_reference(*args, **kw)
+    finally:
+        integrate.ordered_sum = real
+
+
+# names of the loops' call sites of the fixed-order sums and the flux
+# integration, and torch's sums in their place: the route the port took
+# before kernels.ordered
+ORDERED_SITES = (("fastpath", ("ordered_cumsum",)),
+                 ("forward", ("ordered_cumsum", "band_integrate")),
                  ("rce.convect", ("ordered_cumsum",)),
                  ("rce.radiative", ("ordered_cumsum",)))
 TORCH_ROUTE = {"ordered_sum": lambda x, dim: torch.sum(x, dim=dim),
-               "ordered_cumsum": lambda x, dim: torch.cumsum(x, dim=dim)}
+               "ordered_cumsum": lambda x, dim: torch.cumsum(x, dim=dim),
+               "band_integrate": torch_route_integration}
 
 
 @contextlib.contextmanager
@@ -2877,7 +3077,8 @@ def ensemble_path(tmpdir, launch_counts, flag_out, T_start):
     stacked = ens.stack_models([o.arrays for o in outs])
     T0b = torch.stack([T_start] * ENSEMBLE_P, dim=1)
     bd = time_breakdown(f"{ENSEMBLE_P}-planet flagship batch", outs[0].phys,
-                        stacked, T0b, ("noniso_sweep", "ordered_sum"))
+                        stacked, T0b,
+                        ("noniso_sweep", "band_integrate", "ordered_sum"))
     # the fixed order's cost: the same iterations with torch's sums
     with patched_sites(lambda n, f: TORCH_ROUTE.get(n, f)):
         bd_torch = time_breakdown(
@@ -3005,7 +3206,8 @@ def sliced_path(flag_out, flag_bd, T_start, counts_by_n):
             pphys, parr = shd.pad_spectral(out.phys, out.arrays, n)
             m = shd.place_model(parr, shd.make_mesh(1, n, [DEVICE] * n))[0]
             bd = time_breakdown(f"{n}-slice flagship", pphys, m, T_start,
-                                ("noniso_sweep", "ordered_sum"))
+                                ("noniso_sweep", "band_integrate",
+                                 "ordered_sum"))
             log(f"{label}: wall {out.wall_seconds:.3f} s against path a's "
                 f"{flag_out.wall_seconds:.3f} s; a radiation iteration "
                 f"{bd['wall_ms']:.3f} ms of host wall and {bd['busy_ms']:.3f}"
@@ -3157,10 +3359,10 @@ def ensemble_cli_path(k, tmpdir, launch_counts, resumed_counts):
     resumed_counts.update(read_counts())
     check(code == 0 and "Done! Ensemble of 3 planets" in printed,
           "ensemble CLI: the second call failed")
-    # the restore rebuilds the radiation state's band totals from the
-    # checkpoint (ordered_sum), and no flux is solved
+    # the restore rebuilds the radiation state's cells and band totals from
+    # the checkpoint (ordered_sum, band_integrate), and no flux is solved
     check(all(n == 0 for name, n in resumed_counts.items()
-              if name != "ordered_sum"),
+              if name not in ("ordered_sum", "band_integrate")),
           f"ensemble CLI: the resumed call launched {resumed_counts}")
     for name in names:
         check(output_files(os.path.join(out_dir, name)) == files[name],
@@ -3206,6 +3408,9 @@ def main():
     q32 = ro_ragged_case(torch.float32)
     o64 = ordered_case(torch.float64, 1e-13, bandwidth)
     o32 = ordered_case(torch.float32, 1e-4, bandwidth)
+    b64 = band_integrate_case(torch.float64)
+    b32 = band_integrate_case(torch.float32)
+    host_us_by_step = launch_breakdown()
     host_tools_phase()
     # the same kernels at an ensemble's width: P = 8 planets' columns
     ens_S = ENSEMBLE_P * NBIN_FLAG * NY_FLAG
@@ -3229,58 +3434,67 @@ def main():
                               "ensemble_cli", "ensemble_cli_resumed",
                               "sliced_flagship_2", "sliced_flagship_4",
                               "ensemble_mesh")}
-    out, T_start = main_path(counts["flagship_rce"])
-    T_start = torch.as_tensor(T_start, dtype=out.T_lay.dtype, device=DEVICE)
-    flag_bd = time_breakdown("flagship", out.phys, out.arrays, T_start,
-                             ("noniso_sweep", "ordered_sum"))
-    with patched_sites(lambda n, f: TORCH_ROUTE.get(n, f)):
-        flag_torch = time_breakdown("flagship with torch's sums", out.phys,
-                                    out.arrays, T_start, ("noniso_sweep",))
-    log(f"flagship: the fixed-order sums cost "
-        f"{flag_bd['busy_ms'] - flag_torch['busy_ms']:.3f} ms of device "
-        f"time and {flag_bd['wall_ms'] - flag_torch['wall_ms']:.3f} ms of "
-        f"host wall per radiation iteration")
-    with tempfile.TemporaryDirectory() as ens_dir:
-        ens = ensemble_path(ens_dir, counts["flagship_ensemble"], out,
-                            T_start)
-        mesh_q = ensemble_mesh_path(ens_dir, counts["ensemble_mesh"],
-                                    ens["outs"][:MESH_MEMBERS])
-    sliced_p = sliced_path(out, flag_bd, T_start, {
-        n: counts[f"sliced_flagship_{n}"] for n in SLICES})
-    pp = postprocessing_path(out, counts["post_processing"], i64["ms_1001"])
-    iso_rce_path(counts["iso_rce"])
-    mat = matrix_path(out, counts["matrix_rce"])
-    # the profiler names kernels by their CUDA symbol: thomas_kernel
-    time_breakdown("matrix flagship", mat["out"].phys, mat["out"].arrays,
-                   T_start, ("thomas", "noniso_sweep"))
-    matrix_postprocessing_path(out, counts["matrix_post_processing"],
-                               pp["toa"])
-    otf = otf_path(counts["on_the_fly_rce"],
-                   counts["on_the_fly_post_processing"])
-    with tempfile.TemporaryDirectory() as cloud_dir:
-        cl = cloudy_path(cloud_dir, counts["cloudy_rce"])
-        postprocessing_path(cl["out"], counts["cloudy_post_processing"],
-                            i64["ms_1001"], cfg_kw=cl["cfg_kw"],
-                            extra_files=CLOUD_FILES,
-                            label="cloudy post-processing path")
-        cloudy_matrix_path(cl, counts["cloudy_matrix_forward"])
-    rocky_path(counts["rocky_rce"])
-    bare_rock_path(counts["bare_rock_rce"])
-    with tempfile.TemporaryDirectory() as cli_dir:
-        k = quickstart_path(cli_dir, counts["quickstart_cli"])
-        resume_path(k, cli_dir, counts["resumed_radiation"],
-                    counts["resumed_convection"])
-        ensemble_cli_path(k, cli_dir, counts["ensemble_cli"],
-                          counts["ensemble_cli_resumed"])
-    with tempfile.TemporaryDirectory() as gas_dir:
-        water = write_water_table(os.path.join(gas_dir, "water_atmo.dat"))
-        real_gas_path(gas_dir, water, counts["real_gas_coupling_0"],
-                      counts["real_gas_coupling_1"],
-                      counts["real_gas_post_processing"])
-        table_convection_path(gas_dir, water,
-                              counts["real_gas_convection"], out)
+    with checked_integrations():
+        out, T_start = main_path(counts["flagship_rce"])
+        T_start = torch.as_tensor(T_start, dtype=out.T_lay.dtype,
+                                  device=DEVICE)
+        flag_bd = time_breakdown("flagship", out.phys, out.arrays, T_start,
+                                 ("noniso_sweep", "band_integrate",
+                                  "ordered_sum"))
+        with patched_sites(lambda n, f: TORCH_ROUTE.get(n, f)):
+            flag_torch = time_breakdown(
+                "flagship with torch's sums", out.phys, out.arrays, T_start,
+                ("noniso_sweep",))
+        log(f"flagship: the fixed-order sums cost "
+            f"{flag_bd['busy_ms'] - flag_torch['busy_ms']:.3f} ms of device "
+            f"time and {flag_bd['wall_ms'] - flag_torch['wall_ms']:.3f} ms of "
+            f"host wall per radiation iteration")
+        with tempfile.TemporaryDirectory() as ens_dir:
+            ens = ensemble_path(ens_dir, counts["flagship_ensemble"], out,
+                                T_start)
+            mesh_q = ensemble_mesh_path(ens_dir, counts["ensemble_mesh"],
+                                        ens["outs"][:MESH_MEMBERS])
+        sliced_p = sliced_path(out, flag_bd, T_start, {
+            n: counts[f"sliced_flagship_{n}"] for n in SLICES})
+        pp = postprocessing_path(out, counts["post_processing"],
+                                 i64["ms_1001"])
+        iso_rce_path(counts["iso_rce"])
+        mat = matrix_path(out, counts["matrix_rce"])
+        # the profiler names kernels by their CUDA symbol: thomas_kernel
+        time_breakdown("matrix flagship", mat["out"].phys, mat["out"].arrays,
+                       T_start, ("thomas", "noniso_sweep"))
+        matrix_postprocessing_path(out, counts["matrix_post_processing"],
+                                   pp["toa"])
+        otf = otf_path(counts["on_the_fly_rce"],
+                       counts["on_the_fly_post_processing"])
+        with tempfile.TemporaryDirectory() as cloud_dir:
+            cl = cloudy_path(cloud_dir, counts["cloudy_rce"])
+            postprocessing_path(cl["out"], counts["cloudy_post_processing"],
+                                i64["ms_1001"], cfg_kw=cl["cfg_kw"],
+                                extra_files=CLOUD_FILES,
+                                label="cloudy post-processing path")
+            cloudy_matrix_path(cl, counts["cloudy_matrix_forward"])
+        rocky_path(counts["rocky_rce"])
+        bare_rock_path(counts["bare_rock_rce"])
+        with tempfile.TemporaryDirectory() as cli_dir:
+            k = quickstart_path(cli_dir, counts["quickstart_cli"])
+            resume_path(k, cli_dir, counts["resumed_radiation"],
+                        counts["resumed_convection"])
+            ensemble_cli_path(k, cli_dir, counts["ensemble_cli"],
+                              counts["ensemble_cli_resumed"])
+        with tempfile.TemporaryDirectory() as gas_dir:
+            water = write_water_table(os.path.join(gas_dir, "water_atmo.dat"))
+            real_gas_path(gas_dir, water, counts["real_gas_coupling_0"],
+                          counts["real_gas_coupling_1"],
+                          counts["real_gas_post_processing"])
+            table_convection_path(gas_dir, water,
+                                  counts["real_gas_convection"], out)
     for path, c in counts.items():
         log(f"launches on the {path} path: {c}")
+    log(f"flux integrations checked: {INTEGRATIONS['calls']}, "
+        f"{INTEGRATIONS['on_card']} on the card with "
+        f"{INTEGRATIONS['launches']} band_integrate launches (one per "
+        "slice) and no ordered_sum")
 
     by_path = lambda name: {path: c[name] for path, c in counts.items()}
     pick = lambda res, keys: {k: res[k] for k in keys}
@@ -3388,11 +3602,34 @@ def main():
         device_ms=o64["device_ms"],
         ensemble={k: o64["ensemble_" + k] for k in (
             "ms", "device_ms", "plain_ms", "in_order_ms", "bound_ms",
-            "bound_by")})
+            "bound_by")},
+        host_us_by_step=host_us_by_step)
+    integrate = dict(
+        name="band_integrate", route="cuda",
+        source="helios_tpu_torch/csrc/band_integrate.cu",
+        replaces="helios_tpu/fastpath.py:692 and helios_tpu/forward.py:"
+                 "662-673 (gauss_band_flat and the band totals, no "
+                 "pallas_call: on the card the port's chain of 14 launches "
+                 "and F_net)",
+        launches=counts["flagship_rce"]["band_integrate"],
+        max_abs_err=b64["max_abs_err"], ms=b64["ms"],
+        plain_ms=b64["plain_ms"], bound_ms=b64["bound_ms"],
+        bound_by=b64["bound_by"], library_ms=None,
+        library="none: no single PyTorch call computes the bands and the "
+                "totals",
+        launches_by_path=by_path("band_integrate"),
+        bitwise_vs_in_order=True, chain_ms=b64["chain_ms"],
+        device_ms=b64["device_ms"], rows=b64["rows"],
+        fp32={k: b32[k] for k in ("ms", "chain_ms", "plain_ms", "device_ms",
+                                  "bound_ms", "bound_by")},
+        ensemble={k: b64["ensemble_" + k] for k in (
+            "ms", "chain_ms", "plain_ms", "device_ms", "bound_ms",
+            "bound_by", "rows")},
+        integrations_checked=dict(INTEGRATIONS))
     log(f"matrix flagship converged: {mat['converged']}; chip_smoke took "
         f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [noniso, iso, thomas, ro, ordered]}),
-          flush=True)
+    print(json.dumps({"kernels": [noniso, iso, thomas, ro, ordered,
+                                  integrate]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

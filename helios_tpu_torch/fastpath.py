@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from helios_tpu_torch import constants as pc
-from helios_tpu_torch.kernels.ordered import ordered_cumsum, ordered_sum
+from helios_tpu_torch.kernels.ordered import ordered_cumsum
 from helios_tpu_torch.kernels.sweep import iso_sweep, noniso_sweep
 from helios_tpu_torch.ops.twostream import (E_maybe, G_limiter, _G_pm,
                                             single_scat_albedo, trans_func,
@@ -409,14 +409,3 @@ def fband_noniso_flat(C: FlatNonIsoCoeffs, F_dir0, F_up_prev, Fc_up_prev,
     I_shape, L_shape = F_up_prev.shape, Fc_up_prev.shape
     return (F_down.view(I_shape), F_up.view(I_shape), Fc_down.view(L_shape),
             Fc_up.view(L_shape))
-
-
-# --------------------------------------------------------------------------- #
-# spectral integration (flat)
-# --------------------------------------------------------------------------- #
-
-def gauss_band_flat(f_flat, gauss_weight):
-    """[.., S] -> [.., B]: 0.5 * sum_y w_y f, the sum in y order on the
-    card (kernels.ordered)."""
-    ny = gauss_weight.shape[0]
-    return 0.5 * ordered_sum(flat_to_cube(f_flat, ny) * gauss_weight, -1)

@@ -39,7 +39,8 @@ from helios_tpu_torch import planck as planck_mod
 from helios_tpu_torch.config import HeliosConfig
 from helios_tpu_torch.device import resolve_device, torch_dtype
 from helios_tpu_torch.io.opacity import OpacityTable, gauss_legendre_ypoints
-from helios_tpu_torch.kernels.ordered import ordered_cumsum, ordered_sum
+from helios_tpu_torch.kernels.integrate import BandTotals, band_integrate
+from helios_tpu_torch.kernels.ordered import ordered_cumsum
 from helios_tpu_torch.ops import integrate as int_ops
 from helios_tpu_torch.ops import interp as interp_ops
 from helios_tpu_torch.ops import thomas as thomas_ops
@@ -570,19 +571,12 @@ def solve_fluxes(phys: Phys, m: ModelArrays, cache: CellCache, T_lay,
 
 
 def _band_totals(m: ModelArrays, flux_state: FluxState, F_dir_flat,
-                 carry=None):
-    """(the three band fluxes, (F_up_tot, F_down_tot)); ``carry``: the
-    totals of the bins before these, which the sum starts from."""
-    F_down_band = fp.gauss_band_flat(flux_state.F_down, m.gauss_weight)
-    F_up_band = fp.gauss_band_flat(flux_state.F_up, m.gauss_weight)
-    F_dir_band = fp.gauss_band_flat(F_dir_flat, m.gauss_weight)
-    up = F_up_band * m.delta_lambda
-    down = (F_dir_band + F_down_band) * m.delta_lambda
-    if carry is not None:
-        up, down = (torch.cat([c.unsqueeze(-1), x], -1)
-                    for c, x in zip(carry, (up, down)))
-    return ((F_down_band, F_up_band, F_dir_band),
-            (ordered_sum(up, -1), ordered_sum(down, -1)))
+                 carry=None) -> BandTotals:
+    """The band fluxes and totals of one flux solve (one kernel launch on
+    the card); ``carry``: the totals of the bins before these, which the
+    sums start from."""
+    return band_integrate(flux_state.F_down, flux_state.F_up, F_dir_flat,
+                          m.gauss_weight, m.delta_lambda, carry)
 
 
 def integrate_flux_flat(phys: Phys, m: ModelArrays, flux_state: FluxState,
@@ -595,22 +589,27 @@ def integrate_flux_flat(phys: Phys, m: ModelArrays, flux_state: FluxState,
     the same chain of adds as over the whole bin axis, bit for bit.  A
     padded bin (delta_lambda 0) adds an exact zero."""
     if count(m):
-        bands, carry = [], None
+        parts, carry = [], None
         for k, d in enumerate(devices(m)):
             if carry is not None:
                 carry = tuple(c.to(d) for c in carry)
-            b, carry = _band_totals(take(m, k, d), take(flux_state, k, d),
-                                    take(F_dir_flat, k, d), carry)
-            bands.append(b)
-        bands = [Slices(x) for x in zip(*bands)]
-        up, down = (c.to(devices(m)[0]) for c in carry)
+            t = _band_totals(take(m, k, d), take(flux_state, k, d),
+                             take(F_dir_flat, k, d), carry)
+            parts.append(t)
+            carry = (t.F_up_tot, t.F_down_tot)
+        first = devices(m)[0]
+        bands = [Slices(getattr(t, f) for t in parts)
+                 for f in ("F_down_band", "F_up_band", "F_dir_band")]
+        up, down, net = (getattr(parts[-1], f).to(first)
+                         for f in ("F_up_tot", "F_down_tot", "F_net"))
     else:
-        bands, (up, down) = _band_totals(m, flux_state, F_dir_flat)
+        t = _band_totals(m, flux_state, F_dir_flat)
+        bands = (t.F_down_band, t.F_up_band, t.F_dir_band)
+        up, down, net = t.F_up_tot, t.F_down_tot, t.F_net
     F_down_band, F_up_band, F_dir_band = bands
     return int_ops.FluxTotals(
         F_down_band=F_down_band, F_up_band=F_up_band,
-        F_dir_band=F_dir_band, F_down_tot=down, F_up_tot=up,
-        F_net=up - down)
+        F_dir_band=F_dir_band, F_down_tot=down, F_up_tot=up, F_net=net)
 
 
 def forward_fluxes(phys: Phys, m: ModelArrays, T_lay,

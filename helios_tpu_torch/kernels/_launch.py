@@ -6,6 +6,13 @@ tensors' data pointers, then some ints, then the CUDA stream, launch on
 that stream without synchronising and return ``cudaGetLastError()``; and
 ``helios_cuda_error_string``.  A source whose launch can refuse a shape
 also exports ``helios_launch_error_detail``, which says why.
+
+The launch path runs several times per radiation iteration, and on the
+card its host time, not the kernels', sets the pace of a one-planet run.
+So each check is one pass over the arguments that raises nothing and
+falls back to a detailed pass only to name what failed, the typed entry
+point is looked up once per (kernel, dtype), and the device is switched
+only for a tensor that is not on the current one.
 """
 
 from __future__ import annotations
@@ -21,6 +28,9 @@ from helios_tpu_torch.kernels import _build
 
 SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 INT_MAX = 2**31 - 1
+
+# (kernel, dtype, tensors, ints) -> the typed ctypes entry point
+_ENTRIES: dict = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -41,6 +51,20 @@ def _library(name: str, n_tensors: int, n_ints: int) -> ctypes.CDLL:
     return lib
 
 
+def entry(name: str, dtype, n_tensors: int, n_ints: int):
+    """The entry point ``<name>_f64`` or ``<name>_f32`` for ``dtype``,
+    built, loaded and typed at its first use."""
+    key = (name, dtype, n_tensors, n_ints)
+    fn = _ENTRIES.get(key)
+    if fn is None:
+        if dtype not in SUFFIX:
+            raise TypeError(f"unsupported dtype {dtype} (float32 or float64)")
+        fn = getattr(_library(name, n_tensors, n_ints),
+                     f"{name}_{SUFFIX[dtype]}")
+        _ENTRIES[key] = fn
+    return fn
+
+
 def matrix_shape(first, name: str, dims: str) -> tuple:
     """The (rows, columns) of a non-empty 2-D tensor, the first argument
     of a wrapper; ``dims`` names them in the error ("[L, S]")."""
@@ -55,13 +79,28 @@ def matrix_shape(first, name: str, dims: str) -> tuple:
 def check_tensors(args: Sequence, want: Sequence[tuple]) -> None:
     """Validate the inputs against their expected shapes: one dtype
     (float32/float64), one device, contiguous.  Nothing is adjusted."""
+    try:
+        if ([t.shape for t in args] == list(want)
+                and len({(t.dtype, t.device) for t in args}) == 1
+                and all(map(torch.Tensor.is_contiguous, args))
+                and args[0].dtype in SUFFIX):
+            return
+    except (AttributeError, TypeError):     # an argument is no tensor
+        pass
+    _explain(args, want)
+
+
+def _explain(args: Sequence, want: Sequence[tuple]) -> None:
+    """Raise for the first argument that :func:`check_tensors` refuses."""
     first = args[0]
+    if len(args) != len(want):
+        raise ValueError(f"{len(args)} arguments, expected {len(want)}")
     for k, (t, shape) in enumerate(zip(args, want)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"argument {k} is not a tensor")
-        if tuple(t.shape) != shape:
+        if tuple(t.shape) != tuple(shape):
             raise ValueError(f"argument {k} has shape {tuple(t.shape)}, "
-                             f"expected {shape}")
+                             f"expected {tuple(shape)}")
         if t.dtype != first.dtype:
             raise TypeError(f"argument {k} is {t.dtype}, argument 0 is "
                             f"{first.dtype}: all must share one dtype")
@@ -73,6 +112,7 @@ def check_tensors(args: Sequence, want: Sequence[tuple]) -> None:
     if first.dtype not in SUFFIX:
         raise TypeError(f"unsupported dtype {first.dtype} "
                         "(float32 or float64)")
+    raise AssertionError("check_tensors refused arguments that pass")
 
 
 def check_count(name: str, value) -> int:
@@ -87,17 +127,21 @@ def launch(name: str, tensors: Sequence[torch.Tensor],
            ints: Sequence[int]) -> None:
     """Launch ``<name>`` on the current stream of the tensors' CUDA device.
     ``tensors`` are the inputs followed by the outputs and scratch, which
-    the caller allocated.  Raises on any other device and on a failed
-    launch."""
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
-    lib = _library(name, len(tensors), len(ints))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, f"{name}_{SUFFIX[tensors[0].dtype]}")(
-            *(t.data_ptr() for t in tensors), *ints, stream)
+    the caller allocated and checked.  Raises on any other device and on a
+    failed launch."""
+    first = tensors[0]
+    if not first.is_cuda:
+        raise ValueError(f"{name} runs on cuda or cpu, not {first.device}")
+    fn = entry(name, first.dtype, len(tensors), len(ints))
+    index = first.get_device()
+    if index != torch.cuda.current_device():
+        # a slice of a mesh on another card: launch there, then switch back
+        with torch.cuda.device(index):
+            return launch(name, tensors, ints)
+    rc = fn(*[t.data_ptr() for t in tensors], *ints,
+            torch.cuda.current_stream(index).cuda_stream)
     if rc != 0:
+        lib = _library(name, len(tensors), len(ints))
         msg = f"{name} launch failed: " + lib.helios_cuda_error_string(
             rc).decode()
         if hasattr(lib, "helios_launch_error_detail"):

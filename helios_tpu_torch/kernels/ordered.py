@@ -29,16 +29,14 @@ def _launch_ordered(x, dim: int, scan: bool):
         raise ValueError("ordered sums take a non-empty tensor of at least "
                          "one dimension")
     x = x.contiguous()
-    _launch.check_tensors((x,), [tuple(x.shape)])
-    dim = dim % x.dim()
-    O = math.prod(x.shape[:dim])
-    K = x.shape[dim]
-    I = math.prod(x.shape[dim + 1:])
-    for name, n in (("rows", O * I), ("K", K), ("O*K*I", O * K * I)):
-        _launch.check_count(name, n)
-    shape = x.shape if scan else x.shape[:dim] + x.shape[dim + 1:]
-    out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    _launch.launch("ordered_sum", (x, out), (O, K, I, int(scan)))
+    shape = x.shape
+    dim = dim % len(shape)
+    n, K = x.numel(), shape[dim]
+    I = math.prod(shape[dim + 1:])
+    # rows O*I, K and O*K*I are each in [1, n]: n in range covers them
+    _launch.check_count("O*K*I", n)
+    out = x.new_empty(shape if scan else shape[:dim] + shape[dim + 1:])
+    _launch.launch("ordered_sum", (x, out), (n // (K * I), K, I, int(scan)))
     ordered_sum.launches += 1
     return out
 
@@ -46,7 +44,7 @@ def _launch_ordered(x, dim: int, scan: bool):
 def ordered_sum(x, dim: int):
     """``x`` summed over ``dim`` (torch.sum's result shape), in index
     order on the card.  ``x``: float32/float64."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return torch.sum(x, dim=dim)
     return _launch_ordered(x, dim, scan=False)
 
@@ -57,7 +55,7 @@ ordered_sum.launches = 0
 def ordered_cumsum(x, dim: int):
     """The cumulative sum of ``x`` along ``dim`` (torch.cumsum's), in
     index order on the card.  ``x``: float32/float64."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return torch.cumsum(x, dim=dim)
     return _launch_ordered(x, dim, scan=True)
 

@@ -40,7 +40,7 @@ def ro_mix(mixed, new, gauss_weight, gauss_y):
         raise ValueError(f"ro_mix takes 2 <= ny <= {MAX_NY}, got ny = {ny}")
     args = (mixed, new, gauss_weight, gauss_y)
     _launch.check_tensors(args, [(C, ny), (C, ny), (ny,), (ny,)])
-    if mixed.device.type == "cpu":
+    if mixed.is_cpu:
         return ro_mix_reference(*args)
     out = torch.empty_like(mixed)
     _launch.launch("ro_mix", args + (out,), (C, ny))

@@ -26,8 +26,7 @@ def _check(args, want, n_passes) -> int:
 def _run(name, args, out_shapes, L, S, n_passes):
     """Launch ``<name>`` on the inputs' CUDA device; returns the outputs,
     allocated here."""
-    outs = tuple(torch.empty(shape, dtype=args[0].dtype,
-                             device=args[0].device) for shape in out_shapes)
+    outs = tuple(args[0].new_empty(shape) for shape in out_shapes)
     _launch.launch(name, args + outs, (L, S, n_passes))
     return outs
 
@@ -52,7 +51,7 @@ def noniso_sweep(a_up, b_up, src_up_down, src_up_up, a_low, b_low,
     L, S = _launch.matrix_shape(a_up, "a_up", "[L, S]")
     n = _check(args, [(L, S)] * 8 + [(S,)] * 4 + [(L + 1, S), (L, S)],
                n_passes)
-    if a_up.device.type == "cpu":
+    if a_up.is_cpu:
         return noniso_sweep_reference(*args, n_passes=n)
     outs = _run("noniso_sweep", args, [(L + 1, S)] * 2 + [(L, S)] * 2,
                    L, S, n)
@@ -109,7 +108,7 @@ def iso_sweep(a, b_nm, src_down, src_up, toa, boa_refl, boa_emis, F_dir0,
             F_up_prev)
     L, S = _launch.matrix_shape(a, "a", "[L, S]")
     n = _check(args, [(L, S)] * 4 + [(S,)] * 4 + [(L + 1, S)], n_passes)
-    if a.device.type == "cpu":
+    if a.is_cpu:
         return iso_sweep_reference(*args, n_passes=n)
     outs = _run("iso_sweep", args, [(L + 1, S)] * 2, L, S, n)
     iso_sweep.launches += 1

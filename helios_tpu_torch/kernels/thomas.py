@@ -23,7 +23,7 @@ def thomas_solve(b, c, d):
     """
     n, S = _launch.matrix_shape(b, "b", "[n, S]")
     _launch.check_tensors((b, c, d), [(n, S)] * 3)
-    if b.device.type == "cpu":
+    if b.is_cpu:
         return thomas_solve_reference(b, c, d)
     x = torch.empty_like(b)
     dp = torch.empty_like(b)       # scratch; cp lives in x

@@ -4,10 +4,11 @@ another version of them or of ``csrc/ro_mix.cu`` beside the shipped one, on
 one CUDA card.
 
     python3 scripts/torch_ring_tuning.py
-        [--kernels noniso_sweep,thomas,iso_sweep,ro_mix]
+        [--kernels noniso_sweep,thomas,iso_sweep,ro_mix,band_integrate]
         [--depths 8,12,16,24] [--steady 2,4,8]
         [--iso-variants 0:8:3:32,1:8:3:32,1:8:5:30] [--iso-columns 32,4224]
         [--ro-warps 1,4] [--ro-cells 8448,16896]
+        [--bi-variants 0:2:24576,1:2:32768]
         [--rounds 5] [--reference-csrc DIR] [--out FILE]
 
 A variant is the source with some of its ``constexpr int`` constants
@@ -35,7 +36,13 @@ and on its ragged cells at ny = 32 (ties, gray, unsorted and infinite
 entries), and is held bit for bit against its plain version.
 ``--ro-cells`` adds ``ro_mix`` on the first C flagship cells only: a time
 that does not grow with C while the blocks fit on the SMs at once is set
-by one cell's chain.
+by one cell's chain.  ``band_integrate`` (the flux integration,
+``csrc/band_integrate.cu``) varies its staging, given as
+padded:stages:stage_bytes (``kPadded``: each bin's values at an odd
+stride in shared memory, one copy per element, or the row as it lies, 16
+bytes per copy; ``kStages`` stages of ``kStageBytes`` each); it runs on
+the flagship's fluxes [106, 7700] and path n's batch [106, 8, 7700] and
+is held bit for bit against its in-order reference.
 
 ``--reference-csrc DIR`` adds the sources of the selected kernels from
 another directory (another version of the kernels, with the same C
@@ -57,6 +64,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -64,16 +72,18 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (phase-3 inputs, timing, nvidia-smi)
 from helios_tpu_torch.kernels import _build, _launch  # noqa: E402
+from helios_tpu_torch.kernels.integrate import (  # noqa: E402
+    band_integrate_reference)
 from helios_tpu_torch.kernels.ro import ro_mix_reference  # noqa: E402
 from helios_tpu_torch.kernels.sweep import (  # noqa: E402
     iso_sweep_reference, noniso_sweep_reference)
 from helios_tpu_torch.kernels.thomas import thomas_solve_reference  # noqa: E402
 
 TUNING_DIR = _build.BUILD_DIR / "tuning"
-KERNELS = ("noniso_sweep", "thomas", "iso_sweep", "ro_mix")
+KERNELS = ("noniso_sweep", "thomas", "iso_sweep", "ro_mix", "band_integrate")
 # pointers and ints of each entry point
 ARITY = {"noniso_sweep": (18, 3), "thomas": (5, 2), "iso_sweep": (11, 3),
-         "ro_mix": (5, 2)}
+         "ro_mix": (5, 2), "band_integrate": (9, 6)}
 
 
 def variant_source(name, **constants):
@@ -215,6 +225,42 @@ def cases(kernels, iso_columns, ro_cells=()):
                             dtype, ro,
                             lambda args=args: [ro_mix_reference(*args)], 0.0,
                             (5, 10), False))
+        if "band_integrate" in kernels:
+            out += band_integrate_cases(dtype, name)
+    return out
+
+
+def band_integrate_cases(dtype, name):
+    """The flux integration at the flagship [106, 7700] and at path n's
+    batch [106, 8, 7700] with a shared delta_lambda, held bit for bit to
+    its in-order reference (rtol 0)."""
+    L, B, Y, P = (chip_smoke.L_FLAG, chip_smoke.NBIN_FLAG, chip_smoke.NY_FLAG,
+                  chip_smoke.ENSEMBLE_P)
+    rng = np.random.default_rng(20)
+    mk = lambda lo, hi, *s: torch.tensor(rng.uniform(lo, hi, s), dtype=dtype,
+                                         device="cuda")
+    w, dl = mk(0.01, 0.1, Y), mk(1e-7, 1e-5, B)
+    out = []
+    for label, lead, d, P_dl in (("flagship", (L + 1,), dl, 1),
+                                 ("batch", (L + 1, P), dl.expand(P, B), P)):
+        f = [mk(0.0, 1e6, *lead, B * Y) for _ in range(3)]
+        R = f[0].numel() // (B * Y)
+
+        def run(call, f=f, d=d, lead=lead, R=R, P_dl=P_dl):
+            bands = torch.empty((3,) + lead + (B,), dtype=dtype,
+                                device="cuda")
+            tots = torch.empty((3,) + lead, dtype=dtype, device="cuda")
+            call(f + [w, d, tots, tots, bands, tots],
+                 (R, B, Y, P_dl, d.stride(0) if d.dim() > 1 else 0, 0))
+            return [bands, tots]
+
+        def plain(f=f, d=d):
+            res = band_integrate_reference(*f, w, d, in_order=True)
+            return [torch.stack(res[:3]), torch.stack(res[3:])]
+
+        out.append((f"band_integrate {name} {label} [{R} x {B * Y}]",
+                    "band_integrate", dtype, run, plain, 0.0, (10, 20),
+                    False))
     return out
 
 
@@ -228,6 +274,9 @@ def variants(name, opt):
     if name == "ro_mix":
         names = ("kBlockWarps",)
         combos = [(w,) for w in opt.ro_warps]
+    elif name == "band_integrate":
+        names = ("kPadded", "kStages", "kStageBytes")
+        combos = [ints(v.replace(":", ",")) for v in opt.bi_variants]
     elif name == "iso_sweep":
         names = ("kStreamSourceUp", "kSteady", "kRingBlocks", "kMaxWidth")
         combos = [ints(v.replace(":", ",")) for v in opt.iso_variants]
@@ -255,6 +304,9 @@ def main(argv=None):
     ap.add_argument("--iso-columns", type=ints, default="")
     ap.add_argument("--ro-warps", type=ints, default="")
     ap.add_argument("--ro-cells", type=ints, default="")
+    ap.add_argument("--bi-variants", type=lambda t: t.split(","),
+                    default="0:2:24576,0:2:49152,0:3:32768,1:2:32768,"
+                            "1:2:49152,1:3:32768")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reference-csrc", type=Path)
     ap.add_argument("--out", type=Path)
@@ -310,6 +362,11 @@ def main(argv=None):
             chip_smoke.check(bad == 0, f"{label}: shipped build differs from "
                              f"its plain version in {bad} cells (max abs "
                              f"{diff:.3e})")
+            rel = 0.0
+        elif plain is not None and rtol == 0.0:
+            chip_smoke.check(all(torch.equal(g, w) for g, w in zip(
+                shipped, plain())), f"{label}: shipped build not bit for "
+                "bit its plain version")
             rel = 0.0
         elif plain is not None:
             want = plain()

@@ -16,8 +16,8 @@ import re
 import pytest
 import torch
 
-from helios_tpu_torch.kernels import (_build, _launch, ordered, ro, sweep,
-                                      thomas)
+from helios_tpu_torch.kernels import (_build, _launch, integrate, ordered,
+                                      ro, sweep, thomas)
 
 
 def _meta(dtype, *shape):
@@ -39,6 +39,10 @@ CALLS = {
         [_meta(dt, C, NY)] * 2 + [_meta(dt, NY)] * 2, {})),
     "ordered_sum": (ordered.ordered_sum, lambda dt: (
         [_meta(dt, L, S, NY)], dict(dim=1))),
+    "band_integrate": (integrate.band_integrate, lambda dt: (
+        [_meta(dt, L + 1, C, S * NY)] * 3 + [_meta(dt, NY), _meta(dt, C, S),
+                                            [_meta(dt, L + 1, C)] * 2],
+        {})),
 }
 CTYPE = {torch.float64: "double", torch.float32: "float"}
 

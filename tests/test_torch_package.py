@@ -19,6 +19,8 @@ from helios_tpu_torch import pipeline as torch_pipeline
 from helios_tpu_torch.config import HeliosConfig
 from helios_tpu_torch.device import resolve_device, torch_dtype
 from helios_tpu_torch.io.opacity import synthetic_premixed_table
+from helios_tpu_torch.kernels.integrate import (band_integrate,
+                                                band_integrate_reference)
 from helios_tpu_torch.kernels.ordered import (in_order_reference,
                                               ordered_cumsum, ordered_sum)
 from helios_tpu_torch.kernels.ro import ro_mix, ro_mix_reference
@@ -540,3 +542,39 @@ def test_cuda_ordered_sums_take_a_transposed_view(cuda_device, dtype):
     for fn in (ordered_sum, ordered_cumsum):
         for dim in (0, 1):
             assert torch.equal(fn(x, dim), fn(x.contiguous(), dim))
+
+
+# the flux integration: (rows of the fluxes, nbin, ny), a planet, a batch,
+# one bin of one Gauss point, and bins that leave a tile part-filled
+BANDS = [((13,), 65, 4), ((13, 3), 65, 4), ((5,), 1, 1), ((7, 2), 300, 3),
+         ((4,), 385, 20)]
+
+
+@pytest.mark.parametrize("lead,nbin,ny", BANDS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_band_integrate_is_the_in_order_chain(cuda_device, dtype, lead,
+                                                   nbin, ny):
+    """One launch per call, bit for bit the in-order chain, with and
+    without a carry; a batch's shared delta_lambda (an expanded view) and
+    fluxes that start off a 16-byte boundary take the same bits."""
+    rng = np.random.default_rng(11)
+    t = lambda lo, hi, *s: torch.tensor(rng.uniform(lo, hi, s), dtype=dtype,
+                                        device=cuda_device)
+    S = nbin * ny
+    # F_down starts one element into its buffer
+    f = [t(0.0, 1e5, int(np.prod(lead)) * S + 1)[1:].view(lead + (S,))]
+    f += [t(0.0, 1e5, *lead, S) for _ in range(2)]
+    w = t(0.1, 0.7, ny)
+    dls = [t(1e-6, 1e-4, nbin)]
+    if len(lead) == 2:
+        dls = [t(1e-6, 1e-4, lead[1], nbin), dls[0].expand(lead[1], nbin)]
+    carry = (t(0.0, 1.0, *lead), t(0.0, 1.0, *lead))
+    for dl in dls:
+        for c in (None, carry):
+            before = band_integrate.launches
+            got = band_integrate(*f, w, dl, c)
+            torch.cuda.synchronize()
+            assert band_integrate.launches == before + 1
+            want = band_integrate_reference(*f, w, dl, c, in_order=True)
+            for name, g, x in zip(got._fields, got, want):
+                assert torch.equal(g, x), name

@@ -39,9 +39,9 @@ from helios_tpu.parallel import sharding as jshd
 from helios_tpu.rce import radiative as jrad
 from helios_tpu_torch import chem as tchem
 from helios_tpu_torch import convert
-from helios_tpu_torch import fastpath as tfp
 from helios_tpu_torch import forward as tf
 from helios_tpu_torch.config import HeliosConfig as TorchConfig
+from helios_tpu_torch.kernels import integrate as tint
 from helios_tpu_torch.kernels.ordered import in_order_reference
 from helios_tpu_torch.ops import slices
 from helios_tpu_torch.parallel import ensemble as tens
@@ -332,8 +332,7 @@ def test_carried_total_is_the_one_device_total(n, monkeypatch):
     those over the whole bin axis, each slice's sum starting from the
     slices before it, and the bands the same."""
     in_order = lambda x, dim: in_order_reference(x, dim, scan=False)
-    monkeypatch.setattr(tf, "ordered_sum", in_order)
-    monkeypatch.setattr(tfp, "ordered_sum", in_order)
+    monkeypatch.setattr(tint, "ordered_sum", in_order)
     table = synthetic_premixed_table(nbin=21, ny=4, ntemp=10, npress=8,
                                      seed=5)
     _, (phys, arrays) = both(dict(BASE, iso_input="no"), table)
