@@ -61,15 +61,6 @@ constexpr int kThreads = 256;
 // (scripts/torch_ring_tuning.py --kernels band_integrate times others)
 constexpr int kStageBytes = 32768;
 constexpr int kStages = 2;
-// 1: each bin's ny values land at an odd stride of ny | 1 elements, so
-// that the threads' reads of their bins are free of shared-memory bank
-// conflicts at an even ny, at one copy per element; 0: the row as it lies,
-// 16 bytes per copy, read at the stride ny
-constexpr int kPadded = 0;
-
-__host__ __device__ constexpr int bin_stride(int Y) {
-  return kPadded ? (Y | 1) : Y;
-}
 
 __device__ __forceinline__ double add_rn(double a, double b) {
   return __dadd_rn(a, b);
@@ -133,7 +124,7 @@ __device__ __forceinline__ void stage_copy(T* buf, const T* src, int n) {
 // and down_b, and kStages x 3 flux tiles of TB Y values (+ slack).
 template <typename T>
 __host__ __device__ constexpr int stage_len(int TB, int Y) {
-  return round_up(TB * bin_stride(Y), 16 / static_cast<int>(sizeof(T))) +
+  return round_up(TB * Y, 16 / static_cast<int>(sizeof(T))) +
          16 / static_cast<int>(sizeof(T));
 }
 template <typename T>
@@ -172,18 +163,8 @@ band_integrate_kernel(const T* __restrict__ f_down,
     const int b0 = c * TB;
     const int n = min(TB, B - b0) * Y;
     T* const buf = stages + (c % kStages) * 3 * Ls;
-    for (int f = 0; f < 3; ++f) {
-      const T* const src = rows[f] + static_cast<long long>(b0) * Y;
-      if (kPadded) {
-        for (int i = threadIdx.x; i < n; i += kThreads) {
-          const int b = i / Y;
-          helios::copy_async(buf + f * Ls + b * bin_stride(Y) + (i - b * Y),
-                             src + i);
-        }
-      } else {
-        stage_copy(buf + f * Ls, src, n);
-      }
-    }
+    for (int f = 0; f < 3; ++f)
+      stage_copy(buf + f * Ls, rows[f] + static_cast<long long>(b0) * Y, n);
     helios::commit_group();
   };
 
@@ -212,14 +193,9 @@ band_integrate_kernel(const T* __restrict__ f_down,
     if (j < nb) {
       T* const buf = stages + (c % kStages) * 3 * Ls;
       const long long off = static_cast<long long>(b0) * Y;
-      const T* pd = buf + j * bin_stride(Y);
-      const T* pu = pd + Ls;
-      const T* pr = pd + 2 * Ls;
-      if (!kPadded) {
-        pd = staged(buf, rows[0] + off) + j * Y;
-        pu = staged(buf + Ls, rows[1] + off) + j * Y;
-        pr = staged(buf + 2 * Ls, rows[2] + off) + j * Y;
-      }
+      const T* const pd = staged(buf, rows[0] + off) + j * Y;
+      const T* const pu = staged(buf + Ls, rows[1] + off) + j * Y;
+      const T* const pr = staged(buf + 2 * Ls, rows[2] + off) + j * Y;
       T sd = T(0), su = T(0), sr = T(0);
       for (int y = 0; y < Y; ++y) {
         const T wy = ws[y];
@@ -265,7 +241,7 @@ int launch(const T* f_down, const T* f_up, const T* f_dir, const T* w,
            T* tots, int R, int B, int Y, int P, int dl_stride, int has_carry,
            void* stream) {
   g_error_detail[0] = '\0';
-  int TB = kStageBytes / (3 * bin_stride(Y) * static_cast<int>(sizeof(T)));
+  int TB = kStageBytes / (3 * Y * static_cast<int>(sizeof(T)));
   TB = TB < 1 ? 1 : (TB > kThreads ? kThreads : TB);
   TB = TB > B ? B : TB;
   const size_t smem = shared_len<T>(TB, Y) * sizeof(T);

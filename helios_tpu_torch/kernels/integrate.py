@@ -76,10 +76,8 @@ def band_integrate(F_down, F_up, F_dir, gauss_weight, delta_lambda,
         want += [lead] * 2
     _launch.check_tensors(args, want)
     R = _launch.check_count("rows x S", F_up.numel()) // S
-    # the bands [3, .., nbin] and the totals [3, ..] in one allocation
-    out = F_up.new_empty(3 * R * (B + 1))
-    bands = out[:3 * R * B].view((3,) + lead + (B,))
-    tots = out[3 * R * B:].view((3,) + lead)
+    bands = F_up.new_empty((3,) + lead + (B,))
+    tots = F_up.new_empty((3,) + lead)
     carries = tuple(carry) if carry is not None else (tots, tots)
     _launch.launch("band_integrate",
                    fluxes + (gauss_weight, dl) + carries + (bands, tots),

@@ -8,7 +8,7 @@ one CUDA card.
         [--depths 8,12,16,24] [--steady 2,4,8]
         [--iso-variants 0:8:3:32,1:8:3:32,1:8:5:30] [--iso-columns 32,4224]
         [--ro-warps 1,4] [--ro-cells 8448,16896]
-        [--bi-variants 0:2:24576,1:2:32768]
+        [--bi-variants 4:24576,2:49152]
         [--rounds 5] [--reference-csrc DIR] [--out FILE]
 
 A variant is the source with some of its ``constexpr int`` constants
@@ -38,9 +38,8 @@ entries), and is held bit for bit against its plain version.
 that does not grow with C while the blocks fit on the SMs at once is set
 by one cell's chain.  ``band_integrate`` (the flux integration,
 ``csrc/band_integrate.cu``) varies its staging, given as
-padded:stages:stage_bytes (``kPadded``: each bin's values at an odd
-stride in shared memory, one copy per element, or the row as it lies, 16
-bytes per copy; ``kStages`` stages of ``kStageBytes`` each); it runs on
+stages:stage_bytes (a ring of ``kStages`` stages of ``kStageBytes``
+each); it runs on
 the flagship's fluxes [106, 7700] and path n's batch [106, 8, 7700] and
 is held bit for bit against its in-order reference.
 
@@ -275,7 +274,7 @@ def variants(name, opt):
         names = ("kBlockWarps",)
         combos = [(w,) for w in opt.ro_warps]
     elif name == "band_integrate":
-        names = ("kPadded", "kStages", "kStageBytes")
+        names = ("kStages", "kStageBytes")
         combos = [ints(v.replace(":", ",")) for v in opt.bi_variants]
     elif name == "iso_sweep":
         names = ("kStreamSourceUp", "kSteady", "kRingBlocks", "kMaxWidth")
@@ -305,8 +304,7 @@ def main(argv=None):
     ap.add_argument("--ro-warps", type=ints, default="")
     ap.add_argument("--ro-cells", type=ints, default="")
     ap.add_argument("--bi-variants", type=lambda t: t.split(","),
-                    default="0:2:24576,0:2:49152,0:3:32768,1:2:32768,"
-                            "1:2:49152,1:3:32768")
+                    default="4:24576,2:49152,3:32768")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reference-csrc", type=Path)
     ap.add_argument("--out", type=Path)

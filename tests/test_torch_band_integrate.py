@@ -291,11 +291,12 @@ def test_one_launch_per_integration(monkeypatch, small_model, members,
         assert arg["has_carry"] == int(k > 0)
         if k:
             assert tuple(arg["carry_up"].shape) == lead
-            # the totals of the slice before, which share its outputs' buffer
+            # the totals [3, ..] of the slice before
             tots = launched[k - 1][1][-1]
-            assert arg["carry_up"]._base is tots._base
-            assert arg["carry_down"]._base is tots._base
-            assert arg["carry_up"].storage_offset() == tots.storage_offset()
+            assert arg["carry_up"]._base is tots
+            assert arg["carry_down"]._base is tots
+            assert arg["carry_up"].storage_offset() == 0
+            assert arg["carry_down"].storage_offset() == tots.stride(0)
 
 
 BAD_ARGUMENTS = [
