@@ -45,7 +45,15 @@
 // S = 7700), 6.1 us at the data-sheet 3.35 TB/s, and 164.6 MB at an
 // 8-planet batch (R = 848), 49.1 us.  The arithmetic, 2 operations per
 // flux value and 8 per bin, is 5.2 MFLOP at the flagship, 0.15 us at 34
-// TFLOP/s fp64: the bytes bound it.
+// TFLOP/s fp64: the bytes bound it.  At the flagship's 106 rows each SM
+// holds one block, and the time (about 2.5x the bound on an H100) goes to
+// each tile's Gauss sums from shared memory and its chain of adds, not to
+// the bytes in flight: more or larger stages were no faster at the
+// flagship and slower at the batch (scripts/torch_ring_tuning.py
+// --kernels band_integrate), and so was staging each bin at an odd stride
+// to spare the bank conflicts of ny = 20, timed the same way and dropped.
+// A batch of 8 planets fills the card with 848 blocks and comes within
+// 1.5x of the bound.
 
 #include <cuda_runtime.h>
 

@@ -1,11 +1,12 @@
 // Sums and cumulative sums in a fixed order, for Hopper (sm_90a).
 //
 // Replaces no Pallas kernel.  It takes the place of torch.sum and
-// torch.cumsum where the loops reduce on the card: the Gauss-point and
-// band sums of the flux integration (fastpath.gauss_band_flat,
-// forward.integrate_flux_flat), the layer scans of the altitude, the
-// heating and smoothing sums, the direct beam's optical depth above each
-// interface, and the adiabat and zone sums of the convective adjustment.
+// torch.cumsum where the loops reduce on the card: the layer scans of the
+// altitude, the heating and smoothing sums, the direct beam's optical
+// depth above each interface, and the adiabat and zone sums of the
+// convective adjustment.  (The flux integration's Gauss and band sums run
+// in band_integrate.cu, in the same order; the chain of ops and sums here
+// that it replaced stays its yardstick, kernels.integrate.)
 // PyTorch's CUDA reductions and scans choose their order by the tensor's
 // shape: a 1-D cumsum runs through cub's parallel scan and the same values
 // along the leading axis of a 2-D tensor through a sequential loop, and
@@ -27,17 +28,18 @@
 //
 // Layout: one thread per (o, i), consecutive threads on consecutive i, so
 // a warp reads each k's row coalesced when I > 1 (the layer scans of
-// [L, P, S] and [L, P] tensors); with I = 1 (the band sums, K = ny or nbin
-// contiguous values per row) consecutive threads read neighbouring rows
-// and the lines stay in L1 across the thread's K loads.
+// [L, P, S] and [L, P] tensors); with I = 1 (K contiguous values per row,
+// as in the zone sums and the Gauss sums of the yardstick chain)
+// consecutive threads read neighbouring rows and the lines stay in L1
+// across the thread's K loads.
 //
 // Bound: each input read once, each output written once, (O K I + O I)
 // values for a sum and 2 O K I for a scan; the K - 1 adds per output are
-// far below the card's rate.  At the flagship batch's Gauss sums
-// ([106 x 8 x 385] rows of 20 doubles) that is 55.4 MB, 16.5 us at the
-// data-sheet 3.35 TB/s.  The band sums have few rows (106 P) of 385, and
-// there each thread's chain of 385 dependent adds, not the bytes, sets the
-// time: the price of the fixed order.
+// far below the card's rate.  At [106 x 8 x 385] rows of 20 doubles (the
+// batch's Gauss sums, chip_smoke's timing shape) that is 55.4 MB, 16.5 us
+// at the data-sheet 3.35 TB/s.  Rows of few long sums (106 P rows of 385)
+// are set by each thread's chain of dependent adds, not by the bytes: the
+// price of the fixed order.
 
 #include <cuda_runtime.h>
 

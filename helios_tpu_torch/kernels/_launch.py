@@ -29,9 +29,6 @@ from helios_tpu_torch.kernels import _build
 SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 INT_MAX = 2**31 - 1
 
-# (kernel, dtype, tensors, ints) -> the typed ctypes entry point
-_ENTRIES: dict = {}
-
 
 @functools.lru_cache(maxsize=None)
 def _library(name: str, n_tensors: int, n_ints: int) -> ctypes.CDLL:
@@ -51,18 +48,14 @@ def _library(name: str, n_tensors: int, n_ints: int) -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
 def entry(name: str, dtype, n_tensors: int, n_ints: int):
     """The entry point ``<name>_f64`` or ``<name>_f32`` for ``dtype``,
     built, loaded and typed at its first use."""
-    key = (name, dtype, n_tensors, n_ints)
-    fn = _ENTRIES.get(key)
-    if fn is None:
-        if dtype not in SUFFIX:
-            raise TypeError(f"unsupported dtype {dtype} (float32 or float64)")
-        fn = getattr(_library(name, n_tensors, n_ints),
-                     f"{name}_{SUFFIX[dtype]}")
-        _ENTRIES[key] = fn
-    return fn
+    if dtype not in SUFFIX:
+        raise TypeError(f"unsupported dtype {dtype} (float32 or float64)")
+    return getattr(_library(name, n_tensors, n_ints),
+                   f"{name}_{SUFFIX[dtype]}")
 
 
 def matrix_shape(first, name: str, dims: str) -> tuple:
@@ -112,7 +105,6 @@ def _explain(args: Sequence, want: Sequence[tuple]) -> None:
     if first.dtype not in SUFFIX:
         raise TypeError(f"unsupported dtype {first.dtype} "
                         "(float32 or float64)")
-    raise AssertionError("check_tensors refused arguments that pass")
 
 
 def check_count(name: str, value) -> int:

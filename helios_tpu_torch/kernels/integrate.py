@@ -57,16 +57,15 @@ def band_integrate(F_down, F_up, F_dir, gauss_weight, delta_lambda,
                          f"{tuple(gauss_weight.shape)}")
     B = S // Y
     dl = delta_lambda
-    if dl.stride(-1) != 1:
-        dl = dl.contiguous()
     if dl.dim() == 1:
         P, dl_stride, dl_shape = 1, 0, (B,)
     else:
         P, dl_stride, dl_shape = dl.shape[0], dl.stride(0), (lead[-1], B)
-    if (dl.shape != dl_shape or len(lead) < dl.dim()
+    if (dl.shape != dl_shape or len(lead) < dl.dim() or dl.stride(-1) != 1
             or dl.dtype is not F_up.dtype or dl.device != F_up.device):
         raise ValueError(f"delta_lambda must be a {F_up.dtype} [nbin] or "
-                         f"[P, nbin] tensor on {F_up.device} for fluxes "
+                         f"[P, nbin] tensor on {F_up.device} with unit "
+                         f"stride along nbin for fluxes "
                          f"{tuple(F_up.shape)}, got {dl.dtype} "
                          f"{tuple(dl.shape)} on {dl.device}")
     args = fluxes + (gauss_weight,)

@@ -309,6 +309,8 @@ BAD_ARGUMENTS = [
      "delta_lambda"),
     ("dl_dtype", lambda a: a.__setitem__(4, a[4].float()), ValueError,
      "delta_lambda"),
+    ("dl_strided", lambda a: a.__setitem__(
+        4, torch.stack([a[4]] * 2, -1)[:, 0]), ValueError, "unit stride"),
     ("weight_dtype", lambda a: a.__setitem__(3, a[3].float()), TypeError,
      "dtype"),
     ("half", lambda a: a.__setitem__(slice(None),
@@ -391,8 +393,7 @@ def test_launch_switches_device_only_off_the_current_one(monkeypatch,
     card = _StubCard(current)
     for name in ("current_device", "current_stream", "device"):
         monkeypatch.setattr(torch.cuda, name, getattr(card, name))
-    monkeypatch.setitem(_launch._ENTRIES, ("stub", torch.float64, 2, 1),
-                        card.entry)
+    monkeypatch.setattr(_launch, "entry", lambda *key: card.entry)
     _launch.launch("stub", (_StubTensor(on), _StubTensor(on)), (7,))
     assert card.launches == [(on, 1000 + on)]
     assert card.switches == ([] if on == current else [on, current])
@@ -403,8 +404,7 @@ def test_launch_names_a_failed_launch(monkeypatch):
     card = _StubCard(0)
     for name in ("current_device", "current_stream", "device"):
         monkeypatch.setattr(torch.cuda, name, getattr(card, name))
-    monkeypatch.setitem(_launch._ENTRIES, ("stub", torch.float64, 1, 0),
-                        lambda *a: 9)
+    monkeypatch.setattr(_launch, "entry", lambda *key: lambda *a: 9)
     lib = SimpleNamespace(
         helios_cuda_error_string=lambda rc: b"invalid configuration",
         helios_launch_error_detail=lambda: b"ny = 9000 is too many")
