@@ -301,8 +301,14 @@ def kernel_counters():
 
 
 def reset_counts():
+    """Every launch count to 0, the loops' runners dropped and the peak
+    memory reset, so that a path's graphs, replays, reads and peak are its
+    own."""
+    from helios_tpu_torch.rce import graphs
     for fn in kernel_counters().values():
         fn.launches = 0
+    graphs.release()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def read_counts():
@@ -331,6 +337,80 @@ def only(**counts):
     return {name: counts.get(name, sums if name in ("ordered_sum",
                                                     "band_integrate") else 0)
             for name in kernel_counters()}
+
+
+def loop_stats():
+    """What the loops' runners did since the last reset_counts: {loop:
+    graphs, replays, reads, redos, iterations, past_stop, rounds} (None
+    for a loop that did not run in chunks)."""
+    from helios_tpu_torch.rce import graphs
+    return {k: (st.as_dict() if (st := graphs.stats(k)) else None)
+            for k in ("radiation", "convection")}
+
+
+def rounds_text(hist):
+    """The nonzero bins of an adjustment-rounds histogram, {rounds: n}."""
+    return {k: n for k, n in enumerate(hist) if n} if hist else {}
+
+
+def loop_line(label, out=None, stats=None):
+    """Log how a path's loops ran: per loop the CUDA graphs captured, their
+    replays, the device reads (and per iteration), the redone chunks, the
+    iterations replayed past the stop and the adjustment rounds needed
+    (first tries); the peak device memory since the path's start (of
+    this process: not with ``stats`` from another); with ``out`` (a
+    RunOutput) the host wall per radiation and convection iteration.
+    Returns the stats."""
+    memory = ""
+    if stats is None:
+        stats = loop_stats()
+        memory = (f"; peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    parts = []
+    for kind, st in stats.items():
+        if st is None:
+            continue
+        its = max(st["iterations"], 1)
+        parts.append(
+            f"{kind} {st['graphs']} graphs, {st['replays']} replays, "
+            f"{st['reads']} reads ({st['reads'] / its:.3f} per iteration), "
+            f"{st['redos']} redos, {st['past_stop']} iterations past the "
+            f"stop" + (f", adjustment rounds {rounds_text(st['rounds'])}"
+                       if st["rounds"] else ""))
+    walls = ""
+    if out is not None:
+        walls = f"; host wall {out.rad_seconds / max(out.rad.it, 1) * 1e3:.3f}"
+        walls += " ms per radiation iteration"
+        if out.conv is not None and out.conv.steps:
+            walls += (f", {out.conv_seconds / out.conv.steps * 1e3:.3f} ms "
+                      "per convection iteration")
+    log(f"{label} loops: " + ("; ".join(parts) or "no chunked loop")
+        + memory + walls)
+    return stats
+
+
+def per_iteration_twin(label, run, graphed):
+    """``run()`` (a pipeline.run of a path) again through the per-iteration
+    loop: bit for bit the graphed run ``graphed`` (final T, both counts,
+    the TOA spectrum); logs both walls.  Returns the per-iteration run."""
+    from helios_tpu_torch.rce import graphs
+    torch.cuda.synchronize()
+    with graphs.per_iteration():
+        per = run()
+    counts = lambda o: (o.rad.it, o.conv.it if o.conv is not None else 0,
+                        o.conv.steps if o.conv is not None else 0)
+    check(torch.equal(graphed.T_lay, per.T_lay)
+          and counts(graphed) == counts(per)
+          and torch.equal(graphed.totals.F_up_band[-1],
+                          per.totals.F_up_band[-1]),
+          f"{label}: the graphed run {counts(graphed)} is not bit for bit "
+          f"the per-iteration run {counts(per)}")
+    log(f"{label}: the graphed run bit for bit the per-iteration run "
+        f"({counts(graphed)}); wall {graphed.wall_seconds:.3f} s against "
+        f"{per.wall_seconds:.3f} s (radiation loop {graphed.rad_seconds:.3f} "
+        f"against {per.rad_seconds:.3f} s, convection loop "
+        f"{graphed.conv_seconds:.3f} against {per.conv_seconds:.3f} s)")
+    return per
 
 
 # the modules that call forward.integrate_flux_flat by name
@@ -1054,13 +1134,13 @@ def chained_case(dtype):
     return res
 
 
-def ro_inputs(dtype, seed=2, C=L_FLAG * NBIN_FLAG):
+def ro_inputs(dtype, seed=2, C=L_FLAG * NBIN_FLAG, ny=NY_FLAG):
     """C = 105 x 385 cells (an ensemble's P times as many) of two
-    ascending 20-point k-distributions; every 7th cell has exact ties (new
-    == mixed), every 7th (offset 1) a negligible overlap."""
+    ascending ny-point k-distributions (20 Gauss points); every 7th cell
+    has exact ties (new == mixed), every 7th (offset 1) a negligible
+    overlap."""
     from helios_tpu_torch.io.opacity import gauss_legendre_ypoints
     rng = np.random.default_rng(seed)
-    ny = NY_FLAG
     m = np.sort(10.0 ** rng.uniform(-4, 1, (C, ny)), axis=1)
     n = np.sort(10.0 ** rng.uniform(-3, 0.5, (C, ny)), axis=1)
     n[::7] = m[::7]
@@ -1135,6 +1215,54 @@ def ro_case(dtype, bandwidth, C=L_FLAG * NBIN_FLAG):
     return r
 
 
+# ny above which the previous design's launch-wide weight bound failed for
+# Gauss-Legendre weights in fp32 (every live cell went general)
+RO_WIDE_NY = (87, 100, 126)
+
+
+def old_stream_bound_ok(gauss_weight):
+    """The previous design's launch-wide check on the weights (before the
+    check at each position of the stream): the least weight product
+    fl(hmin^2) at least twice the smallest normal and 4 eps fl(hsum^2)."""
+    h = (0.5 * gauss_weight).cpu().numpy()
+    dt, info = h.dtype.type, np.finfo(h.dtype)
+    pmin = dt(h.min() * h.min())
+    hsum = dt(0)
+    for x in h:
+        hsum = dt(hsum + x)
+    return bool(pmin >= 2 * info.tiny
+                and pmin >= dt(4 * info.epsneg) * dt(hsum * hsum))
+
+
+def ro_wide_ny_case(C=2000):
+    """ro_mix in fp32 at RO_WIDE_NY on ro_inputs' cells (C + ny of them):
+    bit for bit with the plain version, the cells of the general branch
+    (ro_general_cells) against the previous design's (every live cell,
+    where its launch-wide bound failed), and the kernel's time."""
+    from helios_tpu_torch.kernels.ro import (ro_general_cells, ro_mix,
+                                             ro_mix_reference)
+    from helios_tpu_torch.ops.mixing import negligible_overlap
+    res = {}
+    for ny in RO_WIDE_NY:
+        args = ro_inputs(torch.float32, C=C + ny, ny=ny)
+        got = ro_mix(*args)
+        torch.cuda.synchronize()
+        bad, ab = row_mismatches(got, ro_mix_reference(*args))
+        check(bad == 0, f"ro_mix fp32 ny={ny}: {bad} cells differ from the "
+              f"plain version (max abs {ab:.3e})")
+        live = int((~negligible_overlap(args[0], args[1])).sum())
+        general = int(ro_general_cells(*args).sum())
+        before = 0 if old_stream_bound_ok(args[2]) else live
+        ms = cuda_ms(lambda: ro_mix(*args), 5, 2, per_event=3)
+        res[ny] = dict(cells=C + ny, live=live, general_cells=general,
+                       general_cells_before=before, ms=ms)
+        log(f"ro_mix fp32 ny={ny} [{C + ny} cells, {live} live]: bit for bit "
+            f"with the plain version; {general} cells in the general branch "
+            f"(the previous design's launch-wide bound: {before}); kernel "
+            f"{ms:.4f} ms")
+    return res
+
+
 # ny of the ragged Random Overlap checks: small and odd counts, powers of
 # two and one past them, and the largest the kernel takes
 RO_RAGGED_NY = (2, 3, 4, 5, 16, 17, 20, 32, 33, 64, 126)
@@ -1169,9 +1297,9 @@ def ro_ragged_inputs(dtype, ny, C, seed):
 def ro_ragged_case(dtype):
     """ro_mix bit for bit against its plain version at every ny of
     RO_RAGGED_NY on ro_ragged_inputs (C = 1000 + ny), and at ny = 20 also
-    with the last Gauss node past the last yg, with a weight too small for
-    the stream (every live cell general), an all-negligible batch and a
-    single cell."""
+    with the last Gauss node past the last yg, with a weight far below the
+    others (the stream takes it), with a zero weight (every live cell
+    general), an all-negligible batch and a single cell."""
     from helios_tpu_torch.kernels.ro import (ro_general_cells, ro_mix,
                                              ro_mix_reference)
     from helios_tpu_torch.ops.mixing import negligible_overlap
@@ -1179,13 +1307,15 @@ def ro_ragged_case(dtype):
     runs = [(f"ny={ny}", ro_ragged_inputs(dtype, ny, 1000 + ny, ny))
             for ny in RO_RAGGED_NY]
     m, n, w, y = ro_ragged_inputs(dtype, 20, 1020, 20)
-    past_end, tiny = y.clone(), w.clone()
+    past_end, tiny, zero = y.clone(), w.clone(), w.clone()
     past_end[-1] = 1 - 1e-7
     tiny[0] = 1e-30
+    zero[0] = 0.0
     quiet_m = torch.where(m == 0, torch.ones_like(m), m)
     quiet_n = torch.where(torch.isfinite(n), n, torch.ones_like(n)) * 1e-9
     runs += [("ny=20, node past the last yg", [m, n, w, past_end]),
              ("ny=20, tiny weight", [m, n, tiny, y]),
+             ("ny=20, zero weight", [m, n, zero, y]),
              ("ny=20, all negligible", [quiet_m, quiet_n, w, y]),
              ("ny=20, one cell", [m[:1], n[:1], w, y])]
     general = 0
@@ -1200,8 +1330,8 @@ def ro_ragged_case(dtype):
     check(bool(neg.all()), "ro_mix all-negligible batch is not")
     log(f"ro_mix {name} ragged: bit for bit with the plain version in "
         f"{len(runs)} batches (ny in {RO_RAGGED_NY}, C = 1000 + ny; at ny = "
-        f"20 a node past the last yg, a tiny weight, all negligible, one "
-        f"cell); {general} cells in the general branch")
+        f"20 a node past the last yg, a tiny and a zero weight, all "
+        f"negligible, one cell); {general} cells in the general branch")
     return dict(batches=len(runs), bitwise=True, general_cells=general)
 
 
@@ -1248,16 +1378,35 @@ def flagship(tmpdir, **extra):
     return cfg, table
 
 
+# path a's loop statistics and its per-iteration run, for the summary
+MAIN_PATH = {}
+
+
 def main_path(launch_counts):
+    """Path a: the flagship through pipeline.run, its loops as replayed
+    CUDA graphs (the launches counted); then the same run through the
+    per-iteration loop (graphs.per_iteration), which it must equal bit for
+    bit (final T, both counts, the TOA spectrum); one forward solve on the
+    card against the CPU."""
     from helios_tpu_torch import pipeline
     from helios_tpu_torch.forward import ModelArrays, forward_fluxes
+    from helios_tpu_torch.rce import graphs
 
     with tempfile.TemporaryDirectory() as tmpdir:
         cfg, table = flagship(tmpdir)
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         out = pipeline.run(cfg, table, write_output=False, device=DEVICE)
         launch_counts.update(read_counts())
+        stats = loop_line("main path", out)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with graphs.per_iteration():
+            per = pipeline.run(cfg, table, write_output=False, device=DEVICE)
+        per_counts = read_counts()
+        per_peak = torch.cuda.max_memory_allocated() / 2**20
         T_start = pipeline.initial_temperatures(cfg, out.phys, out.arrays)
 
     rad, conv = out.rad, out.conv
@@ -1272,16 +1421,36 @@ def main_path(launch_counts):
           and launch_counts == only(noniso_sweep=out.n_flux_solves),
           f"main path: launches {launch_counts} for {out.n_flux_solves} "
           "flux solves")
+    check(all(st is not None and st["graphs"] > 0 and st["replays"] > 0
+              for st in stats.values()),
+          f"main path: a loop ran without replayed graphs: {stats}")
+    toa = out.totals.F_up_band[-1]
+    same = (np.array_equal(T, per.T_lay.cpu().numpy())
+            and (rad.it, conv.it, conv.steps)
+            == (per.rad.it, per.conv.it, per.conv.steps)
+            and torch.equal(toa, per.totals.F_up_band[-1]))
+    check(same, f"main path: the graphed run ({rad.it} + {conv.it}) is not "
+          f"bit for bit the per-iteration run ({per.rad.it} + "
+          f"{per.conv.it}): max |dT| "
+          f"{np.abs(T - per.T_lay.cpu().numpy()).max():.3e} K")
+    check(per_counts == only(noniso_sweep=per.n_flux_solves),
+          f"main path, per-iteration loop: launches {per_counts} for "
+          f"{per.n_flux_solves} flux solves")
     log(f"main path: flagship RCE run [{L_FLAG} layers x {NBIN_FLAG} bins x "
         f"{NY_FLAG} y, fp64] converged: {rad.it} radiation + {conv.it} "
         f"convection iterations ({conv.steps} convection steps), "
         f"{out.n_flux_solves} flux solves = {launch_counts['noniso_sweep']} "
         f"noniso_sweep launches")
-    log(f"main path: wall {out.wall_seconds:.3f} s (radiation loop "
-        f"{out.rad_seconds:.3f} s = {rad.it / out.rad_seconds:.1f} it/s, "
-        f"convection loop {out.conv_seconds:.3f} s = "
-        f"{conv.steps / out.conv_seconds:.1f} it/s); peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; T "
+    for name, o, peak in (
+            ("graphed", out, None), ("per-iteration", per, per_peak)):
+        log(f"main path, {name} loops: wall {o.wall_seconds:.3f} s "
+            f"(radiation loop {o.rad_seconds:.3f} s = "
+            f"{o.rad.it / o.rad_seconds:.1f} it/s, convection loop "
+            f"{o.conv_seconds:.3f} s = {o.conv.steps / o.conv_seconds:.1f} "
+            f"it/s)" + (f"; peak device memory {peak:.0f} MiB"
+                        if peak is not None else ""))
+    log(f"main path: the graphed run bit for bit the per-iteration run "
+        f"(final T, {rad.it} + {conv.it} iterations, the TOA spectrum); T "
         f"{T.min():.1f}..{T.max():.1f} K")
 
     # one forward solve on the card against the same call on the CPU
@@ -1294,32 +1463,32 @@ def main_path(launch_counts):
     check(rel <= 1e-10, f"forward_fluxes cuda vs cpu: {rel:.3e} > 1e-10")
     log(f"forward_fluxes at the flagship shape, cuda vs cpu: max rel "
         f"difference of the totals {rel:.3e} (limit 1e-10)")
+    MAIN_PATH.update(stats=stats, per_iteration=per)
     return out, T_start
 
 
-def time_breakdown(label, phys, arrays, T0, kernels, n=20, sset=None,
-                   thermo=None):
-    """Where a radiation iteration's time goes: host wall per iteration
-    (unprofiled) against the device's busy time per iteration and each
-    named kernel's share of it (torch.profiler, CUDA kernels), over
-    iterations 10..10+n of a loop started from T0 (two cell refreshes).
-    ``thermo`` gives a physical timestep its c_p."""
+def profiled_window(run, n, kernels, label):
+    """Where the iterations of ``run()`` (n of them) go: host wall per
+    iteration, unprofiled, after one warm run (which captures the graphs
+    of the window's keys), against the device's busy time and kernels per
+    iteration and each named kernel's share (torch.profiler, CUDA
+    kernels); the device reads per iteration of a chunked loop."""
     from torch.profiler import ProfilerActivity, profile
-    from helios_tpu_torch.rce import radiative
+    from helios_tpu_torch.rce import graphs
 
-    loop = lambda steps, s: radiative.radiation_loop(
-        phys, arrays, thermo, T0, max_steps=steps, sset=sset, state0=s)
-    s = loop(10, radiative.init_rad_state(phys, arrays, T0, sset))
+    run()
     torch.cuda.synchronize()
+    before = {k: (st.reads if (st := graphs.stats(k)) else 0)
+              for k in ("radiation", "convection")}
     t = time.perf_counter()
-    s1 = loop(n, s)
+    run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3 / n
-    check(np.all(s1.it == s.it + n),
-          "time breakdown: the radiation loop stopped")
+    reads = sum((st.reads if (st := graphs.stats(k)) else 0) - before[k]
+                for k in before)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        loop(n, s)
+        run()
         torch.cuda.synchronize()
     device_us, count = 0.0, 0
     kernel_us = dict.fromkeys(kernels, 0.0)
@@ -1334,18 +1503,76 @@ def time_breakdown(label, phys, arrays, T0, kernels, n=20, sset=None,
             if f"{k}_kernel" in e.key:
                 kernel_us[k] += us
     for k, us in kernel_us.items():
-        check(us > 0, f"time breakdown: the profiler saw no {k}")
+        check(us > 0, f"{label}: the profiler saw no {k}")
     busy_ms = device_us / 1e3 / n
-    shares = "; ".join(f"{k} {us / 1e3 / n:.3f} ms ({100 * us / device_us:.1f}"
-                       "% of device time)" for k, us in kernel_us.items())
-    it0 = int(np.max(s.it))
-    log(f"time breakdown, {label} radiation iteration (it {it0}.."
-        f"{it0 + n}): wall {wall_ms:.3f} ms; device busy {busy_ms:.3f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}% of wall, idle "
-        f"{100 * (1 - busy_ms / wall_ms):.1f}%) in {count / n:.0f} "
-        f"kernels; {shares}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=count / n,
-                kernel_ms={k: us / 1e3 / n for k, us in kernel_us.items()})
+                kernel_ms={k: us / 1e3 / n for k, us in kernel_us.items()},
+                kernel_us=kernel_us, device_us=device_us,
+                reads_per_iteration=reads / n if reads else None)
+
+
+def breakdown_line(label, what, res, n):
+    shares = "; ".join(
+        f"{k} {us / 1e3 / n:.3f} ms ({100 * us / res['device_us']:.1f}% of "
+        "device time)" for k, us in res["kernel_us"].items())
+    reads = res["reads_per_iteration"]
+    log(f"time breakdown, {label} {what}: wall {res['wall_ms']:.3f} ms; "
+        f"device busy {res['busy_ms']:.3f} ms "
+        f"({100 * res['busy_ms'] / res['wall_ms']:.1f}% of wall, idle "
+        f"{100 * (1 - res['busy_ms'] / res['wall_ms']):.1f}%) in "
+        f"{res['kernels']:.0f} kernels"
+        + (f"; {reads:.3f} device reads per iteration" if reads else "")
+        + (f"; {shares}" if shares else ""))
+
+
+def time_breakdown(label, phys, arrays, T0, kernels, n=20, sset=None,
+                   thermo=None, per_iteration=False):
+    """Where a radiation iteration's time goes (profiled_window), over
+    iterations 10..10+n of a loop started from T0 (two cell refreshes);
+    with ``per_iteration`` through the per-iteration loop.  ``thermo``
+    gives a physical timestep its c_p."""
+    from helios_tpu_torch.rce import graphs, radiative
+
+    loop = lambda steps, s: radiative.radiation_loop(
+        phys, arrays, thermo, T0, max_steps=steps, sset=sset, state0=s)
+
+    def window():
+        s1 = loop(n, s)
+        check(np.all(s1.it == s.it + n),
+              "time breakdown: the radiation loop stopped")
+
+    with graphs.per_iteration() if per_iteration else contextlib.nullcontext():
+        s = loop(10, radiative.init_rad_state(phys, arrays, T0, sset))
+        res = profiled_window(window, n, kernels, label)
+    it0 = int(np.max(s.it))
+    breakdown_line(label, f"radiation iteration (it {it0}..{it0 + n})", res,
+                   n)
+    return res
+
+
+def conv_breakdown(label, out, thermo, kernels, n=20, sset=None,
+                   per_iteration=False):
+    """Where a convection iteration's time goes (profiled_window), over
+    steps 10..10+n of the convection loop entered from the run's final
+    radiation state; with ``per_iteration`` through the per-iteration
+    loop."""
+    from helios_tpu_torch.rce import graphs, loop as conv_loop
+
+    run = lambda steps, s: conv_loop.convection_loop(
+        out.phys, out.arrays, thermo, out.rad, max_steps=steps, sset=sset,
+        state0=s)
+
+    def window():
+        s1 = run(n, s)
+        check(s1.steps - s.steps == n,
+              "conv breakdown: the convection loop stopped")
+
+    with graphs.per_iteration() if per_iteration else contextlib.nullcontext():
+        s = run(10, run(0, None))
+        res = profiled_window(window, n, kernels, label)
+    breakdown_line(label, f"convection iteration (steps {s.steps}.."
+                   f"{s.steps + n})", res, n)
+    return res
 
 
 def write_pt_file(path, p_lay, p_int, T):
@@ -1471,6 +1698,7 @@ def iso_rce_path(launch_counts):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launch_counts.update(read_counts())
+    loops = loop_line("iso RCE path")
     check(bool(torch.isfinite(rad.T_lay).all()),
           "iso RCE: non-finite temperatures")
     check(rad.it == ISO_RCE_ITERATIONS or not bool(rad.keep_running),
@@ -1483,7 +1711,7 @@ def iso_rce_path(launch_counts):
         f"{wall:.3f} s ({rad.it / wall:.1f} it/s, model build excluded); "
         f"T {float(rad.T_lay.min()):.1f}..{float(rad.T_lay.max()):.1f} K")
     res = time_breakdown("iso RCE", phys, arrays, T0, ("iso_sweep",))
-    res.update(it=rad.it, it_per_s=rad.it / wall)
+    res.update(it=rad.it, it_per_s=rad.it / wall, loops=loops)
     return res
 
 
@@ -1518,6 +1746,9 @@ def matrix_path(flag_out, launch_counts):
         reset_counts()
         out = pipeline.run(cfg, table, write_output=False, device=DEVICE)
         launch_counts.update(read_counts())
+        stats = loop_line("matrix path", out)
+        per = per_iteration_twin("matrix path", lambda: pipeline.run(
+            cfg, table, write_output=False, device=DEVICE), out)
     rad, conv, n = out.rad, out.conv, out.n_flux_solves
     T = out.T_lay.cpu().numpy()
     check(out.phys.flux_calc_method == "matrix", "matrix path: not matrix")
@@ -1560,7 +1791,8 @@ def matrix_path(flag_out, launch_counts):
         f"BOA {down_rest:.3e}, limit 1e-10; at the BOA {down_boa:.3e}, limit "
         f"1e-6: the elimination divides it by the albedo); launches per "
         f"solve {counts}")
-    return dict(out=out, converged=converged, rad_it=rad.it,
+    return dict(out=out, converged=converged, rad_it=rad.it, loops=stats,
+                per_iteration_wall_s=per.wall_seconds,
                 conv_it=conv_it, dT_max=float(dT.max()),
                 wall_s=out.wall_seconds, fwd_rel_up=up, fwd_rel_down=down,
                 fwd_rel_down_boa=down_boa)
@@ -1655,7 +1887,7 @@ def otf_path(launch_counts, pp_counts):
     run of the final profile with the output files."""
     from helios_tpu_torch.config import HeliosConfig
     from helios_tpu_torch.forward import build_model
-    from helios_tpu_torch.rce import radiative
+    from helios_tpu_torch.rce import graphs, radiative
 
     donor, sset = otf_inputs(DEVICE)
     phys, arrays = build_model(HeliosConfig(**OTF_WORKLOAD).finalize(),
@@ -1673,6 +1905,20 @@ def otf_path(launch_counts, pp_counts):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launch_counts.update(read_counts())
+    otf_loops = loop_line("on-the-fly RCE path")
+    with graphs.per_iteration():
+        t = time.perf_counter()
+        per = radiative.radiation_loop(phys, arrays, None, T0,
+                                       max_steps=ISO_RCE_ITERATIONS,
+                                       sset=sset)
+        torch.cuda.synchronize()
+        per_wall = time.perf_counter() - t
+    check(torch.equal(per.T_lay, rad.T_lay) and per.it == rad.it,
+          "on-the-fly RCE: the graphed loop is not bit for bit the "
+          "per-iteration loop")
+    log(f"on-the-fly RCE path: the graphed loop bit for bit the "
+        f"per-iteration loop ({rad.it} iterations); {wall:.3f} s against "
+        f"{per_wall:.3f} s")
     refreshes = 1 + (rad.it + 9) // 10      # init, then it = 0, 10, ...
     check(bool(torch.isfinite(rad.T_lay).all()),
           "on-the-fly RCE: non-finite temperatures")
@@ -1689,7 +1935,12 @@ def otf_path(launch_counts, pp_counts):
         f"{float(rad.T_lay.max()):.1f} K")
     res = time_breakdown("on-the-fly RCE", phys, arrays, T0,
                          ("iso_sweep", "ro_mix"), sset=sset)
-    res.update(it=rad.it, it_per_s=rad.it / wall, refreshes=refreshes)
+    res_per = time_breakdown("on-the-fly RCE, per-iteration loop", phys,
+                             arrays, T0, ("iso_sweep", "ro_mix"), sset=sset,
+                             per_iteration=True)
+    res.update(it=rad.it, it_per_s=rad.it / wall, refreshes=refreshes,
+               loops=otf_loops, wall_s=wall, per_iteration_wall_s=per_wall,
+               per_iteration=res_per)
 
     # non-isothermal: layers and interfaces are mixed, two ro_mix launches
     phys_n, arrays_n = build_model(
@@ -1822,6 +2073,7 @@ def cloudy_path(tmpdir, launch_counts):
     to convergence; one forward_fluxes on the card against the CPU; and
     where a radiation iteration's time goes."""
     from helios_tpu_torch import pipeline
+    from helios_tpu_torch.rce import radiative
 
     extra = cloud_kw(write_mie_dir(os.path.join(tmpdir, "mie")))
     cfg, table = flagship(tmpdir, **extra)
@@ -1832,6 +2084,7 @@ def cloudy_path(tmpdir, launch_counts):
     reset_counts()
     out = pipeline.run(cfg, table, write_output=False, device=DEVICE)
     launch_counts.update(read_counts())
+    loops = loop_line("cloudy path", out)
     res = rce_summary("cloudy path: flagship RCE run with a cloud deck and "
                       f"the zenith-corrected beam at {ZENITH_DEG:.0f} deg",
                       out, launch_counts, "noniso_sweep")
@@ -1842,7 +2095,10 @@ def cloudy_path(tmpdir, launch_counts):
                          dtype=out.T_lay.dtype, device=DEVICE)
     res["breakdown"] = time_breakdown("cloudy flagship", out.phys,
                                       out.arrays, T0, ("noniso_sweep",))
-    res.update(out=out, cfg_kw=dict(FLAGSHIP, **extra))
+    res["conv_breakdown"] = conv_breakdown(
+        "cloudy flagship", out, radiative.make_const_thermo(
+            FLAGSHIP["kappa_value"]), ("noniso_sweep",))
+    res.update(out=out, cfg_kw=dict(FLAGSHIP, **extra), loops=loops)
     return res
 
 
@@ -1959,6 +2215,7 @@ def rocky_path(launch_counts):
         out = pipeline.run(cfg, flagship_table(), write_output=True,
                            device=DEVICE)
         launch_counts.update(read_counts())
+        loop_line("rocky path", out)
         tau_file = os.path.join(tmpdir, "rocky",
                                 "rocky_tau_lw_tau_sw_f_factor.dat")
         check(os.path.exists(tau_file), "rocky path: no tau_lw / tau_sw / "
@@ -2024,6 +2281,7 @@ def bare_rock_path(launch_counts):
     out = pipeline.run(cfg, flagship_table(), write_output=False,
                        device=DEVICE)
     launch_counts.update(read_counts())
+    loop_line("bare rock path", out)
     phys, T = out.phys, out.T_lay.cpu().numpy()
     check(phys.no_atmo == 1 and phys.nlayer == 2, "bare rock: not 2 layers")
     res = rce_summary("bare rock path", out, launch_counts, "iso_sweep")
@@ -2061,6 +2319,7 @@ from helios_tpu_torch.kernels.ordered import ordered_sum
 from helios_tpu_torch.kernels.ro import ro_mix
 from helios_tpu_torch.kernels.sweep import iso_sweep, noniso_sweep
 from helios_tpu_torch.kernels.thomas import thomas_solve
+from helios_tpu_torch.rce import graphs
 if sys.argv[1] == "memory":
     from helios_tpu_torch.io.opacity import synthetic_premixed_table
     table = synthetic_premixed_table(nbin={nbin}, ny={ny})
@@ -2080,7 +2339,9 @@ print(json.dumps(dict(
     n_flux_solves=out.n_flux_solves, rad_it=out.rad.it,
     conv_it=out.conv.it, conv_steps=out.conv.steps,
     wall_s=out.wall_seconds, rad_s=out.rad_seconds,
-    conv_s=out.conv_seconds)))
+    conv_s=out.conv_seconds,
+    loops={{k: graphs.stats(k).as_dict()
+           for k in ("radiation", "convection")}})))
 sys.exit(code)
 """
 
@@ -2212,6 +2473,7 @@ def quickstart_path(tmpdir, launch_counts):
           "quickstart CLI: no 'Done!' line")
     progress = [ln for ln in lines if ln.startswith("[")]
     launch_counts.update(cli["launches"])
+    loop_line("quickstart CLI process", stats=cli["loops"])
     check(cli["n_flux_solves"] > 0 and launch_counts
           == only(noniso_sweep=cli["n_flux_solves"]),
           f"quickstart CLI: launches {launch_counts} for "
@@ -2239,6 +2501,7 @@ def quickstart_path(tmpdir, launch_counts):
     reset_counts()
     ref = pipeline.run(cfg, table, write_output=False, device=DEVICE)
     ref_counts = read_counts()
+    loop_line("quickstart in-process run", ref)
     check(ref_counts == only(noniso_sweep=ref.n_flux_solves),
           f"quickstart in-process run: launches {ref_counts}")
     rad_ckpt, conv_ckpt = final_checkpoints(run_dir)
@@ -2332,6 +2595,7 @@ def resume_path(k, tmpdir, counts_rad, counts_conv):
             warnings.simplefilter("ignore")
             code, printed, out = capture_main(argv[phase], k["table"], cbs)
         counts.update(read_counts())
+        loop_line(f"resumed {phase} run", out)
         check(code == 0 and "Done!" in printed,
               f"resume path: the resumed {phase} run failed")
         restored = out.rad_it0 if phase == "radiation" else (
@@ -2495,6 +2759,7 @@ def real_gas_path(tmpdir, water, counts0, counts1, pp_counts):
         out = pipeline.run(cfg, donor, sset=sset, starflux=starflux,
                            device=DEVICE)
         counts.update(read_counts())
+        loop_line(f"real-gas coupling iteration {n}", out)
         rad, conv = out.rad, out.conv
         check(not bool(rad.keep_running) and not rad.aborted
               and conv is not None and not (conv.keep_running
@@ -2595,6 +2860,9 @@ def table_convection_path(tmpdir, water, launch_counts, flag_out):
     reset_counts()
     out = pipeline.run(cfg, table, write_output=False, device=DEVICE)
     launch_counts.update(read_counts())
+    loops = loop_line("table convection path", out)
+    per = per_iteration_twin("table convection path", lambda: pipeline.run(
+        cfg, table, write_output=False, device=DEVICE), out)
     rad, conv = out.rad, out.conv
     check(not bool(rad.keep_running) and not rad.aborted
           and conv is not None and conv.steps > 0
@@ -2629,10 +2897,17 @@ def table_convection_path(tmpdir, water, launch_counts, flag_out):
         "profile, device time: "
         + "; ".join(f"{name} {ms:.4f} ms in {k:.0f} kernels"
                     for name, (ms, k) in lookups.items()))
+    thermo = pipeline.make_thermo(cfg, device=DEVICE)
+    conv_bd = conv_breakdown("table convection", out, thermo,
+                             ("noniso_sweep",))
+    conv_per = conv_breakdown("table convection, per-iteration loop", out,
+                              thermo, ("noniso_sweep",), per_iteration=True)
     return dict(wall_s=out.wall_seconds, rad_it=rad.it, conv_it=conv.it,
                 conv_ms_per_step=per_step(out),
                 flag_conv_ms_per_step=per_step(flag_out),
-                thermo_rel=thermo_rel, lookups=lookups)
+                thermo_rel=thermo_rel, lookups=lookups, loops=loops,
+                conv_breakdown=conv_bd, conv_per_iteration=conv_per,
+                per_iteration_wall_s=per.wall_seconds)
 
 
 def thermo_lookup_ms(thermo, arrays, T, n=20):
@@ -3386,6 +3661,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from helios_tpu_torch.rce import graphs, radiative
     t_start = time.perf_counter()
     environment()
     build()
@@ -3406,6 +3682,7 @@ def main():
     r32 = ro_case(torch.float32, bandwidth)
     q64 = ro_ragged_case(torch.float64)
     q32 = ro_ragged_case(torch.float32)
+    wide = ro_wide_ny_case()
     o64 = ordered_case(torch.float64, 1e-13, bandwidth)
     o32 = ordered_case(torch.float32, 1e-4, bandwidth)
     b64 = band_integrate_case(torch.float64)
@@ -3438,13 +3715,25 @@ def main():
         out, T_start = main_path(counts["flagship_rce"])
         T_start = torch.as_tensor(T_start, dtype=out.T_lay.dtype,
                                   device=DEVICE)
+        flag_kernels = ("noniso_sweep", "band_integrate", "ordered_sum")
+        const_kappa = radiative.make_const_thermo(FLAGSHIP["kappa_value"])
+        # the graphed loops and the per-iteration loop, in turns
         flag_bd = time_breakdown("flagship", out.phys, out.arrays, T_start,
-                                 ("noniso_sweep", "band_integrate",
-                                  "ordered_sum"))
+                                 flag_kernels)
+        flag_bd_per = time_breakdown(
+            "flagship, per-iteration loop", out.phys, out.arrays, T_start,
+            flag_kernels, per_iteration=True)
+        flag_conv_per = conv_breakdown(
+            "flagship, per-iteration loop", out, const_kappa, flag_kernels,
+            per_iteration=True)
+        flag_conv = conv_breakdown("flagship", out, const_kappa,
+                                   flag_kernels)
+        graphs.release()        # graphs of torch's sums, then none
         with patched_sites(lambda n, f: TORCH_ROUTE.get(n, f)):
             flag_torch = time_breakdown(
                 "flagship with torch's sums", out.phys, out.arrays, T_start,
                 ("noniso_sweep",))
+        graphs.release()
         log(f"flagship: the fixed-order sums cost "
             f"{flag_bd['busy_ms'] - flag_torch['busy_ms']:.3f} ms of device "
             f"time and {flag_bd['wall_ms'] - flag_torch['wall_ms']:.3f} ms of "
@@ -3461,8 +3750,18 @@ def main():
         iso_rce_path(counts["iso_rce"])
         mat = matrix_path(out, counts["matrix_rce"])
         # the profiler names kernels by their CUDA symbol: thomas_kernel
-        time_breakdown("matrix flagship", mat["out"].phys, mat["out"].arrays,
-                       T_start, ("thomas", "noniso_sweep"))
+        mat_bd = time_breakdown("matrix flagship", mat["out"].phys,
+                                mat["out"].arrays, T_start,
+                                ("thomas", "noniso_sweep"))
+        mat_conv = conv_breakdown("matrix flagship", mat["out"], const_kappa,
+                                  ("thomas", "noniso_sweep"))
+        mat_bd_per = time_breakdown(
+            "matrix flagship, per-iteration loop", mat["out"].phys,
+            mat["out"].arrays, T_start, ("thomas", "noniso_sweep"),
+            per_iteration=True)
+        mat_conv_per = conv_breakdown(
+            "matrix flagship, per-iteration loop", mat["out"], const_kappa,
+            ("thomas", "noniso_sweep"), per_iteration=True)
         matrix_postprocessing_path(out, counts["matrix_post_processing"],
                                    pp["toa"])
         otf = otf_path(counts["on_the_fly_rce"],
@@ -3487,7 +3786,7 @@ def main():
             real_gas_path(gas_dir, water, counts["real_gas_coupling_0"],
                           counts["real_gas_coupling_1"],
                           counts["real_gas_post_processing"])
-            table_convection_path(gas_dir, water,
+            tc = table_convection_path(gas_dir, water,
                                   counts["real_gas_convection"], out)
     for path, c in counts.items():
         log(f"launches on the {path} path: {c}")
@@ -3496,6 +3795,35 @@ def main():
         f"{INTEGRATIONS['launches']} band_integrate launches (one per "
         "slice) and no ordered_sum")
 
+    per_it = lambda bd: {k: bd[k] for k in ("wall_ms", "busy_ms", "kernels",
+                                           "reads_per_iteration")}
+    per = MAIN_PATH["per_iteration"]
+    log("device loops: " + json.dumps(dict(
+        flagship=dict(
+            loops=MAIN_PATH["stats"], wall_s=out.wall_seconds,
+            per_iteration_wall_s=per.wall_seconds,
+            radiation=per_it(flag_bd), convection=per_it(flag_conv),
+            radiation_per_iteration_loop=per_it(flag_bd_per),
+            convection_per_iteration_loop=per_it(flag_conv_per)),
+        matrix=dict(loops=mat["loops"], wall_s=mat["wall_s"],
+                    per_iteration_wall_s=mat["per_iteration_wall_s"],
+                    radiation=per_it(mat_bd), convection=per_it(mat_conv),
+                    radiation_per_iteration_loop=per_it(mat_bd_per),
+                    convection_per_iteration_loop=per_it(mat_conv_per)),
+        on_the_fly=dict(loops=otf["loops"], wall_s=otf["wall_s"],
+                        per_iteration_wall_s=otf["per_iteration_wall_s"],
+                        radiation=per_it(otf),
+                        radiation_per_iteration_loop=per_it(
+                            otf["per_iteration"])),
+        cloudy=dict(loops=cl["loops"], wall_s=cl["wall_s"],
+                    radiation=per_it(cl["breakdown"]),
+                    convection=per_it(cl["conv_breakdown"])),
+        table_convection=dict(
+            loops=tc["loops"], wall_s=tc["wall_s"],
+            per_iteration_wall_s=tc["per_iteration_wall_s"],
+            convection=per_it(tc["conv_breakdown"]),
+            convection_per_iteration_loop=per_it(
+                tc["conv_per_iteration"])))))
     by_path = lambda name: {path: c[name] for path, c in counts.items()}
     pick = lambda res, keys: {k: res[k] for k in keys}
     base = ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
@@ -3577,6 +3905,7 @@ def main():
         bound_ms_measured_bw=r64["bound_ms_measured_bw"],
         bitwise_vs_plain=True,
         ragged=dict(ny=RO_RAGGED_NY, fp64=q64, fp32=q32),
+        wide_ny_fp32=wide,
         general_cells=dict(flagship_inputs=r64["general_cells"],
                            on_the_fly=otf["general_cells"],
                            on_the_fly_of=otf["general_cells_of"]),

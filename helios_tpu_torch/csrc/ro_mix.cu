@@ -48,25 +48,23 @@
 // so w = ny^2 - 1, the end of the stream.  No array of ny^2 entries is
 // stored and no ny^3 count is made.
 //
-// Why the stream's first_y is #(yg <= g_y): yg is non-decreasing along the
-// stream, and the Gauss nodes are non-decreasing.  For yg: with a the
-// running sum before position t, w = weight(t) and u = weight(t-1), all
-// positive, yg[t] = fl(fl(a + w) - w/2) and yg[t-1] = fl(a - u/2) (halving
-// is exact above twice the smallest normal).  Rounding is monotone, so
-// yg[t] >= yg[t-1] whenever fl(a + w) - w/2 >= a - u/2, and fl(a + w) >=
-// (a + w)(1 - eps) makes that hold whenever (w + u)/2 >= eps (a + w), eps
-// the unit round-off: each pair of adjacent half-weights exceeds eps times
-// the running sum.  Every weight is at least pmin = fl(hmin^2) (hmin the
-// least half-weight) and every running sum at most (1 + n2 eps)-ish times
-// (sum of half-weights)^2, so the kernel checks pmin >= 4 eps
-// fl(hsum^2), pmin >= 2 FLT_MIN/DBL_MIN, all half-weights positive and
-// finite and gauss_y non-decreasing, once per thread from shared memory.
-// Gauss-Legendre weights pass in fp64 at every ny up to 126 and in fp32
-// up to ny = 86.
+// Why the stream's first_y is #(yg <= g_y): the Gauss nodes are
+// non-decreasing (checked once per launch, with every half-weight positive
+// and finite), and yg is non-decreasing along the stream.  With a the
+// running sum before position t, w = weight(t) and u = weight(t-1),
+// yg[t] = fl(fl(a + w) - w/2) and yg[t-1] = fl(a - u/2); rounding is
+// monotone, so yg[t] >= yg[t-1] whenever fl(a + w) - w/2 >= a - u/2, which
+// only the rounding of a + w (and of the halving, below twice the smallest
+// normal) can break.  No bound on the weights is taken to exclude that (a
+// launch-wide one, least weight >= 4 eps (sum of half-weights)^2, failed
+// Gauss-Legendre weights in fp32 above ny = 86 and sent every live cell to
+// the general branch): the stream itself checks at each position that yg
+// did not decrease, and a cell where it did goes to the general branch,
+// which overwrites all its nodes.
 //
 // An exact general branch covers every other input: a cell whose n is not
-// non-decreasing or whose m or n is not finite, or a launch whose weights
-// fail the check.  After its streaming lanes are done, the warp takes such
+// non-decreasing or whose m or n is not finite, a cell whose stream saw yg
+// decrease, or a launch whose weights fail the check.  After its streaming lanes are done, the warp takes such
 // cells one at a time, all 32 lanes on one cell, in the streaming scratch
 // (the warp's tree region becomes the sort's permutation of 16-bit flat
 // indices): each lane ranks flat indices against all others in (key,
@@ -128,16 +126,12 @@ struct Limits<double> {
   static __device__ __forceinline__ double inf() {
     return __longlong_as_double(0x7ff0000000000000LL);
   }
-  static __device__ __forceinline__ double eps() { return 0x1p-53; }
-  static __device__ __forceinline__ double min_normal() { return 0x1p-1022; }
 };
 template <>
 struct Limits<float> {
   static __device__ __forceinline__ float inf() {
     return __int_as_float(0x7f800000);
   }
-  static __device__ __forceinline__ float eps() { return 0x1p-24f; }
-  static __device__ __forceinline__ float min_normal() { return 0x1p-126f; }
 };
 
 // products and sums that nvcc does not contract into fma
@@ -268,9 +262,10 @@ struct WarpArrays {
 // leaves lie at most Depth levels below the root.  M, N, O point at the
 // thread's lane of its warp's m, n and outputs (slot stride kWarp).  Every
 // level of a leaf's path but the last holds a node (ny > 2^(Depth-1)), so
-// only the last is checked.
+// only the last is checked.  Returns false if yg decreased somewhere along
+// the stream (the outputs are then not the cell's).
 template <typename T, int Depth>
-__device__ void stream_cell(const Tree<T>& tree, const T* M, const T* N,
+__device__ bool stream_cell(const Tree<T>& tree, const T* M, const T* N,
                             T* O, const T* hw, const T* gy, int ny) {
   using Entry = typename Tree<T>::Entry;
   const int n2 = ny * ny;
@@ -295,6 +290,7 @@ __device__ void stream_cell(const Tree<T>& tree, const T* M, const T* N,
   }
 
   T acc = T(0), pk = T(0), pyg = T(0);
+  bool rising = true;  // yg never decreased (NaN fails)
   int y_next = 0;  // the first node whose w is not known yet
   int y_out = 0;   // the first node not written yet
   int w_last = 0;  // w of node y_next - 1 (0 before node 0)
@@ -345,6 +341,7 @@ __device__ void stream_cell(const Tree<T>& tree, const T* M, const T* N,
     const T wgt = mul_rn(h_r, h_j);
     acc = add_rn(acc, wgt);
     const T yg = acc - mul_rn(T(0.5), wgt);
+    rising = rising && yg >= pyg;
     // nodes whose g the stream has passed (all of them at the end)
     while (y_next < ny && (yg > g_next || t == n2 - 1)) {
       w_last = min(max(t, w_last + 1), n2 - 1);
@@ -365,6 +362,7 @@ __device__ void stream_cell(const Tree<T>& tree, const T* M, const T* N,
     pyg = yg;
     win = carry;
   }
+  return rising;
 }
 
 // The general branch for the cell of lane `src`, run by the whole warp.
@@ -494,19 +492,12 @@ __global__ void __launch_bounds__(kBlockWarps * kWarp) ro_mix_kernel(const T* __
   __syncthreads();
 
   // the launch's check for the stream (see the header), from the tables
-  T hmin = Limits<T>::inf(), hsum = T(0);
   bool weights_ok = true;
   for (int k = 0; k < ny; ++k) {
     const T h = hw[k];
     weights_ok = weights_ok && h > T(0) && isfinite(h);
-    hmin = min(hmin, h);
-    hsum = hsum + h;
     if (k > 0) weights_ok = weights_ok && __ldg(gy + k - 1) <= __ldg(gy + k);
   }
-  const T pmin = mul_rn(hmin, hmin);
-  weights_ok = weights_ok && isfinite(hsum) &&
-               pmin >= T(2) * Limits<T>::min_normal() &&
-               pmin >= T(4) * Limits<T>::eps() * mul_rn(hsum, hsum);
 
   const T* M = W.m + lane;
   const T* N = W.n + lane;
@@ -524,11 +515,9 @@ __global__ void __launch_bounds__(kBlockWarps * kWarp) ro_mix_kernel(const T* __
         sorted = sorted && isfinite(M[j * kWarp]) && isfinite(nj) &&
                  (j == 0 || N[(j - 1) * kWarp] <= nj);
       }
-      if (sorted)
-        stream_cell<T, Depth>(Tree<T>(W.tree, ny, lane), M, N, O, hw, gy,
-                              ny);
-      else
-        general = true;
+      general = !(sorted &&
+                  stream_cell<T, Depth>(Tree<T>(W.tree, ny, lane), M, N, O,
+                                        hw, gy, ny));
     }
   }
   __syncwarp();

@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from helios_tpu_torch.kernels import _launch
-from helios_tpu_torch.ops.mixing import (correlated_k_add, negligible_overlap,
+from helios_tpu_torch.ops.mixing import (_cumsum_in_order, correlated_k_add,
+                                         negligible_overlap,
                                          random_overlap_mix)
 
 # a warp's loser-tree scratch must hold the general branch's 2 ny^2 bytes of
@@ -74,37 +75,39 @@ def ro_mix_reference(mixed, new, gauss_weight, gauss_y):
 
 def stream_weights_ok(gauss_weight, gauss_y) -> bool:
     """The kernel's launch-wide check for its streaming merge, in the
-    tensors' dtype and the kernel's order: every half-weight h = w/2
-    positive and finite, gauss_y non-decreasing, and the least weight
-    product fl(hmin^2) at least twice the smallest normal and 4 eps
-    fl(hsum^2) (eps the unit round-off), which keeps yg non-decreasing
-    along the stream (``csrc/ro_mix.cu``)."""
+    tensors' dtype: every half-weight w/2 positive and finite, gauss_y
+    non-decreasing (``csrc/ro_mix.cu``)."""
     h = (0.5 * gauss_weight).cpu().numpy()
     g = gauss_y.cpu().numpy()
-    dt = h.dtype.type
-    info = np.finfo(h.dtype)
-    hmin, hsum, ok = dt(np.inf), dt(0), True
-    for k in range(len(h)):
-        ok = ok and bool(h[k] > 0) and bool(np.isfinite(h[k]))
-        hmin = min(hmin, h[k])
-        hsum = dt(hsum + h[k])
-        if k > 0:
-            ok = ok and bool(g[k - 1] <= g[k])
-    pmin = dt(hmin * hmin)
-    return (ok and bool(np.isfinite(hsum)) and bool(pmin >= 2 * info.tiny)
-            and bool(pmin >= dt(4 * info.epsneg) * dt(hsum * hsum)))
+    return bool((h > 0).all() and np.isfinite(h).all()
+                and (g[1:] >= g[:-1]).all())
+
+
+def stream_rises(mixed, new, gauss_weight):
+    """[C] bool: whether yg, the weights' running sum less half the
+    current weight in the sums' stable sort order, never decreases along
+    a cell's stream (the kernel's check at each position; NaN fails)."""
+    ny = gauss_weight.shape[0]
+    sums = (mixed[:, :, None] + new[:, None, :]).reshape(-1, ny * ny)
+    w2 = ((0.5 * gauss_weight[:, None])
+          * (0.5 * gauss_weight[None, :])).reshape(ny * ny)
+    sorted_w = w2[torch.sort(sums, dim=-1, stable=True)[1]]
+    yg = _cumsum_in_order(sorted_w) - 0.5 * sorted_w
+    prev = torch.cat([torch.zeros_like(yg[:, :1]), yg[:, :-1]], dim=1)
+    return (yg >= prev).all(dim=1)
 
 
 def ro_general_cells(mixed, new, gauss_weight, gauss_y):
     """[C] bool: the cells that :func:`ro_mix`'s kernel sends through its
     general branch (a warp-cooperative sort) instead of its streaming
     merge: cells of non-negligible overlap whose ``new`` is not
-    non-decreasing or whose ``mixed`` or ``new`` is not finite; all cells
-    of non-negligible overlap when :func:`stream_weights_ok` fails."""
+    non-decreasing, whose ``mixed`` or ``new`` is not finite or whose
+    stream's yg decreases (:func:`stream_rises`); all cells of
+    non-negligible overlap when :func:`stream_weights_ok` fails."""
     live = ~negligible_overlap(mixed, new)
     if not stream_weights_ok(gauss_weight, gauss_y):
         return live
     sorted_ = ((new[:, 1:] >= new[:, :-1]).all(dim=1)
                & torch.isfinite(mixed).all(dim=1)
                & torch.isfinite(new).all(dim=1))
-    return live & ~sorted_
+    return live & ~(sorted_ & stream_rises(mixed, new, gauss_weight))

@@ -7,7 +7,9 @@ A batch of P planets keeps the planet axis after the layer axis: per-layer
 arrays [n, P], spectral arrays [n, P, S], so that a contiguous [L, P, S]
 is the kernels' [L, P*S].  Boundary rows ([P, S]) and per-member flags
 ([P]) carry it first.  The loops' host counters and flags are numpy
-arrays [P]; for one planet they are Python numbers.
+arrays [P]; for one planet they are Python numbers.  Inside a loop they
+are device tensors ([P], or 0-d for a planet;
+:mod:`helios_tpu_torch.rce.graphs`).
 
 PyTorch's CPU kernels evaluate a transcendental function (exp, log, pow)
 with vector code over a tensor and finish its last elements with scalar
@@ -75,21 +77,17 @@ def member_state(state, i: int):
     return _map_state(pick, state)
 
 
-def freeze_members(new, old, running):
+def freeze_members(new, old, run):
     """``new`` where a member runs, ``old`` where it has stopped, over the
     NamedTuple tree of a batch's state: a member that has converged keeps
     exactly its state of its own last iteration while the others go on.
-    ``running``: ([P] bool on the device, the same on the host)."""
-    run_dev, run_host = running
-
+    ``run``: [P] bool on the device."""
     def pick(name, n, o):
         if n is o:
             return n
-        if isinstance(n, np.ndarray):
-            return np.where(run_host, n, o)
         axis = state_axis(name, n)
-        mask = run_dev.to(n.device).reshape(
-            (1,) * axis + run_dev.shape + (1,) * (n.dim() - axis - 1))
+        mask = run.to(n.device).reshape(
+            (1,) * axis + run.shape + (1,) * (n.dim() - axis - 1))
         return torch.where(mask, n, o)
 
     return _map_state(pick, new, old)
@@ -130,45 +128,10 @@ def running_members(state) -> np.ndarray:
     return np.asarray(keep.cpu() if hasattr(keep, "cpu") else keep, bool)
 
 
-def shared_counter(state, running: np.ndarray) -> int:
-    """The iteration counter of the running members: they start and step
-    together, so they share one value (a planet's own counter)."""
-    its = np.asarray(state.it)[running]
-    assert (its == its[0]).all(), its
-    return int(its[0])
-
-
 def loop_counter(state) -> int:
     """The counter of a loop state, also after its last member stopped: a
     stopped member's counter stays behind the running ones'."""
     return int(np.max(state.it))
-
-
-def host_value(value, like):
-    """A host counter or flag computed with numpy, as ``like`` holds it:
-    an array [P] for a batch, a Python number for one planet."""
-    return value if isinstance(like, np.ndarray) else np.asarray(value).item()
-
-
-class DeviceCopy:
-    """A host array [P] of a batch (the members' criteria, a mask) as a
-    tensor on the device of ``like``, copied anew only when it changes: a
-    copy from host memory waits for the device's queued work.  ``dtype``
-    None keeps the array's (a mask); the criteria take the run's dtype,
-    which a planet's host float takes in its comparisons, and a planet's
-    host number is passed on as it is."""
-
-    def __init__(self, like, dtype=None):
-        self.like, self.dtype, self.key, self.t = like, dtype, None, None
-
-    def __call__(self, host):
-        if not isinstance(host, np.ndarray):
-            return host
-        if self.key is None or not np.array_equal(self.key, host):
-            self.key = host.copy()
-            self.t = torch.as_tensor(host, dtype=self.dtype,
-                                     device=self.like.device)
-        return self.t
 
 
 def planet_first(a: np.ndarray, batched: bool) -> np.ndarray:

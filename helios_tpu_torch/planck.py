@@ -89,8 +89,11 @@ def interpolate_planck(planck_grid, T, dim: int, step: int):
         lo = planck_grid[tdown, member]
         hi = planck_grid[tdown + 1, member]
     else:
-        lo = planck_grid[tdown]
-        hi = planck_grid[tdown + 1]
+        # rows by index_select: a 0-d index tensor (the surface row) would
+        # be read to the host by plain indexing
+        rows = lambda i: planck_grid.index_select(0, i.reshape(-1)).reshape(
+            i.shape + planck_grid.shape[1:])
+        lo, hi = rows(tdown), rows(tdown + 1)
     return lo * (1.0 - w) + hi * w
 
 

@@ -4,8 +4,9 @@ reference host_functions.py:337-635).
 Instability check, zone marking, hole stitching and the enthalpy-conserving
 dry-adiabat correction with fudge-factor rebalancing, as vectorized segment
 operations over the layer column.  The one loop, the adjustment's
-"correct until stable" iteration, runs on the host and reads one flag per
-round.
+"correct until stable" iteration, either runs on the host and reads one
+flag per round, or runs a fixed number of rounds on the device (inside the
+loops' CUDA graphs) and reports whether that was enough.
 
 Index conventions follow the reference: layers 0..L-1 bottom-up, plus a
 surface/BOA "ghost layer" at index L.  A convective zone that includes the
@@ -116,7 +117,7 @@ def stitch_zone_holes(conv, p_lay, p_int):
     L = p_lay.shape[0]
     dt = p_lay.dtype
     idx = layer_index(L, p_lay).to(dt)
-    inf = torch.tensor(math.inf, dtype=dt, device=p_lay.device)
+    inf = torch.full((), math.inf, dtype=dt, device=p_lay.device)
 
     # nearest convective index below (inclusive running max); ghost = -1
     ghost_below = torch.where(conv[L], torch.full_like(inf, -1.0), -inf)
@@ -324,30 +325,49 @@ def fudge_factors(zones: Zones, p_lay, p_int, T_star, input_dampara,
 def convective_adjustment(T_lay, p_lay, p_int, kappa_lay, kappa_int,
                           c_p_lay, meanmolmass_lay, *, iter_value: int,
                           T_star, input_dampara, F_intern, F_add_heat_sum,
-                          F_smooth_sum, F_down_tot, F_up_tot, members=None):
+                          F_smooth_sum, F_down_tot, F_up_tot, members=None,
+                          rounds=None):
     """Full convective adjustment (host_functions.py:509-542): correct
-    (mark -> correct -> re-check, a host loop reading one flag per round)
-    until no instability remains, then apply the stitched, fudged final
-    correction.  Returns (T_lay, conv_layer [L+1] bool).
+    (mark -> correct -> re-check) until no instability remains, then apply
+    the stitched, fudged final correction.  Returns (T_lay, conv_layer
+    [L+1] bool).
+
+    A round changes only the layers of planets unstable at its start, so a
+    round after stability changes no bit.  With ``rounds`` None the rounds
+    run while any is unstable, a host loop reading one flag per round;
+    with ``rounds`` = K exactly K rounds run, nothing is read, and the
+    result gains two 0-d device tensors: the rounds that had an unstable
+    planet, and whether one is still unstable after the K-th (the result
+    is then not the adjustment's).
 
     A batch loops while any member is unstable, and a round changes only
     the members unstable at its start, so each member goes through the
-    rounds of its own adjustment.  ``members`` [P] bool limits the loop to
-    those members (the batch's running ones)."""
+    rounds of its own adjustment.  ``members`` [P] bool (or a 0-d bool for
+    a planet) limits the rounds to those members (the running ones)."""
     def unstable_members(T):
         unstable = conv_check(T, p_lay, p_int, kappa_lay, kappa_int)
         active = unstable.any(dim=0)
         return unstable, active if members is None else active & members
 
-    unstable, active = unstable_members(T_lay)
-    while bool(active.any()):
+    def correct(T_lay, unstable, active):
         conv_layer = mark_convective_layers(
             T_lay, p_lay, p_int, kappa_lay, kappa_int, stitching=0,
             iter_value=iter_value)
         T_new = conv_correct(T_lay, p_lay, p_int, kappa_lay, kappa_int,
                              c_p_lay, meanmolmass_lay, unstable | conv_layer)
-        T_lay = torch.where(active, T_new, T_lay)
-        unstable, active = unstable_members(T_lay)
+        return torch.where(active, T_new, T_lay)
+
+    unstable, active = unstable_members(T_lay)
+    if rounds is None:
+        while bool(active.any()):
+            T_lay = correct(T_lay, unstable, active)
+            unstable, active = unstable_members(T_lay)
+    else:
+        needed = torch.zeros((), dtype=torch.int64, device=T_lay.device)
+        for _ in range(rounds):
+            needed = needed + active.any()
+            T_lay = correct(T_lay, unstable, active)
+            unstable, active = unstable_members(T_lay)
 
     conv_layer = mark_convective_layers(
         T_lay, p_lay, p_int, kappa_lay, kappa_int, stitching=1,
@@ -361,7 +381,9 @@ def convective_adjustment(T_lay, p_lay, p_int, kappa_lay, kappa_int,
     T_lay = conv_correct(T_lay, p_lay, p_int, kappa_lay, kappa_int,
                          c_p_lay, meanmolmass_lay, corrected,
                          fudge_per_zone=fudge)
-    return T_lay, conv_layer
+    if rounds is None:
+        return T_lay, conv_layer
+    return T_lay, conv_layer, needed, active.any()
 
 
 def check_for_radiative_eq(T_lay, conv_layer, F_net, F_down_tot, *,

@@ -2,11 +2,15 @@
 :mod:`helios_tpu.rce.loop`; reference convection_loop, computation.py:
 992-1174, and conv_temp_iter, kernels.cu:2768-2884).
 
-As in the radiation loop, the iteration counter is a host int.  The
-counter advances only while the run is not done (computation.py:1109-1164),
-so each iteration reads that one device flag back; from iteration 400 on,
-since before it the run cannot be done.  With a physical timestep the loop
-makes one convective adjustment and flux solve and no temperature step.
+As in the radiation loop, the body keeps its counters on the device and
+branches on the host's copy of the counter (:func:`conv_key`), and
+:mod:`helios_tpu_torch.rce.graphs` runs one planet's iterations as
+replayed CUDA graphs, reading the device once per chunk.  The counter
+advances only while the run is not done (computation.py:1109-1164), a
+device flag from iteration 400 on (before it the run cannot be done).
+Inside a graph the convective adjustment runs a fixed number of rounds.
+With a physical timestep the loop makes one convective adjustment and
+flux solve and no temperature step.
 """
 
 from __future__ import annotations
@@ -21,10 +25,7 @@ from helios_tpu_torch.forward import (CellCache, FluxState, ModelArrays, Phys,
                                       layer_index, solve_fluxes)
 from helios_tpu_torch.ops import integrate as int_ops
 from helios_tpu_torch.ops import interp as interp_ops
-from helios_tpu_torch.ops.members import (DeviceCopy, freeze_members,
-                                          host_value, running_members,
-                                          shared_counter)
-from helios_tpu_torch.rce import convect
+from helios_tpu_torch.rce import convect, graphs
 from helios_tpu_torch.rce.radiative import (RadLoopState, ThermoProps,
                                             kappa_cp_lay, kappa_int,
                                             smoothing_flux)
@@ -33,7 +34,8 @@ from helios_tpu_torch.rce.radiative import (RadLoopState, ThermoProps,
 class ConvLoopState(NamedTuple):
     """The convection loop's state; for a batch of P planets laid out as
     :class:`helios_tpu_torch.rce.radiative.RadLoopState` is, with the host
-    counters and flags (``keep_running`` too) numpy arrays [P]."""
+    counters and flags (``keep_running`` too) numpy arrays [P].  Inside the
+    loop they are tensors on the device (``graphs.to_device``)."""
     T_lay: torch.Tensor
     flux: FluxState
     cache: CellCache
@@ -101,22 +103,25 @@ def conv_temp_step(phys: Phys, m: ModelArrays, totals: int_ops.FluxTotals,
 
 def _convection_step(phys: Phys, m: ModelArrays, thermo: ThermoProps,
                      s: ConvLoopState, it: int, local_limit, sset,
-                     members=None):
+                     members=None, rounds=None):
     """The device work of one convection iteration at counter ``it``, up to
     the convergence test (computation.py:1030-1108): (adjusted T, flux,
-    cache, totals, conv_layer, marked_red, criterion).  ``members``: the
-    running members of a batch, the only ones the adjustment corrects."""
+    cache, totals, conv_layer, marked_red, criterion, adjustment).
+    ``members``: the running members of a batch (or the planet's flag),
+    the only ones the adjustment corrects; ``rounds``: the adjustment's
+    rounds (None: until stable), whose count and overflow flag are
+    ``adjustment`` (else None)."""
     # --- convective adjustment (uses the previous iteration's fluxes) ---
     kappa_lay, c_p_lay = kappa_cp_lay(thermo, s.T_lay, m.p_lay)
     T_int = interp_ops.interface_temperatures(s.T_lay)
     kap_int = kappa_int(thermo, T_int, m.p_int)
-    T_adj, _conv = convect.convective_adjustment(
+    T_adj, _conv, *adjustment = convect.convective_adjustment(
         s.T_lay, m.p_lay, m.p_int, kappa_lay, kap_int, c_p_lay,
         s.cache.meanmolmass_lay, iter_value=it,
         T_star=phys.T_star, input_dampara=phys.input_dampara,
         F_intern=phys.F_intern, F_add_heat_sum=s.cache.F_add_heat_sum,
         F_smooth_sum=s.F_smooth_sum, F_down_tot=s.totals.F_down_tot,
-        F_up_tot=s.totals.F_up_tot, members=members)
+        F_up_tot=s.totals.F_up_tot, members=members, rounds=rounds)
 
     # --- flux calculation with the adjusted profile ---
     T_int = interp_ops.interface_temperatures(T_adj)
@@ -139,69 +144,72 @@ def _convection_step(phys: Phys, m: ModelArrays, thermo: ThermoProps,
         T_adj, conv_layer, totals.F_net, totals.F_down_tot,
         F_intern=phys.F_intern, F_add_heat_sum=cache.F_add_heat_sum,
         F_smooth_sum=s.F_smooth_sum, rad_convergence_limit=local_limit)
-    return T_adj, flux, cache, totals, conv_layer, marked_red, criterion
+    return (T_adj, flux, cache, totals, conv_layer, marked_red, criterion,
+            tuple(adjustment) or None)
+
+
+def conv_key(phys: Phys, it: int) -> tuple:
+    """The host branches that the body takes at counter ``it``: the cell
+    refresh, the prefactor seeds, the adaptive store and adjustment, zone
+    stitching past 5000 and the 400 iterations before the run can be
+    done.  Iterations of one key run the same ops."""
+    a = phys.adapt_interval
+    return (it % 10 == 0, it == 0, it == 6000, it % a == 0, it % a == a - 1,
+            it > 5000, it < 400)
 
 
 def _one_convection_iteration(phys: Phys, m: ModelArrays,
-                              thermo: ThermoProps, s: ConvLoopState,
-                              running: np.ndarray, copies,
-                              sset=None) -> ConvLoopState:
-    """Body of the convection loop (computation.py:1030-1164).  In a batch
-    the host branches follow the running members' shared counter,
-    ``not_done`` and the counter's advance are per member, and a member
-    that has stopped keeps its old state.  ``copies``: the DeviceCopy of
-    the criteria, the running members and ``not_done``."""
-    limits, run_copy, step_copy = copies
-    it = shared_counter(s, running)
-    every = running.all()
-    run_dev = None if every else run_copy(running)
-    T_adj, flux, cache, totals, conv_layer, marked_red, criterion = (
-        _convection_step(phys, m, thermo, s, it, limits(s.local_limit),
-                         sset, members=run_dev))
+                              thermo: ThermoProps, s: ConvLoopState, it: int,
+                              every: bool, sset=None, rounds=None):
+    """Body of the convection loop (computation.py:1030-1164) at host
+    counter ``it``, on a state with device counters: (the new state,
+    unfrozen, and the adjustment's rounds and overflow flag or None).
+    ``every``: every member of a batch runs (else the adjustment corrects
+    only the running ones); ``not_done`` and the counter's advance are per
+    member."""
+    T_adj, flux, cache, totals, conv_layer, marked_red, criterion, adj = (
+        _convection_step(phys, m, thermo, s, it,
+                         s.local_limit.to(s.T_lay.dtype), sset,
+                         members=None if every else s.keep_running,
+                         rounds=rounds))
     if phys.physical_tstep != 0.0:
         # one convective adjustment only, no temperature iteration
         # (computation.py:1109-1111)
-        not_done = np.zeros(running.shape, bool)
+        not_done = torch.zeros_like(criterion)
     elif it < 400:
-        not_done = np.ones(running.shape, bool)
+        not_done = torch.ones_like(criterion)
     else:
-        not_done = ((~criterion) | (conv_layer.sum(dim=0) == 0)).cpu().numpy()
+        not_done = (~criterion) | (conv_layer.sum(dim=0) == 0)
 
     # --- radiative forward step while not converged ---
     T_new, T_store, prefactor, F_smooth_sum = (
         T_adj, s.T_store, s.prefactor, s.F_smooth_sum)
-    if (not_done & running).any():
+    if phys.physical_tstep == 0.0:
         stepped = conv_temp_step(
             phys, m, totals, T_adj, s.T_store, s.prefactor, marked_red, it,
             F_add_heat_lay=cache.F_add_heat_lay)
-        if not_done.all():
+        if it < 400:
             T_new, T_store, prefactor, F_smooth_sum = stepped
         else:
-            step_dev = step_copy(not_done)
             T_new, T_store, prefactor, F_smooth_sum = (
-                torch.where(step_dev, a, b) for a, b in zip(
+                torch.where(not_done, a, b) for a, b in zip(
                     stepped, (T_adj, s.T_store, s.prefactor,
                               s.F_smooth_sum)))
-    it_next = it + not_done
+    it_next = s.it + not_done
 
     local_limit = s.local_limit
     for n in phys.crit_relaxation_numbers:
-        local_limit = np.where(it_next == int(n), local_limit * 10.0,
-                               local_limit)
+        local_limit = torch.where(it_next == int(n), local_limit * 10.0,
+                                  local_limit)
 
     hit_cap = it_next > phys.max_nr_iterations
     new = ConvLoopState(
         T_lay=T_new, flux=flux, cache=cache, totals=totals,
         T_store=T_store, prefactor=prefactor, F_smooth_sum=F_smooth_sum,
-        conv_layer=conv_layer, marked_red=marked_red,
-        it=host_value(it_next, s.it),
-        local_limit=host_value(local_limit, s.local_limit),
-        keep_running=host_value(not_done & ~hit_cap, s.keep_running),
-        aborted=host_value(s.aborted | hit_cap, s.aborted),
-        steps=s.steps + 1)
-    if every:
-        return new
-    return freeze_members(new, s, (run_dev, running))
+        conv_layer=conv_layer, marked_red=marked_red, it=it_next,
+        local_limit=local_limit, keep_running=not_done & ~hit_cap,
+        aborted=s.aborted | hit_cap, steps=s.steps + 1)
+    return new, adj
 
 
 def convection_loop(phys: Phys, m: ModelArrays, thermo: ThermoProps,
@@ -254,17 +262,19 @@ def convection_loop(phys: Phys, m: ModelArrays, thermo: ThermoProps,
         state = state._replace(keep_running=(
             enter.cpu().numpy() if batch else bool(enter)))
 
-    T = state.T_lay
-    copies = (DeviceCopy(T, T.dtype), DeviceCopy(T), DeviceCopy(T))
-    start_it = None
-    while True:
-        running = running_members(state)
-        if not running.any():
-            break
-        it = shared_counter(state, running)
-        start_it = it if start_it is None else start_it
-        if max_steps is not None and it - start_it >= max_steps:
-            break
-        state = _one_convection_iteration(phys, m, thermo, state, running,
-                                          copies, sset)
-    return state
+    def body(s, it, every, rounds):
+        return _one_convection_iteration(phys, m, thermo, s, it, every,
+                                         sset, rounds)
+
+    if phys.physical_tstep != 0.0:
+        # one adjustment and solve, after which the loop is done: no
+        # chunk replays iterations past it
+        max_steps = 1 if max_steps is None else min(max_steps, 1)
+
+    if not graphs.graphed(state, m):
+        return graphs.per_iteration_loop(body, state, max_steps)
+    run = graphs.runner("convection", (phys, m, thermo, sset),
+                        lambda: graphs.Runner(
+                            body, lambda it: conv_key(phys, it),
+                            graphs.to_device(state), "steps", bounded=True))
+    return run.run(state, max_steps)

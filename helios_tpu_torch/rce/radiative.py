@@ -3,11 +3,13 @@ reference rad_temp_iter, kernels.cu:2606-2763, and radiation_loop,
 computation.py:827-990).
 
 The JAX package runs the loop as one device ``lax.while_loop`` whose
-branches are ``lax.cond`` on the iteration counter.  Here the counter ``it``
-is a host int, so those branches (cell refresh every 10th iteration,
-foreplay, prefactor resets, criterion relaxation, the overheat check every
-100th iteration) are host branches, and the loop reads back one device
-flag per iteration: whether to go on.
+branches are ``lax.cond`` on the iteration counter.  Here the body keeps
+its counter, criterion and flags on the device and branches on the host's
+copy of the counter (cell refresh every 10th iteration, foreplay,
+prefactor resets, criterion relaxation, the overheat check every 100th
+iteration, the cap: :func:`rad_key`); :mod:`helios_tpu_torch.rce.graphs`
+runs one planet's iterations as replayed CUDA graphs, reading the device
+once per chunk, and a batch one iteration at a time.
 """
 
 from __future__ import annotations
@@ -26,9 +28,8 @@ from helios_tpu_torch.forward import (CellCache, FluxState, ModelArrays, Phys,
 from helios_tpu_torch.kernels.ordered import ordered_cumsum
 from helios_tpu_torch.ops import integrate as int_ops
 from helios_tpu_torch.ops import interp as interp_ops
-from helios_tpu_torch.ops.members import (DeviceCopy, freeze_members,
-                                          memberwise, running_members,
-                                          shared_counter)
+from helios_tpu_torch.ops.members import memberwise
+from helios_tpu_torch.rce import graphs
 
 
 class ThermoProps(NamedTuple):
@@ -140,7 +141,8 @@ def rad_temp_step(phys: Phys, m: ModelArrays, totals: int_ops.FluxTotals,
     ``phys.physical_tstep`` the constant physical timestep, which needs
     ``c_p_lay`` [erg/K/mol] and ``meanmolmass_lay`` [g].  [L+1] vectors
     include the surface/BOA ghost layer at index L; ``it`` is the host
-    counter."""
+    counter; ``local_limit`` the criterion, a number or a tensor of the
+    run's dtype ([P] for a batch)."""
     L = phys.nlayer
     F_net = totals.F_net
     if F_add_heat_lay is None:
@@ -217,7 +219,9 @@ class RadLoopState(NamedTuple):
     """The radiation loop's state.  For a batch of P planets the tensors
     carry the planet axis after the layer axis ([L+1, P], [I, P, S]), the
     device flags are [P], and the host counters and flags are numpy arrays
-    [P]: one value per member."""
+    [P]: one value per member.  Inside the loop the counters are tensors on
+    the device (``graphs.to_device``): ``it`` int64, ``local_limit``
+    float64, ``aborted`` bool."""
     T_lay: torch.Tensor
     flux: FluxState
     cache: CellCache
@@ -298,31 +302,37 @@ def _stop(phys: Phys, it_next: int):
     return hit_cap, out_of_time
 
 
+def rad_key(phys: Phys, it: int) -> tuple:
+    """The host branches that the body takes at counter ``it``: the cell
+    refresh, the stepping after the foreplay, the prefactor resets, the
+    adaptive store and adjustment, the overheat check, the relaxations and
+    the stop at ``it + 1``.  Iterations of one key run the same ops."""
+    a, nxt = phys.adapt_interval, it + 1
+    relax = sum(nxt == int(n) for n in phys.crit_relaxation_numbers)
+    return (it % 10 == 0, it >= phys.foreplay, it == phys.foreplay,
+            it == 10000, it % a == 0, it % a == a - 1, it % 100 == 0, relax,
+            *_stop(phys, nxt))
+
+
 def _one_radiation_iteration(phys: Phys, m: ModelArrays,
                              thermo: Optional[ThermoProps],
-                             s: RadLoopState, running: np.ndarray,
-                             limits: DeviceCopy, sset=None) -> RadLoopState:
-    """Body of the radiation loop (computation.py:851-981).  In a batch
-    every member computes, the host branches follow the running members'
-    shared counter, and a member that has stopped keeps its old state (the
-    JAX package's ``vmap`` of its ``while_loop``)."""
-    it = shared_counter(s, running)
+                             s: RadLoopState, it: int, sset=None):
+    """Body of the radiation loop (computation.py:851-981) at host counter
+    ``it``, on a state with device counters: the new state, unfrozen (the
+    loops of :mod:`graphs` keep a stopped planet's or member's state)."""
     cache, flux, totals, res, overheat, converged = _radiation_step(
-        phys, m, thermo, s, it, limits(s.local_limit), sset)
+        phys, m, thermo, s, it, s.local_limit.to(s.T_lay.dtype), sset)
     it_next = it + 1
     hit_cap, out_of_time = _stop(phys, it_next)
     keep = (torch.zeros_like(converged) if hit_cap or out_of_time
             else ~converged & ~overheat)
-    new = RadLoopState(
+    return RadLoopState(
         T_lay=res.T_lay, flux=flux, cache=cache, totals=totals,
         T_store=res.T_store, prefactor=res.prefactor,
         F_smooth_sum=res.F_smooth_sum, abort=res.abort, it=s.it + 1,
         local_limit=_relaxed(phys, it_next, s.local_limit),
         keep_running=keep, goto_convection=s.goto_convection | overheat,
         aborted=s.aborted | hit_cap)
-    if running.all():
-        return new
-    return freeze_members(new, s, (s.keep_running, running))
 
 
 def init_rad_state(phys: Phys, m: ModelArrays, T_lay0,
@@ -357,7 +367,10 @@ def radiation_loop(phys: Phys, m: ModelArrays, thermo: Optional[ThermoProps],
                    sset=None,
                    state0: Optional[RadLoopState] = None) -> RadLoopState:
     """Run the radiative-equilibrium iteration to convergence
-    (computation.py:827-990), reading back one flag per iteration.
+    (computation.py:827-990).  One planet on one device runs in chunks of
+    :mod:`graphs` (on the card each iteration a replayed CUDA graph), with
+    one read of the device per chunk; a batch or a sliced model reads its
+    flags after every iteration.
 
     ``max_steps`` caps this call; ``sset`` is the species set of on-the-fly
     opacity mixing; ``state0`` continues from a prior state instead of
@@ -378,13 +391,14 @@ def radiation_loop(phys: Phys, m: ModelArrays, thermo: Optional[ThermoProps],
         flux = solve_fluxes(phys, m, state.cache, state.T_lay, state.flux)
         totals = integrate_flux_flat(phys, m, flux, state.cache.F_dir)
         return state._replace(flux=flux, totals=totals)
-    steps = 0
-    limits = DeviceCopy(state.T_lay, state.T_lay.dtype)
-    while max_steps is None or steps < max_steps:
-        running = running_members(state)
-        if not running.any():
-            break
-        state = _one_radiation_iteration(phys, m, thermo, state, running,
-                                         limits, sset)
-        steps += 1
-    return state
+
+    def body(s, it, every, rounds):
+        return _one_radiation_iteration(phys, m, thermo, s, it, sset), None
+
+    if not graphs.graphed(state, m):
+        return graphs.per_iteration_loop(body, state, max_steps)
+    run = graphs.runner("radiation", (phys, m, thermo, sset),
+                        lambda: graphs.Runner(
+                            body, lambda it: rad_key(phys, it),
+                            graphs.to_device(state), "it", bounded=False))
+    return run.run(state, max_steps)

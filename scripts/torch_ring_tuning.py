@@ -7,7 +7,7 @@ one CUDA card.
         [--kernels noniso_sweep,thomas,iso_sweep,ro_mix,band_integrate]
         [--depths 8,12,16,24] [--steady 2,4,8]
         [--iso-variants 0:8:3:32,1:8:3:32,1:8:5:30] [--iso-columns 32,4224]
-        [--ro-warps 1,4] [--ro-cells 8448,16896]
+        [--ro-warps 1,4] [--ro-cells 8448,16896] [--ro-ny 87,100,126]
         [--bi-variants 4:24576,2:49152]
         [--rounds 5] [--reference-csrc DIR] [--out FILE]
 
@@ -36,7 +36,10 @@ and on its ragged cells at ny = 32 (ties, gray, unsorted and infinite
 entries), and is held bit for bit against its plain version.
 ``--ro-cells`` adds ``ro_mix`` on the first C flagship cells only: a time
 that does not grow with C while the blocks fit on the SMs at once is set
-by one cell's chain.  ``band_integrate`` (the flux integration,
+by one cell's chain.  ``--ro-ny`` adds ``ro_mix`` in fp32 on 2000 + ny
+of chip_smoke's cells at each of those ny (where the previous design's
+launch-wide weight bound sent every live cell to its general branch).
+``band_integrate`` (the flux integration,
 ``csrc/band_integrate.cu``) varies its staging, given as
 stages:stage_bytes (a ring of ``kStages`` stages of ``kStageBytes``
 each); it runs on
@@ -147,7 +150,7 @@ def _outputs(args, shapes):
             for shape in shapes]
 
 
-def cases(kernels, iso_columns, ro_cells=()):
+def cases(kernels, iso_columns, ro_cells=(), ro_ny=()):
     """(label, kernel, dtype, run(call) -> outputs, plain() -> outputs or
     None, rtol, timing (reps, per_event), shipped build only) at
     chip_smoke's phase-3 shapes."""
@@ -211,6 +214,9 @@ def cases(kernels, iso_columns, ro_cells=()):
             runs += [(f"first {C} cells", [full[0][:C].contiguous(),
                                           full[1][:C].contiguous()]
                       + full[2:]) for C in ro_cells]
+            if dtype == torch.float32:
+                runs += [(f"ny={ny}", chip_smoke.ro_inputs(
+                    dtype, C=2000 + ny, ny=ny)) for ny in ro_ny]
             for label, args in runs:
                 C, ny = args[0].shape
 
@@ -219,11 +225,12 @@ def cases(kernels, iso_columns, ro_cells=()):
                     call(list(args) + [out], (C, ny))
                     return [out]
 
-                # bit for bit with the plain version: rtol 0
+                # bit for bit with the plain version: rtol 0; one call per
+                # sample at the wide ny, where a general branch takes seconds
                 out.append((f"ro_mix {name} {label} [{C} x {ny}]", "ro_mix",
                             dtype, ro,
                             lambda args=args: [ro_mix_reference(*args)], 0.0,
-                            (5, 10), False))
+                            (1, 1) if ny in ro_ny else (5, 10), False))
         if "band_integrate" in kernels:
             out += band_integrate_cases(dtype, name)
     return out
@@ -303,6 +310,7 @@ def main(argv=None):
     ap.add_argument("--iso-columns", type=ints, default="")
     ap.add_argument("--ro-warps", type=ints, default="")
     ap.add_argument("--ro-cells", type=ints, default="")
+    ap.add_argument("--ro-ny", type=ints, default="")
     ap.add_argument("--bi-variants", type=lambda t: t.split(","),
                     default="4:24576,2:49152,3:32768")
     ap.add_argument("--rounds", type=int, default=5)
@@ -347,7 +355,8 @@ def main(argv=None):
 
     results = []
     for (label, kernel, dtype, run, plain, rtol, (reps, per_event),
-         shipped_only) in cases(kernels, opt.iso_columns, opt.ro_cells):
+         shipped_only) in cases(kernels, opt.iso_columns, opt.ro_cells,
+                                opt.ro_ny):
         builds = {lab: entry(lib, kernel, dtype, *ARITY[kernel])
                   for lab, (lib, _) in built.items()
                   if lab == kernel or (not shipped_only

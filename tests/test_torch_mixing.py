@@ -182,8 +182,9 @@ def _stream_cell(m, n, hw, gy):
     cell's dtype: the loser-tree merge of the ny rows (node q at [q], leaf
     i at q = ny + i; tag i << 8 | j, (i + ny) << 8 once row i is used up),
     the weight sum in pop order, and the streaming rebin with its queue of
-    known nodes (head y_out with w_head, w consecutive behind it).  Returns
-    (out, flat indices in pop order, nodes past the last yg)."""
+    known nodes (head y_out with w_head, w consecutive behind it), and the
+    check at each position that yg did not decrease.  Returns (out, flat
+    indices in pop order, nodes past the last yg, yg never decreased)."""
     ny = len(m)
     n2 = ny * ny
     dt = m.dtype.type
@@ -208,6 +209,7 @@ def _stream_cell(m, n, hw, gy):
     out = np.full(ny, np.nan, m.dtype)
     order = []
     acc = prev_k = prev_yg = dt(0)
+    rising = True
     y_next = y_out = w_last = w_head = past = 0
     for t in range(n2):
         r, j = win[1] >> _TAG_BITS, win[1] & ((1 << _TAG_BITS) - 1)
@@ -215,6 +217,7 @@ def _stream_cell(m, n, hw, gy):
         wgt = hw[r] * hw[j]
         acc = acc + wgt
         yg = acc - dt(0.5) * wgt
+        rising = rising and bool(yg >= prev_yg)
         while y_next < ny and (yg > gy[y_next] or t == n2 - 1):
             past += not yg > gy[y_next]
             w_last = min(max(t, w_last + 1), n2 - 1)
@@ -236,7 +239,7 @@ def _stream_cell(m, n, hw, gy):
             q >>= 1
         win = carry
     assert y_out == ny
-    return out, order, past
+    return out, order, past, rising
 
 
 def _general_cell(m, n, hw, gy):
@@ -276,9 +279,10 @@ def _general_cell(m, n, hw, gy):
 def _kernel_cells(mixed, new, gauss_weight, gauss_y):
     """The kernel's choice of branch and its result, cell by cell: the plain
     sum where the overlap is negligible; the stream where new is
-    non-decreasing, mixed and new are finite and the weights pass the
-    launch's check; else the general branch.  Returns (out, branch names,
-    {cell: pop order}, nodes past the last yg)."""
+    non-decreasing, mixed and new are finite, the weights pass the
+    launch's check and yg never decreased along the stream; else the
+    general branch.  Returns (out, branch names, {cell: pop order}, nodes
+    past the last yg)."""
     dt = mixed.dtype.type
     hw = dt(0.5) * gauss_weight
     weights_ok = stream_weights_ok(torch.from_numpy(gauss_weight),
@@ -290,8 +294,9 @@ def _kernel_cells(mixed, new, gauss_weight, gauss_y):
             out[c] = m + n
             branch.append("negligible")
         elif (weights_ok and np.isfinite(m).all() and np.isfinite(n).all()
-              and (n[1:] >= n[:-1]).all()):
-            out[c], orders[c], p = _stream_cell(m, n, hw, gauss_y)
+              and (n[1:] >= n[:-1]).all()
+              and (streamed := _stream_cell(m, n, hw, gauss_y))[3]):
+            out[c], orders[c], p, _ = streamed
             past += p
             branch.append("stream")
         else:
@@ -346,8 +351,11 @@ def test_ro_kernel_transcription_matches_plain_bitwise(ny, dtype):
     and non-finite cells; the merge pops the sums in torch.sort's stable
     order; ro_general_cells names the cells of the general branch.  Also
     with the last Gauss node past the last yg, with nodes closer together
-    than a yg step (and two equal), and with a weight too small for the
-    stream (every live cell general)."""
+    than a yg step (and two equal), with a weight far below the others
+    (the stream still takes the sorted cells), with a zero weight (the
+    launch's check fails: every live cell general) and with a weight whose
+    square overflows (yg turns NaN on every live cell's stream: every live
+    cell general by the check at each position)."""
     y, w = (a.astype(dtype) for a in _gauss(ny))
     rng = np.random.default_rng(ny)
     mixed, new = _transcription_cells(rng, ny, dtype)
@@ -356,13 +364,20 @@ def test_ro_kernel_transcription_matches_plain_bitwise(ny, dtype):
     clustered = y.copy()
     clustered[1::2] = clustered[0::2][:ny // 2] + dtype(1e-12)
     clustered[-1] = clustered[-2]
-    tiny = w.copy()
+    tiny, zero, huge = w.copy(), w.copy(), w.copy()
     tiny[0] = dtype(1e-30)
+    zero[0] = dtype(0)
+    huge[0] = np.sqrt(np.finfo(dtype).max) * dtype(4)
     past = 0
-    for label, gw, gy in (("gauss", w, y), ("past the last yg", w, past_end),
-                          ("clustered", w, np.sort(clustered)),
-                          ("tiny weight", tiny, y)):
-        with np.errstate(invalid="ignore", over="ignore"):
+    every_branch = {"negligible", "stream", "general"}
+    for label, gw, gy, want in (
+            ("gauss", w, y, every_branch),
+            ("past the last yg", w, past_end, every_branch),
+            ("clustered", w, np.sort(clustered), every_branch),
+            ("tiny weight", tiny, y, every_branch),
+            ("zero weight", zero, y, {"negligible", "general"}),
+            ("overflowing weight", huge, y, {"negligible", "general"})):
+        with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
             got, branch, orders, p = _kernel_cells(mixed, new, gw, gy)
         past += p if label == "past the last yg" else 0
         ts = [torch.from_numpy(a) for a in (mixed, new, gw, gy)]
@@ -373,8 +388,6 @@ def test_ro_kernel_transcription_matches_plain_bitwise(ny, dtype):
                 f"{label}: cell {c} merge order"
         assert ro_general_cells(*ts).tolist() == [b == "general"
                                                   for b in branch], label
-        want = ({"negligible", "general"} if label == "tiny weight"
-                else {"negligible", "stream", "general"})
         assert set(branch) == want, (label, branch)
     assert past > 0      # some node lies past the last yg
 

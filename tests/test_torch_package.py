@@ -294,23 +294,29 @@ def test_cuda_ro_kernel_matches_plain(cuda_device, dtype, ny):
     bit (rtol 0, atol 0), fp64 and fp32, on 203 cells (not a multiple of
     the kernel's block) of ties, gray cells, unsorted and infinite entries
     and negligible overlap; on one cell; on an all-negligible batch; with
-    the last Gauss node past the last yg; and with a weight too small for
-    the kernel's stream (every live cell through its general branch).  One
-    counted launch per call."""
+    the last Gauss node past the last yg; with a weight far below the
+    others (the stream still takes the sorted cells); with a zero weight
+    (the launch's check fails: every live cell through the general
+    branch); and with a weight whose square overflows (yg turns NaN on
+    every live cell's stream: the check at each position sends each to the
+    general branch).  One counted launch per call."""
     from helios_tpu_torch.io.opacity import gauss_legendre_ypoints
     from helios_tpu_torch.kernels.ro import ro_general_cells
     from helios_tpu_torch.ops.mixing import negligible_overlap
     rng = np.random.default_rng(ny)
     y, w = (np.asarray(a) for a in gauss_legendre_ypoints(ny))
     m, n = _ro_cells(rng, 203, ny)
-    past_end, tiny = y.copy(), w.copy()
+    past_end, tiny, zero, huge = y.copy(), w.copy(), w.copy(), w.copy()
     past_end[-1] = 1 - 1e-7
     tiny[0] = 1e-30
+    zero[0] = 0.0
+    huge[0] = 4 * float(np.sqrt(torch.finfo(dtype).max))
     quiet = np.where(np.isfinite(n), n, 1.0) * 1e-9
     cases = {"cells": (m, n, w, y), "one cell": (m[:1], n[:1], w, y),
              "all negligible": (np.where(m == 0, 1.0, m), quiet, w, y),
              "node past the last yg": (m, n, w, past_end),
-             "tiny weight": (m, n, tiny, y)}
+             "tiny weight": (m, n, tiny, y), "zero weight": (m, n, zero, y),
+             "overflowing weight": (m, n, huge, y)}
     for label, case in cases.items():
         ts = [torch.tensor(x, dtype=dtype, device=cuda_device) for x in case]
         before = ro_mix.launches
@@ -324,8 +330,11 @@ def test_cuda_ro_kernel_matches_plain(cuda_device, dtype, ny):
             assert general.any() and not general.all()
         if label == "all negligible":
             assert negligible_overlap(ts[0], ts[1]).all()
+        live = ~negligible_overlap(ts[0], ts[1])
         if label == "tiny weight":
-            assert general.equal(~negligible_overlap(ts[0], ts[1]))
+            assert (general & live).sum() < live.sum()
+        if label in ("zero weight", "overflowing weight"):
+            assert general.equal(live)
 
 
 def _write_mie_dir(path):
