@@ -51,7 +51,13 @@ Phases (any failure exits non-zero before the last line is printed):
      wherever a flux solve runs); every flux integration on the card, on
      every path run in this process, launches band_integrate once per
      spectral slice (once on a whole model) and no ordered_sum (checked
-     at each integration):
+     at each integration).  One planet's loops run as replayed CUDA
+     graphs (helios_tpu_torch.rce.graphs): a path's launches are its
+     solves' and those of the loop iterations that changed nothing
+     (replayed past the stop, a redone chunk's first try), which the
+     runners count apart; each path logs its graphs, capture and eager
+     seconds, replays, reads, redos and idle launches, and paths a, d, e,
+     h and m run again through the per-iteration loop, bit for bit:
      a. the flagship RCE run (105 layers x 385 bins x 20 Gauss points,
         non-isothermal, scattering, convection, fp64) to convergence
         through helios_tpu_torch.pipeline.run; then one forward_fluxes on
@@ -300,19 +306,42 @@ def kernel_counters():
             "ordered_sum": ordered_sum, "band_integrate": band_integrate}
 
 
+# the loops block (graphs.loops) of the path that runs: its runners serve
+# the path's runs and are dropped, graphs and buffers, at the next reset
+PATH_LOOPS = contextlib.ExitStack()
+PATH = {}
+
+
 def reset_counts():
-    """Every launch count to 0, the loops' runners dropped and the peak
-    memory reset, so that a path's graphs, replays, reads and peak are its
-    own."""
+    """Every launch count to 0, the last path's loops block closed (its
+    runners, graphs and buffers dropped) and a new one opened, and the
+    peak memory reset, so that a path's graphs, replays, reads, idle
+    launches and peak are its own."""
     from helios_tpu_torch.rce import graphs
     for fn in kernel_counters().values():
         fn.launches = 0
-    graphs.release()
+    PATH_LOOPS.close()
+    PATH["loops"] = PATH_LOOPS.enter_context(graphs.loops())
     torch.cuda.reset_peak_memory_stats()
 
 
+def read_idle():
+    """Per kernel, the launches of the path's loop iterations that changed
+    nothing (replayed past the stop, or the first try of a redone chunk),
+    as its runners counted them."""
+    idle = dict.fromkeys(kernel_counters(), 0)
+    for st in PATH["loops"].stats.values():
+        for name, n in st.idle_launches.items():
+            idle[name] += n
+    return idle
+
+
 def read_counts():
-    return {name: fn.launches for name, fn in kernel_counters().items()}
+    """The launch counts since the last reset, and under "idle" those of
+    them that changed nothing (read_idle)."""
+    counts = {name: fn.launches for name, fn in kernel_counters().items()}
+    counts["idle"] = read_idle()
+    return counts
 
 
 class AtLeastOnce:
@@ -329,22 +358,27 @@ class AtLeastOnce:
         return ">= 1"
 
 
-def only(**counts):
+def only(idle=None, **counts):
     """The launch counts of a path that runs just the named kernels; with
     any flux solve (a named count), also the flux integration and the
-    fixed-order sums and scans, at least once."""
+    fixed-order sums and scans, at least once.  ``idle``: the launches of
+    the iterations that changed nothing (read_idle), added to the counts
+    and expected under "idle"."""
+    idle = idle or dict.fromkeys(kernel_counters(), 0)
     sums = AtLeastOnce() if any(counts.values()) else 0
-    return {name: counts.get(name, sums if name in ("ordered_sum",
-                                                    "band_integrate") else 0)
+    want = {name: (sums if name in ("ordered_sum", "band_integrate")
+                   and name not in counts
+                   else counts.get(name, 0) + idle[name])
             for name in kernel_counters()}
+    want["idle"] = idle
+    return want
 
 
 def loop_stats():
-    """What the loops' runners did since the last reset_counts: {loop:
-    graphs, replays, reads, redos, iterations, past_stop, rounds} (None
-    for a loop that did not run in chunks)."""
-    from helios_tpu_torch.rce import graphs
-    return {k: (st.as_dict() if (st := graphs.stats(k)) else None)
+    """What the path's loop runners did since the last reset_counts:
+    {loop: graphs.Stats as a dict} (None for a loop that did not run)."""
+    stats = PATH["loops"].stats
+    return {k: (stats[k].as_dict() if k in stats else None)
             for k in ("radiation", "convection")}
 
 
@@ -354,12 +388,14 @@ def rounds_text(hist):
 
 
 def loop_line(label, out=None, stats=None):
-    """Log how a path's loops ran: per loop the CUDA graphs captured, their
-    replays, the device reads (and per iteration), the redone chunks, the
-    iterations replayed past the stop and the adjustment rounds needed
-    (first tries); the peak device memory since the path's start (of
-    this process: not with ``stats`` from another); with ``out`` (a
-    RunOutput) the host wall per radiation and convection iteration.
+    """Log how a path's loops ran: per loop the CUDA graphs captured and
+    the host seconds their captures took, their replays, the eager
+    iterations and their host seconds, the device reads (and per
+    iteration), the redone chunks, the iterations replayed past the stop,
+    the launches of the iterations that changed nothing and the adjustment
+    rounds needed (first tries); the peak device memory since the path's
+    start (of this process: not with ``stats`` from another); with ``out``
+    (a RunOutput) the host wall per radiation and convection iteration.
     Returns the stats."""
     memory = ""
     if stats is None:
@@ -371,12 +407,16 @@ def loop_line(label, out=None, stats=None):
         if st is None:
             continue
         its = max(st["iterations"], 1)
+        idle = {k: n for k, n in st["idle_launches"].items() if n}
         parts.append(
-            f"{kind} {st['graphs']} graphs, {st['replays']} replays, "
+            f"{kind} {st['graphs']} graphs (captures {st['capture_s']:.3f} "
+            f"s), {st['replays']} replays, {st['eager']} eager iterations "
+            f"({st['eager_s']:.3f} s), "
             f"{st['reads']} reads ({st['reads'] / its:.3f} per iteration), "
             f"{st['redos']} redos, {st['past_stop']} iterations past the "
-            f"stop" + (f", adjustment rounds {rounds_text(st['rounds'])}"
-                       if st["rounds"] else ""))
+            f"stop, idle launches {idle}"
+            + (f", adjustment rounds {rounds_text(st['rounds'])}"
+               if st["rounds"] else ""))
     walls = ""
     if out is not None:
         walls = f"; host wall {out.rad_seconds / max(out.rad.it, 1) * 1e3:.3f}"
@@ -395,7 +435,7 @@ def per_iteration_twin(label, run, graphed):
     the TOA spectrum); logs both walls.  Returns the per-iteration run."""
     from helios_tpu_torch.rce import graphs
     torch.cuda.synchronize()
-    with graphs.per_iteration():
+    with graphs.loops(graphs.PER_ITERATION):
         per = run()
     counts = lambda o: (o.rad.it, o.conv.it if o.conv is not None else 0,
                         o.conv.steps if o.conv is not None else 0)
@@ -709,23 +749,28 @@ def ragged_case(dtype, rtol):
     return worst
 
 
-def profiled_kernel_ms(fn, kernel, n=20):
+def profiled_kernel_ms(fn, kernel, n=20, tries=3):
     """The device time of one fn() in the named CUDA kernel, by
-    torch.profiler over n calls."""
+    torch.profiler over n calls; profiled again, up to ``tries`` times,
+    while the profiler records none of the kernel's launches (a trace
+    that lost its kernel events was seen once on the card)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.key)
-    check(us > 0, f"the profiler saw no {kernel}")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.key)
+        if us > 0:
+            break
+    check(us > 0, f"the profiler saw no {kernel} in {tries} traces")
     return us / 1e3 / n
 
 
@@ -1385,7 +1430,7 @@ MAIN_PATH = {}
 def main_path(launch_counts):
     """Path a: the flagship through pipeline.run, its loops as replayed
     CUDA graphs (the launches counted); then the same run through the
-    per-iteration loop (graphs.per_iteration), which it must equal bit for
+    per-iteration loop (graphs.PER_ITERATION), which it must equal bit for
     bit (final T, both counts, the TOA spectrum); one forward solve on the
     card against the CPU."""
     from helios_tpu_torch import pipeline
@@ -1403,7 +1448,7 @@ def main_path(launch_counts):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        with graphs.per_iteration():
+        with graphs.loops(graphs.PER_ITERATION):
             per = pipeline.run(cfg, table, write_output=False, device=DEVICE)
         per_counts = read_counts()
         per_peak = torch.cuda.max_memory_allocated() / 2**20
@@ -1418,7 +1463,8 @@ def main_path(launch_counts):
                  and not rad.aborted and not conv.aborted)
     check(converged, "main path: the run did not converge")
     check(out.n_flux_solves > 0
-          and launch_counts == only(noniso_sweep=out.n_flux_solves),
+          and launch_counts == only(noniso_sweep=out.n_flux_solves,
+                                    idle=launch_counts["idle"]),
           f"main path: launches {launch_counts} for {out.n_flux_solves} "
           "flux solves")
     check(all(st is not None and st["graphs"] > 0 and st["replays"] > 0
@@ -1439,8 +1485,9 @@ def main_path(launch_counts):
     log(f"main path: flagship RCE run [{L_FLAG} layers x {NBIN_FLAG} bins x "
         f"{NY_FLAG} y, fp64] converged: {rad.it} radiation + {conv.it} "
         f"convection iterations ({conv.steps} convection steps), "
-        f"{out.n_flux_solves} flux solves = {launch_counts['noniso_sweep']} "
-        f"noniso_sweep launches")
+        f"{out.n_flux_solves} flux solves + "
+        f"{launch_counts['idle']['noniso_sweep']} idle iterations = "
+        f"{launch_counts['noniso_sweep']} noniso_sweep launches")
     for name, o, peak in (
             ("graphed", out, None), ("per-iteration", per, per_peak)):
         log(f"main path, {name} loops: wall {o.wall_seconds:.3f} s "
@@ -1467,43 +1514,45 @@ def main_path(launch_counts):
     return out, T_start
 
 
-def profiled_window(run, n, kernels, label):
+def profiled_window(run, n, kernels, label, loops):
     """Where the iterations of ``run()`` (n of them) go: host wall per
     iteration, unprofiled, after one warm run (which captures the graphs
     of the window's keys), against the device's busy time and kernels per
     iteration and each named kernel's share (torch.profiler, CUDA
-    kernels); the device reads per iteration of a chunked loop."""
+    kernels); the device reads per iteration of the loops of ``loops``
+    (the graphs.loops block the runs use)."""
     from torch.profiler import ProfilerActivity, profile
-    from helios_tpu_torch.rce import graphs
 
     run()
     torch.cuda.synchronize()
-    before = {k: (st.reads if (st := graphs.stats(k)) else 0)
-              for k in ("radiation", "convection")}
+    reads_of = lambda: sum(st.reads for st in loops.stats.values())
+    before = reads_of()
     t = time.perf_counter()
     run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3 / n
-    reads = sum((st.reads if (st := graphs.stats(k)) else 0) - before[k]
-                for k in before)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    device_us, count = 0.0, 0
-    kernel_us = dict.fromkeys(kernels, 0.0)
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        device_us += us
-        count += e.count
-        for k in kernels:
-            if f"{k}_kernel" in e.key:
-                kernel_us[k] += us
+    reads = reads_of() - before
+    for _ in range(3):      # again while a trace lost a kernel's events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        device_us, count = 0.0, 0
+        kernel_us = dict.fromkeys(kernels, 0.0)
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            device_us += us
+            count += e.count
+            for k in kernels:
+                if f"{k}_kernel" in e.key:
+                    kernel_us[k] += us
+        if all(kernel_us.values()):
+            break
     for k, us in kernel_us.items():
-        check(us > 0, f"{label}: the profiler saw no {k}")
+        check(us > 0, f"{label}: the profiler saw no {k} in 3 traces")
     busy_ms = device_us / 1e3 / n
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=count / n,
                 kernel_ms={k: us / 1e3 / n for k, us in kernel_us.items()},
@@ -1541,9 +1590,10 @@ def time_breakdown(label, phys, arrays, T0, kernels, n=20, sset=None,
         check(np.all(s1.it == s.it + n),
               "time breakdown: the radiation loop stopped")
 
-    with graphs.per_iteration() if per_iteration else contextlib.nullcontext():
+    with graphs.loops(graphs.PER_ITERATION if per_iteration
+                      else graphs.Settings()) as loops:
         s = loop(10, radiative.init_rad_state(phys, arrays, T0, sset))
-        res = profiled_window(window, n, kernels, label)
+        res = profiled_window(window, n, kernels, label, loops)
     it0 = int(np.max(s.it))
     breakdown_line(label, f"radiation iteration (it {it0}..{it0 + n})", res,
                    n)
@@ -1567,9 +1617,10 @@ def conv_breakdown(label, out, thermo, kernels, n=20, sset=None,
         check(s1.steps - s.steps == n,
               "conv breakdown: the convection loop stopped")
 
-    with graphs.per_iteration() if per_iteration else contextlib.nullcontext():
+    with graphs.loops(graphs.PER_ITERATION if per_iteration
+                      else graphs.Settings()) as loops:
         s = run(10, run(0, None))
-        res = profiled_window(window, n, kernels, label)
+        res = profiled_window(window, n, kernels, label, loops)
     breakdown_line(label, f"convection iteration (steps {s.steps}.."
                    f"{s.steps + n})", res, n)
     return res
@@ -1703,11 +1754,13 @@ def iso_rce_path(launch_counts):
           "iso RCE: non-finite temperatures")
     check(rad.it == ISO_RCE_ITERATIONS or not bool(rad.keep_running),
           f"iso RCE: stopped at {rad.it} iterations")
-    check(launch_counts == only(iso_sweep=rad.it),
+    check(launch_counts == only(iso_sweep=rad.it,
+                                idle=launch_counts["idle"]),
           f"iso RCE: launches {launch_counts} for {rad.it} iterations")
     log(f"iso RCE path [{L_FLAG} layers x {NBIN_FLAG} bins x {NY_FLAG} y, "
         f"fp64, {phys.n_sweep_passes} passes]: {rad.it} radiation "
-        f"iterations = {launch_counts['iso_sweep']} iso_sweep launches in "
+        f"iterations + {launch_counts['idle']['iso_sweep']} idle = "
+        f"{launch_counts['iso_sweep']} iso_sweep launches in "
         f"{wall:.3f} s ({rad.it / wall:.1f} it/s, model build excluded); "
         f"T {float(rad.T_lay.min()):.1f}..{float(rad.T_lay.max()):.1f} K")
     res = time_breakdown("iso RCE", phys, arrays, T0, ("iso_sweep",))
@@ -1753,7 +1806,8 @@ def matrix_path(flag_out, launch_counts):
     T = out.T_lay.cpu().numpy()
     check(out.phys.flux_calc_method == "matrix", "matrix path: not matrix")
     check(np.all(np.isfinite(T)), "matrix path: non-finite temperatures")
-    check(n > 0 and launch_counts == only(thomas_solve=n, noniso_sweep=n),
+    check(n > 0 and launch_counts == only(thomas_solve=n, noniso_sweep=n,
+                                          idle=launch_counts["idle"]),
           f"matrix path: launches {launch_counts} for {n} flux solves")
     converged = (not bool(rad.keep_running) and conv is not None
                  and not conv.keep_running and not rad.aborted
@@ -1766,7 +1820,8 @@ def matrix_path(flag_out, launch_counts):
         f"{'converged' if converged else 'DID NOT CONVERGE'} after "
         f"{rad.it} radiation + {conv_it} convection iterations "
         f"({conv_steps} convection steps; radiation loop aborted "
-        f"{rad.aborted}), {n} flux solves = "
+        f"{rad.aborted}), {n} flux solves + "
+        f"{launch_counts['idle']['thomas_solve']} idle iterations = "
         f"{launch_counts['thomas_solve']} thomas_solve + "
         f"{launch_counts['noniso_sweep']} noniso_sweep launches; wall "
         f"{out.wall_seconds:.3f} s (radiation {out.rad_seconds:.3f} s = "
@@ -1906,7 +1961,7 @@ def otf_path(launch_counts, pp_counts):
     wall = time.perf_counter() - t
     launch_counts.update(read_counts())
     otf_loops = loop_line("on-the-fly RCE path")
-    with graphs.per_iteration():
+    with graphs.loops(graphs.PER_ITERATION):
         t = time.perf_counter()
         per = radiative.radiation_loop(phys, arrays, None, T0,
                                        max_steps=ISO_RCE_ITERATIONS,
@@ -1924,7 +1979,8 @@ def otf_path(launch_counts, pp_counts):
           "on-the-fly RCE: non-finite temperatures")
     check(rad.it == ISO_RCE_ITERATIONS or not bool(rad.keep_running),
           f"on-the-fly RCE: stopped at {rad.it} iterations")
-    check(launch_counts == only(iso_sweep=rad.it, ro_mix=refreshes),
+    check(launch_counts == only(iso_sweep=rad.it, ro_mix=refreshes,
+                                idle=launch_counts["idle"]),
           f"on-the-fly RCE: launches {launch_counts} for {rad.it} "
           f"iterations and {refreshes} cell refreshes")
     log(f"on-the-fly RCE path [{L_FLAG} layers x {NBIN_FLAG} bins x "
@@ -2036,14 +2092,16 @@ def rce_summary(label, out, launch_counts, kernel):
                                            or conv.aborted)))
     check(converged, f"{label}: the run did not converge")
     n = out.n_flux_solves
-    check(n > 0 and launch_counts == only(**{kernel: n}),
+    check(n > 0 and launch_counts == only(**{kernel: n},
+                                          idle=launch_counts["idle"]),
           f"{label}: launches {launch_counts} for {n} flux solves")
     conv_it = conv.it if conv is not None else 0
     conv_steps = conv.steps if conv is not None else 0
     peak = torch.cuda.max_memory_allocated() / 2**20
     log(f"{label} [{out.phys.nlayer} layers x {NBIN_FLAG} bins x {NY_FLAG} "
         f"y, fp64] converged: {rad.it} radiation + {conv_it} convection "
-        f"iterations ({conv_steps} convection steps), {n} flux solves = "
+        f"iterations ({conv_steps} convection steps), {n} flux solves + "
+        f"{launch_counts['idle'][kernel]} idle iterations = "
         f"{launch_counts[kernel]} {kernel} launches; wall "
         f"{out.wall_seconds:.3f} s (radiation loop {out.rad_seconds:.3f} s = "
         f"{rad.it / out.rad_seconds:.1f} it/s, convection loop "
@@ -2203,12 +2261,13 @@ def rocky_path(launch_counts):
             f.write(f"BOA {float(T0[0])!r}\n")
             for i, t in enumerate(T0):
                 f.write(f"{i} {float(t)!r}\n")
-        cfg = HeliosConfig(
+        make_cfg = lambda out_dir: HeliosConfig(
             **kw, surf_albedo="file", albedo_file=albedo,
             albedo_file_header_lines=2, add_heating="yes",
             add_heating_path=heating, add_heating_file_header_lines=2,
             force_start_tp_from_file="yes", temp_format="helios",
-            temp_path=start, output_dir=tmpdir + "/").finalize()
+            temp_path=start, output_dir=out_dir + "/").finalize()
+        cfg = make_cfg(tmpdir)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -2216,6 +2275,12 @@ def rocky_path(launch_counts):
                            device=DEVICE)
         launch_counts.update(read_counts())
         loop_line("rocky path", out)
+        # in an empty output directory: with approx_f a run reads tau_lw
+        # from the file of the run before it
+        with tempfile.TemporaryDirectory() as twin_dir:
+            per_iteration_twin("rocky path", lambda: pipeline.run(
+                make_cfg(twin_dir), flagship_table(), write_output=False,
+                device=DEVICE), out)
         tau_file = os.path.join(tmpdir, "rocky",
                                 "rocky_tau_lw_tau_sw_f_factor.dat")
         check(os.path.exists(tau_file), "rocky path: no tau_lw / tau_sw / "
@@ -2229,7 +2294,8 @@ def rocky_path(launch_counts):
           f"iterations, expected {ROCKY_STEPS}")
     check(conv is not None and conv.steps == 1 and conv.it == 0,
           "rocky path: not one convective adjustment")
-    check(launch_counts == only(noniso_sweep=n) and n == ROCKY_STEPS + 1,
+    check(launch_counts == only(noniso_sweep=n, idle=launch_counts["idle"])
+          and n == ROCKY_STEPS + 1,
           f"rocky path: launches {launch_counts} for {n} flux solves")
     check(0.25 < phys.f_factor < 2.0 / 3.0 and phys.planet_type == "rocky",
           f"rocky path: f-factor {phys.f_factor}")
@@ -2241,7 +2307,8 @@ def rocky_path(launch_counts):
     log(f"rocky path [{L_FLAG} layers x {NBIN_FLAG} bins x {NY_FLAG} y, "
         f"fp64, physical timestep {phys.physical_tstep:g} s]: {rad.it} "
         f"radiation iterations + {conv.steps} convective adjustment, {n} "
-        f"flux solves = {launch_counts['noniso_sweep']} noniso_sweep "
+        f"flux solves + {launch_counts['idle']['noniso_sweep']} idle "
+        f"iterations = {launch_counts['noniso_sweep']} noniso_sweep "
         f"launches; Koll f-factor {phys.f_factor:.6f}; surface albedo "
         f"{alb.min():.3f}..{alb.max():.3f}; wall {out.wall_seconds:.3f} s "
         f"(radiation loop {out.rad_seconds:.3f} s = "
@@ -2327,21 +2394,26 @@ if sys.argv[1] == "memory":
 runs = []
 real = pipeline.run
 pipeline.run = lambda *a, **k: runs.append(real(*a, **k)) or runs[-1]
-code = cli.main(sys.argv[2:], device={device!r})
+with graphs.loops() as loops:
+    code = cli.main(sys.argv[2:], device={device!r})
 out = runs[0]
+idle = dict.fromkeys(("noniso_sweep", "iso_sweep", "thomas_solve", "ro_mix",
+                      "ordered_sum", "band_integrate"), 0)
+for st in loops.stats.values():
+    for name, n in st.idle_launches.items():
+        idle[name] += n
 print(json.dumps(dict(
     launches=dict(noniso_sweep=noniso_sweep.launches,
                   iso_sweep=iso_sweep.launches,
                   thomas_solve=thomas_solve.launches,
                   ro_mix=ro_mix.launches,
                   ordered_sum=ordered_sum.launches,
-                  band_integrate=band_integrate.launches),
+                  band_integrate=band_integrate.launches, idle=idle),
     n_flux_solves=out.n_flux_solves, rad_it=out.rad.it,
     conv_it=out.conv.it, conv_steps=out.conv.steps,
     wall_s=out.wall_seconds, rad_s=out.rad_seconds,
     conv_s=out.conv_seconds,
-    loops={{k: graphs.stats(k).as_dict()
-           for k in ("radiation", "convection")}})))
+    loops={{k: st.as_dict() for k, st in loops.stats.items()}})))
 sys.exit(code)
 """
 
@@ -2475,7 +2547,8 @@ def quickstart_path(tmpdir, launch_counts):
     launch_counts.update(cli["launches"])
     loop_line("quickstart CLI process", stats=cli["loops"])
     check(cli["n_flux_solves"] > 0 and launch_counts
-          == only(noniso_sweep=cli["n_flux_solves"]),
+          == only(noniso_sweep=cli["n_flux_solves"],
+                  idle=launch_counts["idle"]),
           f"quickstart CLI: launches {launch_counts} for "
           f"{cli['n_flux_solves']} flux solves")
 
@@ -2502,7 +2575,8 @@ def quickstart_path(tmpdir, launch_counts):
     ref = pipeline.run(cfg, table, write_output=False, device=DEVICE)
     ref_counts = read_counts()
     loop_line("quickstart in-process run", ref)
-    check(ref_counts == only(noniso_sweep=ref.n_flux_solves),
+    check(ref_counts == only(noniso_sweep=ref.n_flux_solves,
+                             idle=ref_counts["idle"]),
           f"quickstart in-process run: launches {ref_counts}")
     rad_ckpt, conv_ckpt = final_checkpoints(run_dir)
     same_final_state("quickstart CLI against the in-process run", rad_ckpt,
@@ -2524,7 +2598,8 @@ def quickstart_path(tmpdir, launch_counts):
     log(f"quickstart path [{cfg.nlayer} layers x {NBIN_FLAG} bins x "
         f"{NY_FLAG} y, fp64, convection, chunks of 100]: the CLI run "
         f"converged in {cli['rad_it']} radiation + {cli['conv_it']} "
-        f"convection iterations, {cli['n_flux_solves']} flux solves = "
+        f"convection iterations, {cli['n_flux_solves']} flux solves + "
+        f"{launch_counts['idle']['noniso_sweep']} idle iterations = "
         f"{launch_counts['noniso_sweep']} noniso_sweep launches; "
         f"{len(files)} files, {len(recs)} chunks (= checkpoints written), "
         f"{len(progress)} progress lines; final T and counts bit for bit "
@@ -2552,7 +2627,7 @@ def resume_path(k, tmpdir, counts_rad, counts_conv):
     files that a run stopped there leaves.  The command line then resumes
     there from the _conv file.  Each resumed run: the final T and both
     counts bit for bit path k's, one noniso_sweep launch per flux solve
-    made after the restore."""
+    made after the restore (and per loop iteration past the stop)."""
     from helios_tpu_torch import pipeline
     from helios_tpu_torch.config import config_from_cli
 
@@ -2602,7 +2677,8 @@ def resume_path(k, tmpdir, counts_rad, counts_conv):
             out.conv.it - out.conv.steps + 1)
         check(restored == 200, f"resume path: the {phase} run resumed at "
               f"{restored}, not 200")
-        check(counts == only(noniso_sweep=out.n_flux_solves),
+        check(counts == only(noniso_sweep=out.n_flux_solves,
+                             idle=counts["idle"]),
               f"resume path: launches {counts} for {out.n_flux_solves} "
               "flux solves after the restore")
         same_final_state(f"resumed {phase} run",
@@ -2614,7 +2690,8 @@ def resume_path(k, tmpdir, counts_rad, counts_conv):
                "the checkpoint pair of the first resumed run at convection "
                "iteration 200")
         log(f"resume path, {how}, resumed from the file through the "
-            f"command line: {out.n_flux_solves} flux solves = "
+            f"command line: {out.n_flux_solves} flux solves + "
+            f"{counts['idle']['noniso_sweep']} idle iterations = "
             f"{counts['noniso_sweep']} noniso_sweep launches after the "
             f"restore, wall {out.wall_seconds:.3f} s; final T and "
             f"{out.rad.it} + {out.conv.it} iterations bit for bit path k's")
@@ -2770,7 +2847,7 @@ def real_gas_path(tmpdir, water, counts0, counts1, pp_counts):
         refreshes = (1 + (rad.it + 9) // 10
                      + (conv.it // 10 + 1 if conv.steps else 0) + 1)
         check(counts == only(noniso_sweep=out.n_flux_solves,
-                             ro_mix=2 * refreshes),
+                             ro_mix=2 * refreshes, idle=counts["idle"]),
               f"real-gas path, coupling iteration {n}: launches {counts} "
               f"for {out.n_flux_solves} flux solves and {refreshes} cell "
               f"refreshes ({rad.it} radiation, {conv.it} convection "
@@ -2872,7 +2949,8 @@ def table_convection_path(tmpdir, water, launch_counts, flag_out):
           "iterations)")
     n_conv = int(conv.conv_layer.sum())
     check(n_conv > 0, "table convection path: no convective layer")
-    check(launch_counts == only(noniso_sweep=out.n_flux_solves),
+    check(launch_counts == only(noniso_sweep=out.n_flux_solves,
+                                idle=launch_counts["idle"]),
           f"table convection path: launches {launch_counts} for "
           f"{out.n_flux_solves} flux solves")
     thermo_rel = thermo_against_plain("table convection path", out, water)
@@ -2886,7 +2964,8 @@ def table_convection_path(tmpdir, water, launch_counts, flag_out):
         f"{NY_FLAG} y, fp64, path a's flagship with the water_atmo table]: "
         f"{rad.it} radiation + {conv.it} convection iterations "
         f"({conv.steps} steps), {n_conv} convective layers, "
-        f"{out.n_flux_solves} flux solves = "
+        f"{out.n_flux_solves} flux solves + "
+        f"{launch_counts['idle']['noniso_sweep']} idle iterations = "
         f"{launch_counts['noniso_sweep']} noniso_sweep launches; kappa, "
         f"c_p, entropy and phase max rel difference from the plain lookup "
         f"{thermo_rel:.3e} (limit 1e-12); wall {out.wall_seconds:.3f} s, "
@@ -3637,7 +3716,8 @@ def ensemble_cli_path(k, tmpdir, launch_counts, resumed_counts):
     # the restore rebuilds the radiation state's cells and band totals from
     # the checkpoint (ordered_sum, band_integrate), and no flux is solved
     check(all(n == 0 for name, n in resumed_counts.items()
-              if name not in ("ordered_sum", "band_integrate")),
+              if name not in ("ordered_sum", "band_integrate", "idle"))
+          and not any(resumed_counts["idle"].values()),
           f"ensemble CLI: the resumed call launched {resumed_counts}")
     for name in names:
         check(output_files(os.path.join(out_dir, name)) == files[name],
@@ -3728,12 +3808,10 @@ def main():
             per_iteration=True)
         flag_conv = conv_breakdown("flagship", out, const_kappa,
                                    flag_kernels)
-        graphs.release()        # graphs of torch's sums, then none
         with patched_sites(lambda n, f: TORCH_ROUTE.get(n, f)):
             flag_torch = time_breakdown(
                 "flagship with torch's sums", out.phys, out.arrays, T_start,
                 ("noniso_sweep",))
-        graphs.release()
         log(f"flagship: the fixed-order sums cost "
             f"{flag_bd['busy_ms'] - flag_torch['busy_ms']:.3f} ms of device "
             f"time and {flag_bd['wall_ms'] - flag_torch['wall_ms']:.3f} ms of "
@@ -3825,6 +3903,9 @@ def main():
             convection_per_iteration_loop=per_it(
                 tc["conv_per_iteration"])))))
     by_path = lambda name: {path: c[name] for path, c in counts.items()}
+    # of a kernel's launches on a path, those of loop iterations that
+    # changed nothing (replayed past the stop, a redone chunk's first try)
+    idle_of = lambda path, name: counts[path].get("idle", {}).get(name, 0)
     pick = lambda res, keys: {k: res[k] for k in keys}
     base = ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "bound_ms_measured_bw")
@@ -3833,6 +3914,7 @@ def main():
         source="helios_tpu_torch/csrc/noniso_sweep.cu",
         replaces="helios_tpu/kernels/sweep_pallas.py:234",
         launches=counts["flagship_rce"]["noniso_sweep"],
+        idle_launches=idle_of("flagship_rce", "noniso_sweep"),
         max_abs_err=f64["max_abs_err"], ms=f64["ms"],
         plain_ms=f64["plain_ms"], bound_ms=f64["bound_ms"],
         bound_by=f64["bound_by"], library_ms=None,
@@ -3855,6 +3937,7 @@ def main():
         source="helios_tpu_torch/csrc/iso_sweep.cu",
         replaces="helios_tpu/kernels/sweep_pallas.py:75",
         launches=counts["post_processing"]["iso_sweep"],
+        idle_launches=idle_of("post_processing", "iso_sweep"),
         max_abs_err=i64["max_abs_err"], ms=i64["ms"],
         plain_ms=i64["plain_ms"], bound_ms=i64["bound_ms"],
         bound_by=i64["bound_by"], library_ms=None,
@@ -3876,6 +3959,7 @@ def main():
         source="helios_tpu_torch/csrc/thomas.cu",
         replaces="helios_tpu/kernels/thomas_pallas.py:31",
         launches=counts["matrix_rce"]["thomas_solve"],
+        idle_launches=idle_of("matrix_rce", "thomas_solve"),
         max_abs_err=max(tn["max_abs_err"], ti["max_abs_err"]),
         ms=tn["ms"], plain_ms=tn["plain_ms"], bound_ms=tn["bound_ms"],
         bound_by=tn["bound_by"], library_ms=None,
@@ -3895,6 +3979,7 @@ def main():
         source="helios_tpu_torch/csrc/ro_mix.cu",
         replaces="helios_tpu/kernels/ro_pallas.py:225",
         launches=counts["on_the_fly_rce"]["ro_mix"],
+        idle_launches=idle_of("on_the_fly_rce", "ro_mix"),
         max_abs_err=r64["max_abs_err"], ms=r64["ms"],
         plain_ms=r64["plain_ms"], bound_ms=r64["bound_ms"],
         bound_by=r64["bound_by"], library_ms=None,
@@ -3918,6 +4003,7 @@ def main():
                  "no pallas_call: the loops' sums and scans in a fixed "
                  "order, ROADMAP C.8)",
         launches=counts["flagship_rce"]["ordered_sum"],
+        idle_launches=idle_of("flagship_rce", "ordered_sum"),
         max_abs_err=o64["max_abs_err"], ms=o64["ms"],
         plain_ms=o64["plain_ms"], bound_ms=o64["bound_ms"],
         bound_by=o64["bound_by"], library_ms=o64["plain_ms"],
@@ -3941,6 +4027,7 @@ def main():
                  "pallas_call: on the card the port's chain of 14 launches "
                  "and F_net)",
         launches=counts["flagship_rce"]["band_integrate"],
+        idle_launches=idle_of("flagship_rce", "band_integrate"),
         max_abs_err=b64["max_abs_err"], ms=b64["ms"],
         plain_ms=b64["plain_ms"], bound_ms=b64["bound_ms"],
         bound_by=b64["bound_by"], library_ms=None,
@@ -3967,4 +4054,8 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        PATH_LOOPS.close()      # the last path's runners, before shutdown
+    sys.exit(code)

@@ -9,8 +9,10 @@ loops run ``chunk_iters`` iterations per call (the ``max_steps`` /
 ``state0`` continuation of the loops, which the checkpointer uses too);
 between chunks every registered callback sees the current state.  A chunk
 adds no arithmetic to an iteration, so the chunked trajectory is bit for
-bit the straight one; it costs one host sync per chunk on top of the one
-flag each iteration already reads back.
+bit the straight one; it costs one host sync per chunk on top of the
+loops' own reads of the device.  Each of the two chunked runners owns the
+loops' runners (``graphs.loops``) across its chunks: one planet's CUDA
+graphs are captured once per run and freed when its loop ends.
 
 Callbacks:
   - ProgressPrinter:  reference-style progress lines
@@ -41,6 +43,7 @@ import torch
 from helios_tpu_torch.forward import ModelArrays, Phys
 from helios_tpu_torch.ops.members import loop_counter, running_members
 from helios_tpu_torch.parallel import sharding as shd
+from helios_tpu_torch.rce import graphs
 from helios_tpu_torch.rce.loop import convection_loop
 from helios_tpu_torch.rce.radiative import (RadLoopState, init_rad_state,
                                             radiation_loop)
@@ -118,6 +121,13 @@ def run_radiation_chunked(phys: Phys, m: ModelArrays, thermo, T_lay0, *,
     resumes from a restored state.  A post-processing run is one flux
     solve, with no callbacks.  ``mesh``: the loop runs on this mesh, ``m``
     and ``sset`` placed on it (sharding.place_model, place_species)."""
+    with graphs.loops():
+        return _radiation_chunks(phys, m, thermo, T_lay0, chunk_iters, sset,
+                                 callbacks, state0, profile_dir, mesh)
+
+
+def _radiation_chunks(phys, m, thermo, T_lay0, chunk_iters, sset, callbacks,
+                      state0, profile_dir, mesh):
     if mesh is not None:
         rad_init, rad_run, _, _ = shd.production_runners(
             phys, mesh, thermo, sset, chunk_iters=chunk_iters)
@@ -144,6 +154,13 @@ def run_convection_chunked(phys: Phys, m: ModelArrays, thermo, rad, *,
     (the same continuation as run_radiation_chunked).  ``state0`` resumes
     from a restored ConvLoopState instead of entering from the radiation
     result ``rad``.  ``mesh``: as in run_radiation_chunked."""
+    with graphs.loops():
+        return _convection_chunks(phys, m, thermo, rad, chunk_iters, sset,
+                                  callbacks, state0, mesh)
+
+
+def _convection_chunks(phys, m, thermo, rad, chunk_iters, sset, callbacks,
+                       state0, mesh):
     if mesh is not None:
         _, _, conv_enter, conv_run = shd.production_runners(
             phys, mesh, thermo, sset, chunk_iters=chunk_iters)

@@ -81,13 +81,15 @@ def freeze_members(new, old, run):
     """``new`` where a member runs, ``old`` where it has stopped, over the
     NamedTuple tree of a batch's state: a member that has converged keeps
     exactly its state of its own last iteration while the others go on.
-    ``run``: [P] bool on the device."""
+    ``run``: [P] bool on the device (0-d for one planet)."""
     def pick(name, n, o):
         if n is o:
             return n
-        axis = state_axis(name, n)
-        mask = run.to(n.device).reshape(
-            (1,) * axis + run.shape + (1,) * (n.dim() - axis - 1))
+        mask = run.to(n.device)
+        if run.dim():
+            axis = state_axis(name, n)
+            mask = mask.reshape(
+                (1,) * axis + run.shape + (1,) * (n.dim() - axis - 1))
         return torch.where(mask, n, o)
 
     return _map_state(pick, new, old)

@@ -1,6 +1,6 @@
-"""The loops of one planet on the device: each iteration's body captured as
-a CUDA graph and replayed, one device read per chunk of iterations (the
-port's counterpart of the JAX package's ``lax.while_loop``,
+"""The loops on the device: one planet's iterations captured as CUDA graphs
+and replayed, one device read per chunk of iterations (the port's
+counterpart of the JAX package's ``lax.while_loop``,
 helios_tpu/rce/radiative.py:331-358, helios_tpu/rce/loop.py:214-251).
 
 A loop body (:func:`helios_tpu_torch.rce.radiative._one_radiation_iteration`,
@@ -12,42 +12,48 @@ counter form that counter's key (``rad_key``, ``conv_key``).  A loop state
 with host counters, as the callers see it, becomes a device state at entry
 and returns with host counters read back.
 
-Two loops run a body:
+One class, :class:`Runner`, runs a body in chunks of ``Settings.chunk``
+iterations with one read of the flags after each.  An iteration writes its
+results only where ``keep_running`` was set at its start, so the iterations
+after the planet (or a member of a batch) stops change nothing, as an
+iteration of ``lax.while_loop`` past its condition does not run.
 
-- :func:`per_iteration_loop` reads the state's flags after every iteration
-  and freezes the members that have stopped: a batch of planets and a
-  sliced model always, one planet inside :func:`per_iteration` (the
-  reference the graphs are held against).
-- :class:`Runner` keeps the state of one planet in static buffers and runs
-  chunks of up to ``chunk`` iterations between reads.  An iteration writes
-  its results only where ``keep_running`` was set at its start, so the
-  iterations after the planet stops change nothing, as an iteration of
-  ``lax.while_loop`` past its condition does not run.  On the card each
-  key's body runs eagerly the first time (which builds and loads the
-  kernels), is captured as a CUDA graph into one memory pool, and is
+- One planet on one device keeps its state in static buffers.  On the card
+  each key's body runs eagerly the first time (which builds and loads the
+  kernels), is captured as a CUDA graph into one memory pool after the
+  chunk's read has shown that the planet ran that iteration, and is
   replayed from then on; on the CPU the same body runs eagerly, since the
   caller asked for the CPU.  The host's copy of the counter chooses each
   replay's key; while the planet runs it equals the device counter.
+- A batch of planets and a sliced model run :data:`PER_ITERATION`: a chunk
+  of one, unbounded adjustments, nothing captured.  So does a planet inside
+  ``loops(PER_ITERATION)``, the reference that the graphs are held against.
 
 The convective adjustment inside a graph runs ``rounds`` correction rounds
 (``convect.convective_adjustment``) and flags a chunk in which a running
 planet was still unstable after them; that chunk runs again from a
 snapshot of its start, eagerly and with unbounded rounds (a *redo*).
 
-Kernel launch counts (``<wrapper>.launches``) count the kernels of the
-iterations that ran while the planet ran: a replay adds the launches its
-graph holds (recorded at capture), an iteration past the stop (a
-predicated no-op) and the first run of a redone chunk add none.  The
-runner's :class:`Stats` count graphs, replays, reads, redos, the
-iterations past the stop and the adjustment rounds.
+Kernel launch counts (``<wrapper>.launches``) count every launch: an eager
+iteration's wrappers count their own, a replay adds the launches its graph
+holds (recorded at capture, which launches nothing).  The runner's
+:class:`Stats` count the graphs, replays, reads, redos and adjustment
+rounds, and the launches of iterations that changed nothing (past the
+stop, or the first try of a redone chunk).
 
-A capture or replay error raises; nothing falls back to the eager body.
+The runners live in the block of :func:`loops` that the caller of a run
+opens (``monitor.run_radiation_chunked`` and ``run_convection_chunked``),
+one per loop kind across the calls of a chunked run, and are dropped with
+their graphs and buffers when it ends.  A capture or replay error raises;
+nothing falls back to the eager body.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
+import time
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -73,53 +79,43 @@ COUNTER_DTYPES = dict(it=torch.int64, local_limit=torch.float64,
                       steps=torch.int64)
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class Settings:
+    """How a planet's loops run: ``chunk`` iterations between two reads
+    of the device; ``rounds`` and ``entry_rounds`` the adjustment rounds of
+    an iteration and of the convection loop's iteration 0.  With
+    ``rounds`` None an adjustment runs while unstable, reading a flag per
+    round, and nothing is captured (a capture cannot read); else on the
+    card each iteration is a replayed CUDA graph."""
     chunk: int = CHUNK
-    rounds: int = ROUNDS
-    entry_rounds: int = ENTRY_ROUNDS
-    per_iteration: bool = False
+    rounds: Optional[int] = ROUNDS
+    entry_rounds: Optional[int] = ENTRY_ROUNDS
 
 
-SETTINGS = Settings()
-
-
-@contextlib.contextmanager
-def configure(**kw):
-    """Run the loops inside the block with other settings: ``chunk``
-    (iterations between reads), ``rounds`` and ``entry_rounds``
-    (adjustment rounds per iteration, and in the convection loop's
-    iteration 0), ``per_iteration`` (read after every iteration, nothing
-    captured)."""
-    global SETTINGS
-    saved = SETTINGS
-    SETTINGS = dataclasses.replace(saved, **kw)
-    try:
-        yield
-    finally:
-        SETTINGS = saved
-
-
-def per_iteration():
-    """The per-iteration loops: one read per iteration, unbounded
-    adjustment rounds, no capture (the reference of the graphed loops)."""
-    return configure(per_iteration=True)
+# a read after every iteration, unbounded adjustments, nothing captured
+PER_ITERATION = Settings(chunk=1, rounds=None, entry_rounds=None)
 
 
 @dataclasses.dataclass
 class Stats:
-    """What a runner did: graphs captured, replays, device reads,
-    redone chunks, iterations past the stop (predicated no-ops), and the
-    histogram of the adjustment rounds that the convection iterations
-    needed (first attempts; the last index: more than ``entry_rounds``, or
-    more than ``rounds`` past iteration 0, a redo)."""
+    """What the runners of a loop kind did: graphs captured, replays,
+    eager iterations, device reads, redone chunks, iterations run and
+    past the stop (predicated no-ops), host seconds spent capturing and
+    running eager iterations, the histogram of the adjustment rounds that
+    the convection iterations needed (first tries; the last index: more
+    than a graph holds, a redo), and per kernel the launches of iterations
+    that changed nothing (past the stop, first tries of redone chunks)."""
     graphs: int = 0
     replays: int = 0
+    eager: int = 0
     reads: int = 0
     redos: int = 0
     iterations: int = 0
     past_stop: int = 0
+    capture_s: float = 0.0
+    eager_s: float = 0.0
     rounds: Optional[List[int]] = None
+    idle_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def as_dict(self):
         return dataclasses.asdict(self)
@@ -195,42 +191,7 @@ def to_host(state, flags, fields: List[str], batched: bool):
 
 
 # --------------------------------------------------------------------------- #
-# the per-iteration loop
-# --------------------------------------------------------------------------- #
-
-def per_iteration_loop(body, state, max_steps: Optional[int]):
-    """Run ``body(state, it, every, rounds)`` one iteration at a time until
-    every member stops or ``max_steps`` iterations ran, reading the flags
-    after each; members that stopped keep their state.  ``state`` has host
-    counters, and so has the result."""
-    fields = host_fields(state)
-    s = to_device(state)
-    flags = read_flags(s)
-    steps = 0
-    while max_steps is None or steps < max_steps:
-        run = flags["keep_running"]
-        if not run.any():
-            break
-        its = flags["it"][run]
-        assert (its == its[0]).all(), its
-        it = int(its[0])
-        every = bool(run.all())
-        new, _aux = body(s, it, every, None)
-        s = new if every else freeze_members(new, s, s.keep_running)
-        steps += 1
-        flags = read_flags(s)
-    return to_host(s, flags, fields, batched=state.T_lay.dim() > 1)
-
-
-def graphed(state, m) -> bool:
-    """Whether a loop of this state and model runs in chunks: one planet on
-    one device (a batch or a sliced model reads every iteration)."""
-    return (not SETTINGS.per_iteration and state.T_lay.dim() == 1
-            and not count(m))
-
-
-# --------------------------------------------------------------------------- #
-# the chunked loop
+# kernel launch counts
 # --------------------------------------------------------------------------- #
 
 def _kernel_wrappers():
@@ -239,14 +200,22 @@ def _kernel_wrappers():
             ro.ro_mix, ordered.ordered_sum, integrate.band_integrate)
 
 
-def _launches():
+def _launches() -> List[int]:
     return [w.launches for w in _kernel_wrappers()]
 
 
-def _set_launches(counts):
+def _set_launches(counts) -> None:
     for w, n in zip(_kernel_wrappers(), counts):
         w.launches = n
 
+
+def _minus(a, b) -> List[int]:
+    return [x - y for x, y in zip(a, b)]
+
+
+# --------------------------------------------------------------------------- #
+# the loop runner
+# --------------------------------------------------------------------------- #
 
 class _Graph(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
@@ -254,38 +223,57 @@ class _Graph(NamedTuple):
 
 
 class Runner:
-    """One planet's loop of one kind on one model, in chunks.  ``body(s,
-    it, every, rounds) -> (new state, aux)`` is the loop's body; ``key(it)``
-    the branches it takes at counter ``it``; ``done_count`` the device
+    """A loop of one kind on one model, in chunks.  ``body(s, it, rounds)
+    -> (new state, aux)`` is the loop's body at host counter ``it``;
+    ``key(it)`` the branches it takes there; ``done_count`` the device
     counter that advances once per iteration run (``it`` or ``steps``).
-    The static buffers take their shapes from ``template`` (a device
-    state).  ``bounded``: the body's adjustment runs ``rounds`` rounds and
-    returns (rounds needed, still unstable) as ``aux``."""
+    ``template`` (a device state) gives the static buffers their shapes.
+    ``adjusts``: the body makes a convective adjustment of ``rounds``
+    rounds and returns (rounds needed, still unstable) as ``aux`` (None
+    for unbounded rounds).  ``planet``: one planet on a whole model, whose
+    state lives in static buffers and whose iterations the card captures;
+    otherwise (a batch, a sliced model) the runner takes
+    :data:`PER_ITERATION` whatever ``settings`` says."""
 
     def __init__(self, body: Callable, key: Callable, template,
-                 done_count: str, bounded: bool):
-        self.body, self.key = body, key
-        self.done_count, self.bounded = done_count, bounded
-        self.capture = template.T_lay.is_cuda
-        self.static = _rebuild(template, [
-            torch.empty_like(t, memory_format=torch.contiguous_format)
-            for t in _leaves(template)])
-        self.settings = SETTINGS
-        top = max(SETTINGS.rounds, SETTINGS.entry_rounds) + 1
+                 done_count: str, adjusts: bool, planet: bool,
+                 settings: Settings, stats: Stats):
+        self.body, self.key, self.done_count = body, key, done_count
+        self.planet = planet
+        self.settings = settings if planet else PER_ITERATION
+        # iterations that a graph holds on the card (and runs eagerly on
+        # the CPU)
+        self.graphable = planet and self.settings.rounds is not None
+        self.bounded = adjusts and self.graphable
+        self.capture = self.graphable and template.T_lay.is_cuda
+        self.stats = stats
         dev = template.T_lay.device
+        self.static = None
+        if planet:
+            self.static = _rebuild(template, [
+                torch.empty_like(t, memory_format=torch.contiguous_format)
+                for t in _leaves(template)])
+        self.state = self.static
+        top = max(self.settings.rounds or 0, self.settings.entry_rounds or 0)
         self.overflow = torch.zeros((), dtype=torch.bool, device=dev)
-        self.hist = torch.zeros(top + 1, dtype=torch.int64, device=dev)
+        self.hist = torch.zeros(top + 2, dtype=torch.int64, device=dev)
+        self.hist_seen = np.zeros(top + 2, np.int64)
+        if self.bounded and stats.rounds is None:
+            stats.rounds = [0] * (top + 2)
         self.graphs: Dict[tuple, _Graph] = {}
         self.pool = torch.cuda.graph_pool_handle() if self.capture else None
         self.stream = torch.cuda.Stream(dev) if self.capture else None
-        self.stats = Stats(rounds=[0] * (top + 1) if bounded else None)
 
     # -- state in and out ------------------------------------------------- #
 
     def load(self, state):
-        """Copy a host-counter state into the static buffers (a host
-        counter by a fill, which reads nothing from host memory)."""
+        """Take a host-counter state: a planet's into the static buffers
+        (a host counter by a fill, which reads nothing from host memory),
+        a batch's as its device-counter state."""
         self.fields = host_fields(state)
+        if not self.planet:
+            self.state = to_device(state)
+            return
         for f in state._fields:
             if f in self.fields:
                 getattr(self.static, f).fill_(getattr(state, f))
@@ -295,28 +283,41 @@ class Runner:
                 dst.copy_(src)
 
     def read(self):
-        """The static state's counters, the overflow flag and the rounds'
+        """The state's counters, the overflow flag and the rounds'
         histogram, one read."""
         self.stats.reads += 1
-        flags = read_flags(self.static, [self.overflow, self.hist])
+        flags = read_flags(self.state, [self.overflow, self.hist])
         if self.bounded:
-            self.stats.rounds = flags["extra1"].astype(int).tolist()
+            hist = flags["extra1"].astype(np.int64)
+            self.stats.rounds = [a + int(b) for a, b in zip(
+                self.stats.rounds, hist - self.hist_seen)]
+            self.hist_seen = hist
         return flags
 
     def result(self, flags):
-        """The static state as a host-counter state of its own tensors
-        (clones: the next replay does not overwrite them)."""
-        out = _rebuild(self.static, [t.clone()
-                                     for t in _leaves(self.static)])
-        return to_host(out, flags, self.fields, batched=False)
+        """The state as a host-counter state of its own tensors (a
+        planet's cloned: the next replay does not overwrite them)."""
+        out = self.state
+        if self.planet:
+            out = _rebuild(out, [t.clone() for t in _leaves(out)])
+        return to_host(out, flags, self.fields,
+                       batched=out.T_lay.dim() > 1)
 
     # -- one iteration ---------------------------------------------------- #
 
     def _write(self, new, aux):
-        """The new state into the static buffers where the planet ran at
-        the iteration's start; the adjustment's round count and flag."""
-        keep = self.static.keep_running.clone()
+        """The new state where the planet (a member) ran at the
+        iteration's start, the old one elsewhere: a planet's into its
+        static buffers, a batch's as a new state; the adjustment's round
+        count and flag."""
+        keep = self.state.keep_running
+        if not self.planet:
+            self.state = freeze_members(new, self.state, keep)
+            return
+        keep = keep.clone()          # the writes below overwrite it
         olds, news = _leaves(self.static), _leaves(new)
+        # a result that shares a buffer of the state (T_store = T_lay) is
+        # copied first: the writes below overwrite those buffers
         ptrs = {t.untyped_storage().data_ptr() for t in olds}
         news = [n if n is o or n.untyped_storage().data_ptr() not in ptrs
                 else n.clone() for n, o in zip(news, olds)]
@@ -330,48 +331,52 @@ class Runner:
             self.hist.index_add_(0, slot.reshape(1),
                                  keep.to(torch.int64).reshape(1))
 
-    def _rounds(self, it: int):
-        """The adjustment rounds of a graph's iteration ``it``."""
+    def graph_rounds(self, it: int) -> Optional[int]:
+        """The adjustment rounds of iteration ``it`` as its graph runs it
+        (None: unbounded, or no adjustment)."""
         if not self.bounded:
             return None
         return self.settings.entry_rounds if it == 0 else self.settings.rounds
 
-    def _eager(self, it: int, rounds):
-        new, aux = self.body(self.static, it, False, rounds)
+    def _eager(self, it: int, rounds) -> List[int]:
+        """Iteration ``it`` run eagerly; returns the launches it made (the
+        wrappers counted them)."""
+        t0, before = time.perf_counter(), _launches()
+        new, aux = self.body(self.state, it, rounds)
         self._write(new, aux)
+        self.stats.eager += 1
+        self.stats.eager_s += time.perf_counter() - t0
+        return _minus(_launches(), before)
 
     def _capture(self, it: int) -> _Graph:
+        """Iteration ``it``'s body and write captured as a graph; a capture
+        launches nothing, so the launch counts stay as they were."""
+        t0, before = time.perf_counter(), _launches()
         g = torch.cuda.CUDAGraph()
         self.stream.wait_stream(torch.cuda.current_stream())
-        before = _launches()
         with torch.cuda.stream(self.stream):
             g.capture_begin(pool=self.pool)
             try:
-                self._eager(it, self._rounds(it))
+                new, aux = self.body(self.static, it, self.graph_rounds(it))
+                self._write(new, aux)
             finally:
                 g.capture_end()
         torch.cuda.current_stream().wait_stream(self.stream)
-        held = [a - b for a, b in zip(_launches(), before)]
+        held = _minus(_launches(), before)
         _set_launches(before)
         self.stats.graphs += 1
+        self.stats.capture_s += time.perf_counter() - t0
         return _Graph(g, held)
 
     def step(self, it: int) -> List[int]:
         """Iteration ``it`` (the host's counter): a replay of its key's
-        graph, or on its first use the body run eagerly and then captured;
-        eagerly on the CPU.  Returns the kernel launches it made, which
-        the caller counts only if the planet ran."""
-        before = _launches()
-        key = self.key(it) if self.capture else None
-        g = self.graphs.get(key) if self.capture else None
+        graph, or without one the body run eagerly.  Returns the launches
+        it made."""
+        g = self.graphs.get(self.key(it)) if self.capture else None
         if g is None:
-            self._eager(it, self._rounds(it))
-            made = [a - b for a, b in zip(_launches(), before)]
-            _set_launches(before)
-            if self.capture:
-                self.graphs[key] = self._capture(it)
-            return made
+            return self._eager(it, self.graph_rounds(it))
         g.graph.replay()
+        _set_launches([a + b for a, b in zip(_launches(), g.launches)])
         self.stats.replays += 1
         return g.launches
 
@@ -384,10 +389,17 @@ class Runner:
         for dst, src in zip(_leaves(self.static), snap):
             dst.copy_(src)
 
+    def _idle(self, made: List[List[int]]) -> None:
+        names = [w.__name__ for w in _kernel_wrappers()]
+        idle = self.stats.idle_launches
+        for counts in made:
+            for name, n in zip(names, counts):
+                idle[name] = idle.get(name, 0) + n
+
     def run(self, state, max_steps: Optional[int]):
-        """Iterate from the host-counter ``state`` until the planet stops
-        or ``max_steps`` iterations ran, in chunks of up to
-        ``SETTINGS.chunk`` iterations and one read per chunk (and one at
+        """Iterate from the host-counter ``state`` until the planet (every
+        member) stops or ``max_steps`` iterations ran, in chunks of up to
+        ``settings.chunk`` iterations and one read per chunk (and one at
         entry), with the state's card current (a graph replays on the
         current card's stream).  Returns the final host-counter state."""
         if self.capture:
@@ -399,70 +411,107 @@ class Runner:
         self.load(state)
         flags = self.read()
         budget = max_steps
-        while bool(flags["keep_running"][0]) and (budget is None
-                                                  or budget > 0):
-            n = SETTINGS.chunk if budget is None else min(SETTINGS.chunk,
-                                                          budget)
-            it0 = int(flags["it"][0])
-            done0 = int(flags[self.done_count][0])
+        while flags["keep_running"].any() and (budget is None
+                                               or budget > 0):
+            n = self.settings.chunk
+            n = n if budget is None else min(n, budget)
+            its = flags["it"][flags["keep_running"]]
+            assert (its == its[0]).all(), its     # members share a counter
+            it0 = int(its[0])
+            done0 = flags[self.done_count]
             snap = None
             if self.bounded:
                 self.overflow.zero_()
                 snap = self._snapshot()
             made = [self.step(it0 + j) for j in range(n)]
             flags = self.read()
-            if flags["extra0"][0]:
+            tried = []
+            if self.bounded and flags["extra0"][0]:
                 # still unstable after the rounds: the chunk again from its
                 # start, eagerly, with unbounded rounds
                 self.stats.redos += 1
                 self._restore(snap)
-                made = []
-                for j in range(n):
-                    before = _launches()
-                    self._eager(it0 + j, None)
-                    made.append([a - b for a, b in
-                                 zip(_launches(), before)])
-                    _set_launches(before)
+                tried = made
+                made = [self._eager(it0 + j, None) for j in range(n)]
                 flags = self.read()
-            ran = int(flags[self.done_count][0]) - done0
+            ran = int((flags[self.done_count] - done0).max())
             self.stats.iterations += ran
             self.stats.past_stop += n - ran
-            totals = _launches()
-            for counts in made[:ran]:
-                totals = [a + b for a, b in zip(totals, counts)]
-            _set_launches(totals)
+            self._idle(tried + made[ran:])
+            # capture the keys that ran while the planet ran, now that the
+            # read has shown it, if it runs on
+            if self.capture and flags["keep_running"].any():
+                for j in range(ran):
+                    key = self.key(it0 + j)
+                    if key not in self.graphs:
+                        self.graphs[key] = self._capture(it0 + j)
             if budget is not None:
                 budget -= n
         return self.result(flags)
 
 
-# the runners of the last model, one per loop kind: their graphs and static
-# buffers serve every chunk of a monitored run
-_RUNNERS: Dict[str, tuple] = {}
+# --------------------------------------------------------------------------- #
+# who owns the runners
+# --------------------------------------------------------------------------- #
+
+class Loops:
+    """The runners of the loops run inside one :func:`loops` block, one
+    per loop kind, kept across the calls of a chunked run (their graphs
+    and static buffers serve every chunk) and made anew for another model;
+    ``stats[kind]`` sums what the kind's runners did."""
+
+    def __init__(self, settings: Settings):
+        self.settings = settings
+        self.runners: Dict[str, tuple] = {}
+        self.stats: Dict[str, Stats] = {}
+
+    def runner(self, kind: str, owners: tuple,
+               make: Callable[[Settings, Stats], Runner]) -> Runner:
+        """The runner of loop ``kind`` for ``owners`` (phys, model, thermo,
+        species set: compared by identity)."""
+        held = self.runners.get(kind)
+        if held is None or len(held[0]) != len(owners) or any(
+                a is not b for a, b in zip(held[0], owners)):
+            self.runners.pop(kind, None)     # its graphs go before new ones
+            held = (owners, make(self.settings,
+                                 self.stats.setdefault(kind, Stats())))
+            self.runners[kind] = held
+        return held[1]
 
 
-def runner(kind: str, owners: tuple, make: Callable[[], Runner]) -> Runner:
-    """The runner of loop ``kind`` for ``owners`` (phys, model, thermo,
-    species set: compared by identity), made anew for other owners or
-    settings; one per kind is kept, with its owners."""
-    held = _RUNNERS.get(kind)
-    if (held is None or len(held[0]) != len(owners)
-            or any(a is not b for a, b in zip(held[0], owners))
-            or held[1].settings != dataclasses.replace(
-                SETTINGS, chunk=held[1].settings.chunk)):
-        _RUNNERS.pop(kind, None)
-        held = (owners, make())
-        _RUNNERS[kind] = held
-    return held[1]
+_OPEN: contextvars.ContextVar = contextvars.ContextVar("loops", default=None)
 
 
-def stats(kind: str) -> Optional[Stats]:
-    """The stats of the last runner of loop ``kind`` ("radiation",
-    "convection"), or None."""
-    held = _RUNNERS.get(kind)
-    return held[1].stats if held is not None else None
+@contextlib.contextmanager
+def loops(settings: Optional[Settings] = None):
+    """A block whose loops share their runners (:class:`Loops`, yielded),
+    dropped with their graphs and buffers when it ends.  Without
+    ``settings`` an open block is joined (the caller that opened it owns
+    the runners), else one of the default settings opened."""
+    outer = _OPEN.get()
+    if settings is None and outer is not None:
+        yield outer
+        return
+    scope = Loops(settings or Settings())
+    token = _OPEN.set(scope)
+    try:
+        yield scope
+    finally:
+        _OPEN.reset(token)
+        scope.runners.clear()
 
 
-def release() -> None:
-    """Drop the kept runners, their graphs and buffers."""
-    _RUNNERS.clear()
+def run_loop(kind: str, owners: tuple, body: Callable, key: Callable,
+             state, m, max_steps: Optional[int], done_count: str,
+             adjusts: bool):
+    """Run loop ``kind`` of ``body`` from the host-counter ``state`` on
+    model ``m`` (see :class:`Runner`), with the runner of the open
+    :func:`loops` block, or one of this call alone."""
+    planet = state.T_lay.dim() == 1 and not count(m)
+
+    def make(settings, stats):
+        return Runner(body, key, to_device(state), done_count, adjusts,
+                      planet, settings, stats)
+
+    with loops() as scope:
+        return scope.runner(kind, owners, make).run(state, max_steps)

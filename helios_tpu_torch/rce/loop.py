@@ -160,18 +160,16 @@ def conv_key(phys: Phys, it: int) -> tuple:
 
 def _one_convection_iteration(phys: Phys, m: ModelArrays,
                               thermo: ThermoProps, s: ConvLoopState, it: int,
-                              every: bool, sset=None, rounds=None):
+                              sset=None, rounds=None):
     """Body of the convection loop (computation.py:1030-1164) at host
     counter ``it``, on a state with device counters: (the new state,
     unfrozen, and the adjustment's rounds and overflow flag or None).
-    ``every``: every member of a batch runs (else the adjustment corrects
-    only the running ones); ``not_done`` and the counter's advance are per
-    member."""
+    The adjustment corrects only the running planet (members of a batch);
+    ``not_done`` and the counter's advance are per member."""
     T_adj, flux, cache, totals, conv_layer, marked_red, criterion, adj = (
         _convection_step(phys, m, thermo, s, it,
                          s.local_limit.to(s.T_lay.dtype), sset,
-                         members=None if every else s.keep_running,
-                         rounds=rounds))
+                         members=s.keep_running, rounds=rounds))
     if phys.physical_tstep != 0.0:
         # one convective adjustment only, no temperature iteration
         # (computation.py:1109-1111)
@@ -262,19 +260,15 @@ def convection_loop(phys: Phys, m: ModelArrays, thermo: ThermoProps,
         state = state._replace(keep_running=(
             enter.cpu().numpy() if batch else bool(enter)))
 
-    def body(s, it, every, rounds):
-        return _one_convection_iteration(phys, m, thermo, s, it, every,
-                                         sset, rounds)
+    def body(s, it, rounds):
+        return _one_convection_iteration(phys, m, thermo, s, it, sset,
+                                         rounds)
 
     if phys.physical_tstep != 0.0:
         # one adjustment and solve, after which the loop is done: no
         # chunk replays iterations past it
         max_steps = 1 if max_steps is None else min(max_steps, 1)
 
-    if not graphs.graphed(state, m):
-        return graphs.per_iteration_loop(body, state, max_steps)
-    run = graphs.runner("convection", (phys, m, thermo, sset),
-                        lambda: graphs.Runner(
-                            body, lambda it: conv_key(phys, it),
-                            graphs.to_device(state), "steps", bounded=True))
-    return run.run(state, max_steps)
+    return graphs.run_loop("convection", (phys, m, thermo, sset), body,
+                           lambda it: conv_key(phys, it), state, m,
+                           max_steps, done_count="steps", adjusts=True)

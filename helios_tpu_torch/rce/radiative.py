@@ -370,7 +370,8 @@ def radiation_loop(phys: Phys, m: ModelArrays, thermo: Optional[ThermoProps],
     (computation.py:827-990).  One planet on one device runs in chunks of
     :mod:`graphs` (on the card each iteration a replayed CUDA graph), with
     one read of the device per chunk; a batch or a sliced model reads its
-    flags after every iteration.
+    flags after every iteration.  The runner is that of the open
+    ``graphs.loops`` block, or one of this call alone.
 
     ``max_steps`` caps this call; ``sset`` is the species set of on-the-fly
     opacity mixing; ``state0`` continues from a prior state instead of
@@ -392,13 +393,9 @@ def radiation_loop(phys: Phys, m: ModelArrays, thermo: Optional[ThermoProps],
         totals = integrate_flux_flat(phys, m, flux, state.cache.F_dir)
         return state._replace(flux=flux, totals=totals)
 
-    def body(s, it, every, rounds):
+    def body(s, it, rounds):
         return _one_radiation_iteration(phys, m, thermo, s, it, sset), None
 
-    if not graphs.graphed(state, m):
-        return graphs.per_iteration_loop(body, state, max_steps)
-    run = graphs.runner("radiation", (phys, m, thermo, sset),
-                        lambda: graphs.Runner(
-                            body, lambda it: rad_key(phys, it),
-                            graphs.to_device(state), "it", bounded=False))
-    return run.run(state, max_steps)
+    return graphs.run_loop("radiation", (phys, m, thermo, sset), body,
+                           lambda it: rad_key(phys, it), state, m, max_steps,
+                           done_count="it", adjusts=False)

@@ -6,7 +6,7 @@ device against two spectral slices, in turns.
     python3 scripts/torch_loop_profile.py [--out FILE]
 
 Run it from the root of a checkout.  It drives ``chip_smoke.py``'s
-workloads with the per-iteration loops (``rce.graphs.per_iteration``,
+workloads with the per-iteration loops (``rce.graphs.PER_ITERATION``,
 where the checkout has it): path a (the flagship), f (clouds and the
 zenith-corrected beam), h (a rocky surface with a physical timestep) and
 m's table convection (a real-gas kappa / c_p table), counting the rounds
@@ -71,7 +71,7 @@ def per_iteration():
         from helios_tpu_torch.rce import graphs
     except ImportError:
         return contextlib.nullcontext()
-    return graphs.per_iteration()
+    return graphs.loops(graphs.PER_ITERATION)
 
 
 def rounds_of(label, fn):
@@ -188,4 +188,8 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        cs.PATH_LOOPS.close()   # the last path's runners, before shutdown
+    sys.exit(code)
