@@ -22,7 +22,8 @@ Callbacks:
   - CouplingTPWriter: coupling TP file every N iterations
 Profiling: with ``profile_dir`` the second chunk of the radiation loop runs
 under ``torch.profiler`` and its Chrome trace is written there (the first
-chunk includes the kernels' first-use build and load).
+chunk includes the kernels' first-use build and load); the trace holds the
+loop's ``helios.*`` ranges (``graphs.span``).
 
 On a mesh (``mesh``, :mod:`helios_tpu_torch.parallel.sharding`) each chunk
 runs over the slices and the planet positions, and between chunks the state

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import copy
 import sys
-import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -50,6 +49,7 @@ from helios_tpu_torch.monitor import (run_convection_chunked,
 from helios_tpu_torch.ops.members import (MODEL_AXIS, member_state,
                                           running_members)
 from helios_tpu_torch.parallel import sharding as shd
+from helios_tpu_torch.rce import graphs
 
 def stack_models(models: Sequence[ModelArrays]) -> ModelArrays:
     """N ModelArrays as one batch: each field with the planet axis where
@@ -156,116 +156,133 @@ def run_ensemble(cfgs: Sequence, tables: Optional[Sequence] = None,
     "cuda", the CPU for "cpu", or a sequence of devices (one per mesh
     position, row by row; a device may repeat); the member count must
     divide by ``n_planet_batch``.  Returns one RunOutput per member; the
-    walls are the batch's."""
-    t0 = time.perf_counter()
-    dev = shd.home_device(device)
-    cfgs = [c if c._finalized else c.finalize() for c in cfgs]
-    cfg0 = cfgs[0]
-    mesh = ensemble_mesh(cfg0, device)
+    walls are the batch's, its spans those of ``pipeline.run``."""
+    with graphs.span("helios.run") as whole:
+        with graphs.span("helios.prepare"):
+            dev = shd.home_device(device)
+            cfgs = [c if c._finalized else c.finalize() for c in cfgs]
+            cfg0 = cfgs[0]
+            mesh = ensemble_mesh(cfg0, device)
 
-    if (sset is None and cfg0.opacity_mixing == "on-the-fly"
-            and tables is None):
-        sset, donor = pl.build_species_set_from_files(cfg0, device=dev)
-        tables = [donor] * len(cfgs)
-    if tables is None:
-        loaded = {}
-        tables = []
-        for c in cfgs:
-            if c.opacity_path not in loaded:
-                loaded[c.opacity_path] = pl.load_opacity_file(
-                    c.opacity_path)
-            tables.append(loaded[c.opacity_path])
+            if (sset is None and cfg0.opacity_mixing == "on-the-fly"
+                    and tables is None):
+                sset, donor = pl.build_species_set_from_files(cfg0,
+                                                              device=dev)
+                tables = [donor] * len(cfgs)
+            if tables is None:
+                loaded = {}
+                tables = []
+                for c in cfgs:
+                    if c.opacity_path not in loaded:
+                        loaded[c.opacity_path] = pl.load_opacity_file(
+                            c.opacity_path)
+                    tables.append(loaded[c.opacity_path])
 
-    physes, models, T0s, cloud_results = [], [], [], []
-    for cfg, table in zip(cfgs, tables):
-        phys, arrays, clouds_i = pl.prepare_model(cfg, table, device=dev)
-        physes.append(phys)
-        models.append(arrays)
-        cloud_results.append(clouds_i)
-        T0s.append(pl.initial_temperatures(cfg, phys, arrays))
-    phys = _check_same_phys(physes)
-    thermo = pl.make_thermo(cfg0, device=dev)
-    want_conv = phys.convection and not phys.singlewalk and not phys.iso
+            physes, models, T0s, cloud_results = [], [], [], []
+            for cfg, table in zip(cfgs, tables):
+                phys, arrays, clouds_i = pl.prepare_model(cfg, table,
+                                                          device=dev)
+                physes.append(phys)
+                models.append(arrays)
+                cloud_results.append(clouds_i)
+                T0s.append(pl.initial_temperatures(cfg, phys, arrays))
+            phys = _check_same_phys(physes)
+            thermo = pl.make_thermo(cfg0, device=dev)
+            want_conv = (phys.convection and not phys.singlewalk
+                         and not phys.iso)
 
-    # on a mesh the loops run on a copy with the bin axis padded to a
-    # multiple of the slices, placed on the mesh; restores read the padded
-    # copy whole on the home device
-    m = stack_models(models)
-    phys_run, sset_run = phys, sset
-    m_loop, sset_loop = m, sset
-    if mesh is not None:
-        n_spec = mesh.shape["spectral"]
-        phys_run, m = shd.pad_spectral(phys, m, n_spec)
-        sset_run = shd.pad_species(sset, n_spec)
-        m_loop = shd.place_model(m, mesh)
-        sset_loop = shd.place_species(sset_run, mesh)
-    T0 = torch.as_tensor(np.stack(T0s, axis=1), dtype=torch_dtype(cfg0.dtype),
-                         device=dev)
+            # on a mesh the loops run on a copy with the bin axis padded to
+            # a multiple of the slices, placed on the mesh; restores read
+            # the padded copy whole on the home device
+            m = stack_models(models)
+            phys_run, sset_run = phys, sset
+            m_loop, sset_loop = m, sset
+            if mesh is not None:
+                n_spec = mesh.shape["spectral"]
+                phys_run, m = shd.pad_spectral(phys, m, n_spec)
+                sset_run = shd.pad_species(sset, n_spec)
+                m_loop = shd.place_model(m, mesh)
+                sset_loop = shd.place_species(sset_run, mesh)
+            T0 = torch.as_tensor(np.stack(T0s, axis=1),
+                                 dtype=torch_dtype(cfg0.dtype), device=dev)
 
-    def clock():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return time.perf_counter()
+            # config 0 drives the chunking, the progress lines and one
+            # checkpoint pair for the whole batch, under the first member's
+            # directory, written after every chunk as the JAX package's
+            # ensemble writes it
+            chunk = ensemble_chunk(cfg0, phys)
+            rad_cbs, conv_cbs = [], []
+            rad0 = conv0 = None
+            rad_it0 = np.zeros(len(cfgs), int)
+            if chunk is not None and cfg0.progress:
+                rad_cbs.append(EnsembleProgress(len(cfgs)))
+                conv_cbs.append(EnsembleProgress(len(cfgs)))
+            if chunk is not None and cfg0.checkpoint_every > 0:
+                path, conv_path = pl.checkpoint_paths(cfg0,
+                                                      "ensemble.ckpt.npz")
+                ck = ckpt_mod.load_rad_checkpoint(path)
+                if (ck is not None
+                        and ckpt_mod.checkpoint_phase(ck) == "radiation"):
+                    rad0 = ckpt_mod.restore_rad_state(phys_run, m, ck,
+                                                      sset_run)
+                    rad_it0 = rad0.it.copy()
+                cck = (ckpt_mod.load_conv_checkpoint(conv_path) if want_conv
+                       else None)
+                if (cck is not None
+                        and ckpt_mod.checkpoint_phase(cck) == "convection"):
+                    conv0 = ckpt_mod.restore_conv_state(phys_run, m, cck,
+                                                        sset_run)
+                rad_cbs.append(ckpt_mod.CheckpointCallback(path, chunk,
+                                                           phys_run))
+                conv_cbs.append(ckpt_mod.ConvCheckpointCallback(
+                    conv_path, chunk, phys_run))
+            pl.settle(dev)
 
-    # config 0 drives the chunking, the progress lines and one checkpoint
-    # pair for the whole batch, under the first member's directory, written
-    # after every chunk as the JAX package's ensemble writes it
-    chunk = ensemble_chunk(cfg0, phys)
-    rad_cbs, conv_cbs = [], []
-    rad0 = conv0 = None
-    rad_it0 = np.zeros(len(cfgs), int)
-    if chunk is not None and cfg0.progress:
-        rad_cbs.append(EnsembleProgress(len(cfgs)))
-        conv_cbs.append(EnsembleProgress(len(cfgs)))
-    if chunk is not None and cfg0.checkpoint_every > 0:
-        path, conv_path = pl.checkpoint_paths(cfg0, "ensemble.ckpt.npz")
-        ck = ckpt_mod.load_rad_checkpoint(path)
-        if ck is not None and ckpt_mod.checkpoint_phase(ck) == "radiation":
-            rad0 = ckpt_mod.restore_rad_state(phys_run, m, ck, sset_run)
-            rad_it0 = rad0.it.copy()
-        cck = ckpt_mod.load_conv_checkpoint(conv_path) if want_conv else None
-        if cck is not None and ckpt_mod.checkpoint_phase(cck) == "convection":
-            conv0 = ckpt_mod.restore_conv_state(phys_run, m, cck, sset_run)
-        rad_cbs.append(ckpt_mod.CheckpointCallback(path, chunk, phys_run))
-        conv_cbs.append(ckpt_mod.ConvCheckpointCallback(conv_path, chunk,
-                                                        phys_run))
+        with graphs.span("helios.radiation") as rad_span:
+            rads = run_radiation_chunked(phys_run, m_loop, thermo, T0,
+                                         chunk_iters=chunk, sset=sset_loop,
+                                         callbacks=rad_cbs, state0=rad0,
+                                         mesh=mesh)
+            pl.settle(dev)
+        with graphs.span("helios.convection") as conv_span:
+            convs = None
+            if want_conv:
+                convs = run_convection_chunked(
+                    phys_run, m_loop, thermo, rads, chunk_iters=chunk,
+                    sset=sset_loop, callbacks=conv_cbs, state0=conv0,
+                    mesh=mesh)
+            pl.settle(dev)
 
-    t_rad = clock()
-    rads = run_radiation_chunked(phys_run, m_loop, thermo, T0,
-                                 chunk_iters=chunk, sset=sset_loop,
-                                 callbacks=rad_cbs, state0=rad0, mesh=mesh)
-    t_conv = clock()
-    convs = None
-    if want_conv:
-        convs = run_convection_chunked(phys_run, m_loop, thermo, rads,
-                                       chunk_iters=chunk, sset=sset_loop,
-                                       callbacks=conv_cbs, state0=conv0,
-                                       mesh=mesh)
-    t_end = clock()
+        with graphs.span("helios.result"):
+            outs = []
+            for i, (cfg, arrays) in enumerate(zip(cfgs, models)):
+                rad_i = member_state(rads, i)
+                conv_i = member_state(convs, i) if convs is not None else None
+                final = conv_i if conv_i is not None else rad_i
+                final = final._replace(
+                    T_lay=final.T_lay.contiguous(),
+                    flux=type(final.flux)(*(
+                        f.contiguous() for f in shd.strip_flux(
+                            final.flux, phys.nbin, phys.ny))))
+                # the end-of-run bookkeeping of pipeline.run, so that a
+                # member writes exactly the file set its run alone writes
+                result = pl.final_result(cfg, phys, arrays, thermo, final,
+                                         conv_i, cloud_results[i], sset)
+                if write_output:
+                    writers.write_all(result)
+                    if final.aborted:
+                        writers.write_abort_file(result)
+                outs.append(pl.RunOutput(
+                    phys=phys, arrays=arrays, rad=rad_i, conv=conv_i,
+                    T_lay=final.T_lay, flux=final.flux, totals=final.totals,
+                    result=result, wall_seconds=0.0,
+                    rad_seconds=rad_span.seconds,
+                    conv_seconds=conv_span.seconds,
+                    rad_it0=int(rad_it0[i])))
 
-    outs = []
-    for i, (cfg, arrays) in enumerate(zip(cfgs, models)):
-        rad_i = member_state(rads, i)
-        conv_i = member_state(convs, i) if convs is not None else None
-        final = conv_i if conv_i is not None else rad_i
-        final = final._replace(T_lay=final.T_lay.contiguous(), flux=type(
-            final.flux)(*(f.contiguous() for f in shd.strip_flux(
-                final.flux, phys.nbin, phys.ny))))
-        # the end-of-run bookkeeping of pipeline.run, so that a member
-        # writes exactly the file set its run alone writes
-        result = pl.final_result(cfg, phys, arrays, thermo, final, conv_i,
-                                 cloud_results[i], sset)
-        if write_output:
-            writers.write_all(result)
-            if final.aborted:
-                writers.write_abort_file(result)
-        outs.append(pl.RunOutput(
-            phys=phys, arrays=arrays, rad=rad_i, conv=conv_i,
-            T_lay=final.T_lay, flux=final.flux, totals=final.totals,
-            result=result,
-            wall_seconds=time.perf_counter() - t0,
-            rad_seconds=t_conv - t_rad, conv_seconds=t_end - t_conv,
-            rad_it0=int(rad_it0[i])))
+    # every member's wall is the batch's, taken after all members' results
+    for out in outs:
+        out.wall_seconds = whole.seconds
     return outs
 
 

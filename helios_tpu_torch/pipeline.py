@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -55,7 +54,7 @@ from helios_tpu_torch.io.opacity import OpacityTable, load_opacity_file
 from helios_tpu_torch.ops import integrate as int_ops
 from helios_tpu_torch.ops import interp as interp_ops
 from helios_tpu_torch.parallel import sharding as shd
-from helios_tpu_torch.rce import convect
+from helios_tpu_torch.rce import convect, graphs
 from helios_tpu_torch.rce.loop import ConvLoopState
 from helios_tpu_torch.rce.radiative import (RadLoopState, ThermoProps,
                                             kappa_cp_lay, kappa_int,
@@ -470,134 +469,156 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
     on the first n visible CUDA devices for "cuda" (a RuntimeError when
     fewer are visible), all on the CPU for "cpu", or on a sequence of
     devices, one per slice (a device may repeat).
-    The times end after the device has finished."""
-    t0 = time.perf_counter()
-    if not cfg._finalized:
-        cfg = cfg.finalize()
-    n_spec = int(cfg.n_spectral_shards)
-    dev = shd.home_device(device)
-    if n_spec > 1:
-        devs = shd.visible_devices(device, n_spec)
-        if len(devs) < n_spec:
-            raise RuntimeError(
-                f"n_spectral_shards={n_spec} but only {len(devs)} "
-                "devices are visible")
-    if cfg.opacity_mixing == "on-the-fly" and sset is None and table is None:
-        sset, table = build_species_set_from_files(cfg, device=dev)
-    if table is None:
-        table = load_opacity_file(cfg.opacity_path)
+    The times end after the device has finished: the run is the span
+    ``helios.run``, its phases ``helios.prepare``, ``helios.radiation``,
+    ``helios.convection`` and ``helios.result`` (``graphs.span``)."""
+    with graphs.span("helios.run") as whole:
+        with graphs.span("helios.prepare"):
+            if not cfg._finalized:
+                cfg = cfg.finalize()
+            n_spec = int(cfg.n_spectral_shards)
+            dev = shd.home_device(device)
+            if n_spec > 1:
+                devs = shd.visible_devices(device, n_spec)
+                if len(devs) < n_spec:
+                    raise RuntimeError(
+                        f"n_spectral_shards={n_spec} but only {len(devs)} "
+                        "devices are visible")
+            if (cfg.opacity_mixing == "on-the-fly" and sset is None
+                    and table is None):
+                sset, table = build_species_set_from_files(cfg, device=dev)
+            if table is None:
+                table = load_opacity_file(cfg.opacity_path)
 
-    phys, arrays, cloud_result = prepare_model(cfg, table, starflux=starflux,
-                                               device=dev)
-    thermo = make_thermo(cfg, device=dev)
-    T0 = torch.as_tensor(initial_temperatures(cfg, phys, arrays),
-                         dtype=torch_dtype(cfg.dtype), device=dev)
+            phys, arrays, cloud_result = prepare_model(
+                cfg, table, starflux=starflux, device=dev)
+            thermo = make_thermo(cfg, device=dev)
+            T0 = torch.as_tensor(initial_temperatures(cfg, phys, arrays),
+                                 dtype=torch_dtype(cfg.dtype), device=dev)
 
-    # a mesh: the loops run on a copy with the bin axis padded to a
-    # multiple of the slices (restores read it whole on the home device)
-    # and placed on the slices; post-processing keeps the unpadded model
-    mesh = None
-    phys_run, arrays_run, sset_run = phys, arrays, sset
-    m_loop, sset_loop = arrays, sset
-    if n_spec > 1:
-        phys_run, arrays_run = shd.pad_spectral(phys, arrays, n_spec)
-        sset_run = shd.pad_species(sset, n_spec)
-        mesh = shd.make_mesh(1, n_spec, devs[:n_spec])
-        m_loop = shd.place_model(arrays_run, mesh)
-        sset_loop = shd.place_species(sset_run, mesh)
+            # a mesh: the loops run on a copy with the bin axis padded to a
+            # multiple of the slices (restores read it whole on the home
+            # device) and placed on the slices; post-processing keeps the
+            # unpadded model
+            mesh = None
+            phys_run, arrays_run, sset_run = phys, arrays, sset
+            m_loop, sset_loop = arrays, sset
+            if n_spec > 1:
+                phys_run, arrays_run = shd.pad_spectral(phys, arrays, n_spec)
+                sset_run = shd.pad_species(sset, n_spec)
+                mesh = shd.make_mesh(1, n_spec, devs[:n_spec])
+                m_loop = shd.place_model(arrays_run, mesh)
+                sset_loop = shd.place_species(sset_run, mesh)
 
-    def clock():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return time.perf_counter()
+            # a monitored run observes the loops between chunks (mid-run
+            # coupling TP writes and the debug checks too); an unmonitored
+            # run is one chunk
+            coupl_interval = (int(cfg.coupl_tp_write_interval)
+                              if cfg.coupling else 0)
+            monitored = (cfg.checkpoint_every > 0 or cfg.realtime_plot
+                         or cfg.metrics_file or cfg.profile_dir
+                         or cfg.progress or phys.debug or coupl_interval > 0
+                         or bool(callbacks)) and not phys.singlewalk
+            convect_on = (phys.convection and not phys.singlewalk
+                          and not phys.iso)
 
-    # a monitored run observes the loops between chunks (mid-run coupling
-    # TP writes and the debug checks too); an unmonitored run is one chunk
-    coupl_interval = (int(cfg.coupl_tp_write_interval) if cfg.coupling
-                      else 0)
-    monitored = (cfg.checkpoint_every > 0 or cfg.realtime_plot
-                 or cfg.metrics_file or cfg.profile_dir or cfg.progress
-                 or phys.debug or coupl_interval > 0
-                 or bool(callbacks)) and not phys.singlewalk
-    convect_on = phys.convection and not phys.singlewalk and not phys.iso
-
-    t_rad = clock()
-    conv = None
-    rad_it0 = 0
-    rad_cbs, conv_cbs = [], []
-    rad_state0 = conv_state0 = None
-    if monitored:
-        obs = _observers(cfg, phys, arrays, coupl_interval)
-        rad_cbs += obs
-        conv_cbs += obs
-        if cfg.checkpoint_every > 0:
-            path, conv_path = checkpoint_paths(cfg)
-            ckpt = ckpt_mod.load_rad_checkpoint(path)
-            if ckpt is not None:
-                rad_state0 = ckpt_mod.restore_rad_state(
-                    phys_run, arrays_run, ckpt, sset_run)
-                rad_it0 = rad_state0.it
-            rad_cbs.append(ckpt_mod.CheckpointCallback(
-                path, cfg.checkpoint_every, phys_run))
+            conv = None
+            rad_it0 = 0
+            rad_cbs, conv_cbs = [], []
+            rad_state0 = conv_state0 = None
+            if monitored:
+                obs = _observers(cfg, phys, arrays, coupl_interval)
+                rad_cbs += obs
+                conv_cbs += obs
+                if cfg.checkpoint_every > 0:
+                    path, conv_path = checkpoint_paths(cfg)
+                    ckpt = ckpt_mod.load_rad_checkpoint(path)
+                    if ckpt is not None:
+                        rad_state0 = ckpt_mod.restore_rad_state(
+                            phys_run, arrays_run, ckpt, sset_run)
+                        rad_it0 = rad_state0.it
+                    rad_cbs.append(ckpt_mod.CheckpointCallback(
+                        path, cfg.checkpoint_every, phys_run))
+                    if convect_on:
+                        cckpt = ckpt_mod.load_conv_checkpoint(conv_path)
+                        if (cckpt is not None
+                                and ckpt_mod.checkpoint_phase(cckpt)
+                                == "convection"):
+                            conv_state0 = ckpt_mod.restore_conv_state(
+                                phys_run, arrays_run, cckpt, sset_run)
+                        conv_cbs.append(ckpt_mod.ConvCheckpointCallback(
+                            conv_path, cfg.checkpoint_every, phys_run))
+                rad_cbs += callbacks
+                conv_cbs += callbacks
+            chunk = (monitored_chunk(cfg, coupl_interval) if monitored
+                     else None)
+            settle(dev)
+        with graphs.span("helios.radiation") as rad_span:
+            rad = monitor_mod.run_radiation_chunked(
+                phys_run, m_loop, thermo, T0, chunk_iters=chunk,
+                sset=sset_loop, callbacks=rad_cbs, state0=rad_state0,
+                profile_dir=cfg.profile_dir or None, mesh=mesh)
+            settle(dev)
+        with graphs.span("helios.convection") as conv_span:
             if convect_on:
-                cckpt = ckpt_mod.load_conv_checkpoint(conv_path)
-                if (cckpt is not None and ckpt_mod.checkpoint_phase(cckpt)
-                        == "convection"):
-                    conv_state0 = ckpt_mod.restore_conv_state(
-                        phys_run, arrays_run, cckpt, sset_run)
-                conv_cbs.append(ckpt_mod.ConvCheckpointCallback(
-                    conv_path, cfg.checkpoint_every, phys_run))
-        rad_cbs += callbacks
-        conv_cbs += callbacks
-    chunk = monitored_chunk(cfg, coupl_interval) if monitored else None
-    rad = monitor_mod.run_radiation_chunked(
-        phys_run, m_loop, thermo, T0, chunk_iters=chunk, sset=sset_loop,
-        callbacks=rad_cbs, state0=rad_state0,
-        profile_dir=cfg.profile_dir or None, mesh=mesh)
-    t_conv = clock()
-    if convect_on:
-        conv = monitor_mod.run_convection_chunked(
-            phys_run, m_loop, thermo, rad, chunk_iters=chunk, sset=sset_loop,
-            callbacks=conv_cbs, state0=conv_state0, mesh=mesh)
-    final = conv if conv is not None else rad
-    t_end = clock()
+                conv = monitor_mod.run_convection_chunked(
+                    phys_run, m_loop, thermo, rad, chunk_iters=chunk,
+                    sset=sset_loop, callbacks=conv_cbs, state0=conv_state0,
+                    mesh=mesh)
+            settle(dev)
 
-    # the outputs carry the real bins only (padded bins had delta_lambda 0)
-    final = final._replace(flux=shd.strip_flux(final.flux, phys.nbin,
-                                               phys.ny))
-    result = final_result(cfg, phys, arrays, thermo, final, conv,
-                          cloud_result, sset)
-    if write_output:
-        writers.write_all(result)
-        if final.aborted:
-            writers.write_abort_file(result)
-        if cfg.coupling:
-            # coupling: TP write + cross-iteration convergence test
-            # (helios.py:129-131)
-            T_prev = None
-            if cfg.coupling_speed_up and cfg.coupling_iter_nr > 0:
-                T_prev = _read_coupling_tp(cfg, cfg.coupling_iter_nr - 1)
-            result.coupling_speed_up = int(cfg.coupling_speed_up)
-            result.coupling_iter_nr = int(cfg.coupling_iter_nr)
-            result.coupling_full_output = int(cfg.coupling_full_output)
-            writers.write_tp_for_coupling(result, T_previous=T_prev)
-            _coupling_convergence(cfg, result)
-        # tau_lw / tau_sw estimate for the Koll f approximation
-        # (helios.py:133-134)
-        if cfg.approx_f:
-            tau_lw, tau_sw = hp.calc_tau_lw_sw(
-                result.delta_tau_band, result.opac_wave,
-                result.opac_deltawave, result.T_lay[phys.nlayer],
-                phys.T_star)
-            hp.write_tau_lw_sw_file(cfg.output_dir, cfg.name, tau_lw,
-                                    tau_sw, phys.f_factor)
+        with graphs.span("helios.result"):
+            final = conv if conv is not None else rad
+            # the outputs carry the real bins only (padded bins had
+            # delta_lambda 0)
+            final = final._replace(flux=shd.strip_flux(
+                final.flux, phys.nbin, phys.ny))
+            result = final_result(cfg, phys, arrays, thermo, final, conv,
+                                  cloud_result, sset)
+            if write_output:
+                _write_outputs(cfg, phys, result, final)
 
     return RunOutput(phys=phys, arrays=arrays, rad=rad, conv=conv,
                      T_lay=final.T_lay, flux=final.flux,
                      totals=final.totals, result=result,
-                     wall_seconds=time.perf_counter() - t0,
-                     rad_seconds=t_conv - t_rad, conv_seconds=t_end - t_conv,
-                     rad_it0=rad_it0)
+                     wall_seconds=whole.seconds,
+                     rad_seconds=rad_span.seconds,
+                     conv_seconds=conv_span.seconds, rad_it0=rad_it0)
+
+
+def settle(dev) -> None:
+    """Wait for the work queued on ``dev`` (a CUDA device): a phase of a
+    run ends with its device work."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _write_outputs(cfg: HeliosConfig, phys: Phys, result, final) -> None:
+    """The output files of one run: the result, the abort file, the
+    coupling TP and convergence files, the tau_lw / tau_sw file."""
+    writers.write_all(result)
+    if final.aborted:
+        writers.write_abort_file(result)
+    if cfg.coupling:
+        # coupling: TP write + cross-iteration convergence test
+        # (helios.py:129-131)
+        T_prev = None
+        if cfg.coupling_speed_up and cfg.coupling_iter_nr > 0:
+            T_prev = _read_coupling_tp(cfg, cfg.coupling_iter_nr - 1)
+        result.coupling_speed_up = int(cfg.coupling_speed_up)
+        result.coupling_iter_nr = int(cfg.coupling_iter_nr)
+        result.coupling_full_output = int(cfg.coupling_full_output)
+        writers.write_tp_for_coupling(result, T_previous=T_prev)
+        _coupling_convergence(cfg, result)
+    # tau_lw / tau_sw estimate for the Koll f approximation
+    # (helios.py:133-134)
+    if cfg.approx_f:
+        tau_lw, tau_sw = hp.calc_tau_lw_sw(
+            result.delta_tau_band, result.opac_wave,
+            result.opac_deltawave, result.T_lay[phys.nlayer],
+            phys.T_star)
+        hp.write_tau_lw_sw_file(cfg.output_dir, cfg.name, tau_lw,
+                                tau_sw, phys.f_factor)
 
 
 def final_result(cfg: HeliosConfig, phys: Phys, arrays: ModelArrays,

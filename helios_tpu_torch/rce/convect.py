@@ -20,6 +20,7 @@ correcting only those.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -29,6 +30,7 @@ from helios_tpu_torch import constants as pc
 from helios_tpu_torch.forward import layer_index
 from helios_tpu_torch.kernels.ordered import ordered_cumsum
 from helios_tpu_torch.ops.members import memberwise
+from helios_tpu_torch.rce import graphs
 
 # pressure above which the top atmosphere is ignored by the instability
 # check (artificial temperature peaks occur there); host_functions.py:345
@@ -357,30 +359,42 @@ def convective_adjustment(T_lay, p_lay, p_int, kappa_lay, kappa_int,
                              c_p_lay, meanmolmass_lay, unstable | conv_layer)
         return torch.where(active, T_new, T_lay)
 
-    unstable, active = unstable_members(T_lay)
-    if rounds is None:
-        while bool(active.any()):
-            T_lay = correct(T_lay, unstable, active)
-            unstable, active = unstable_members(T_lay)
-    else:
-        needed = torch.zeros((), dtype=torch.int64, device=T_lay.device)
-        for _ in range(rounds):
-            needed = needed + active.any()
-            T_lay = correct(T_lay, unstable, active)
-            unstable, active = unstable_members(T_lay)
+    def any_unstable(active, stats) -> bool:
+        """One round's blocking read, counted and timed into the running
+        loop's Stats."""
+        with graphs.span("helios.adjust_read", stats, "adjust_read_s"):
+            flag = bool(active.any())
+        if stats is not None:
+            stats.adjust_reads += 1
+        return flag
 
-    conv_layer = mark_convective_layers(
-        T_lay, p_lay, p_int, kappa_lay, kappa_int, stitching=1,
-        iter_value=iter_value)
-    unstable = conv_check(T_lay, p_lay, p_int, kappa_lay, kappa_int)
-    corrected = unstable | conv_layer
-    zones = find_zones(corrected)
-    fudge = fudge_factors(zones, p_lay, p_int, T_star, input_dampara,
-                          F_intern, F_add_heat_sum, F_smooth_sum,
-                          F_down_tot, F_up_tot)
-    T_lay = conv_correct(T_lay, p_lay, p_int, kappa_lay, kappa_int,
-                         c_p_lay, meanmolmass_lay, corrected,
-                         fudge_per_zone=fudge)
+    with (graphs.span("helios.adjust") if rounds is None
+          else contextlib.nullcontext()):
+        unstable, active = unstable_members(T_lay)
+        if rounds is None:
+            stats = graphs.loop_stats()
+            while any_unstable(active, stats):
+                T_lay = correct(T_lay, unstable, active)
+                unstable, active = unstable_members(T_lay)
+        else:
+            needed = torch.zeros((), dtype=torch.int64, device=T_lay.device)
+            for _ in range(rounds):
+                needed = needed + active.any()
+                T_lay = correct(T_lay, unstable, active)
+                unstable, active = unstable_members(T_lay)
+
+        conv_layer = mark_convective_layers(
+            T_lay, p_lay, p_int, kappa_lay, kappa_int, stitching=1,
+            iter_value=iter_value)
+        unstable = conv_check(T_lay, p_lay, p_int, kappa_lay, kappa_int)
+        corrected = unstable | conv_layer
+        zones = find_zones(corrected)
+        fudge = fudge_factors(zones, p_lay, p_int, T_star, input_dampara,
+                              F_intern, F_add_heat_sum, F_smooth_sum,
+                              F_down_tot, F_up_tot)
+        T_lay = conv_correct(T_lay, p_lay, p_int, kappa_lay, kappa_int,
+                             c_p_lay, meanmolmass_lay, corrected,
+                             fudge_per_zone=fudge)
     if rounds is None:
         return T_lay, conv_layer
     return T_lay, conv_layer, needed, active.any()

@@ -41,6 +41,12 @@ holds (recorded at capture, which launches nothing).  The runner's
 rounds, and the launches of iterations that changed nothing (past the
 stop, or the first try of a redone chunk).
 
+The host's time is taken in :class:`span` blocks (``helios.<phase>``) at
+the boundaries of the run and of the loops: each adds its seconds to a
+field of the loop's Stats (captures, eager iterations, replays, reads,
+the adjustment's reads), and while a profiler records it is a
+``record_function`` range on the clock of the device's kernels.
+
 The runners live in the block of :func:`loops` that the caller of a run
 opens (``monitor.run_radiation_chunked`` and ``run_convection_chunked``),
 one per loop kind across the calls of a chunked run, and are dropped with
@@ -99,12 +105,17 @@ PER_ITERATION = Settings(chunk=1, rounds=None, entry_rounds=None)
 @dataclasses.dataclass
 class Stats:
     """What the runners of a loop kind did: graphs captured, replays,
-    eager iterations, device reads, redone chunks, iterations run and
-    past the stop (predicated no-ops), host seconds spent capturing and
-    running eager iterations, the histogram of the adjustment rounds that
-    the convection iterations needed (first tries; the last index: more
-    than a graph holds, a redo), and per kernel the launches of iterations
-    that changed nothing (past the stop, first tries of redone chunks)."""
+    eager iterations, the runner's device reads (one per chunk and one at
+    entry), redone chunks, iterations run and past the stop (predicated
+    no-ops), host seconds spent capturing, running eager iterations,
+    issuing replays and in every read of the loop (the runner's and the
+    convection loop's entry check), the unbounded adjustments' blocking
+    reads (one per correction round and one more) and their seconds,
+    which an eager iteration's seconds include, the histogram of the
+    adjustment rounds that the convection iterations needed (first tries;
+    the last index: more than a graph holds, a redo), and per kernel the
+    launches of iterations that changed nothing (past the stop, first
+    tries of redone chunks)."""
     graphs: int = 0
     replays: int = 0
     eager: int = 0
@@ -114,11 +125,50 @@ class Stats:
     past_stop: int = 0
     capture_s: float = 0.0
     eager_s: float = 0.0
+    replay_s: float = 0.0
+    read_s: float = 0.0
+    adjust_reads: int = 0
+    adjust_read_s: float = 0.0
     rounds: Optional[List[int]] = None
     idle_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def as_dict(self):
         return dataclasses.asdict(self)
+
+
+class span:
+    """A block of the run's host time named ``name`` (``helios.<phase>``):
+    its seconds (``.seconds`` once it ends) are added to ``stats.<field>``
+    when ``stats`` is given.  While a profiler records, the block is also a
+    ``torch.profiler.record_function`` range, on the clock of the device's
+    kernels in the trace; else only the check is paid (the range costs
+    some microseconds, the check a fraction of one).  A span waits for no
+    device work: a phase that should end with its device work synchronises
+    inside its block."""
+    __slots__ = ("name", "stats", "field", "seconds", "_t0", "_range")
+
+    def __init__(self, name: str, stats: Optional[Stats] = None,
+                 field: Optional[str] = None):
+        self.name, self.stats, self.field = name, stats, field
+        self.seconds = 0.0
+        self._range = None
+
+    def __enter__(self):
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self._t0
+        if self.stats is not None:
+            setattr(self.stats, self.field,
+                    getattr(self.stats, self.field) + self.seconds)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        return False
 
 
 # --------------------------------------------------------------------------- #
@@ -286,7 +336,8 @@ class Runner:
         """The state's counters, the overflow flag and the rounds'
         histogram, one read."""
         self.stats.reads += 1
-        flags = read_flags(self.state, [self.overflow, self.hist])
+        with span("helios.read", self.stats, "read_s"):
+            flags = read_flags(self.state, [self.overflow, self.hist])
         if self.bounded:
             hist = flags["extra1"].astype(np.int64)
             self.stats.rounds = [a + int(b) for a, b in zip(
@@ -341,31 +392,32 @@ class Runner:
     def _eager(self, it: int, rounds) -> List[int]:
         """Iteration ``it`` run eagerly; returns the launches it made (the
         wrappers counted them)."""
-        t0, before = time.perf_counter(), _launches()
-        new, aux = self.body(self.state, it, rounds)
-        self._write(new, aux)
+        before = _launches()
+        with span("helios.iteration", self.stats, "eager_s"):
+            new, aux = self.body(self.state, it, rounds)
+            self._write(new, aux)
         self.stats.eager += 1
-        self.stats.eager_s += time.perf_counter() - t0
         return _minus(_launches(), before)
 
     def _capture(self, it: int) -> _Graph:
         """Iteration ``it``'s body and write captured as a graph; a capture
         launches nothing, so the launch counts stay as they were."""
-        t0, before = time.perf_counter(), _launches()
-        g = torch.cuda.CUDAGraph()
-        self.stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(self.stream):
-            g.capture_begin(pool=self.pool)
-            try:
-                new, aux = self.body(self.static, it, self.graph_rounds(it))
-                self._write(new, aux)
-            finally:
-                g.capture_end()
-        torch.cuda.current_stream().wait_stream(self.stream)
+        before = _launches()
+        with span("helios.capture", self.stats, "capture_s"):
+            g = torch.cuda.CUDAGraph()
+            self.stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self.stream):
+                g.capture_begin(pool=self.pool)
+                try:
+                    new, aux = self.body(self.static, it,
+                                         self.graph_rounds(it))
+                    self._write(new, aux)
+                finally:
+                    g.capture_end()
+            torch.cuda.current_stream().wait_stream(self.stream)
         held = _minus(_launches(), before)
         _set_launches(before)
         self.stats.graphs += 1
-        self.stats.capture_s += time.perf_counter() - t0
         return _Graph(g, held)
 
     def step(self, it: int) -> List[int]:
@@ -375,7 +427,8 @@ class Runner:
         g = self.graphs.get(self.key(it)) if self.capture else None
         if g is None:
             return self._eager(it, self.graph_rounds(it))
-        g.graph.replay()
+        with span("helios.replay", self.stats, "replay_s"):
+            g.graph.replay()
         _set_launches([a + b for a, b in zip(_launches(), g.launches)])
         self.stats.replays += 1
         return g.launches
@@ -458,12 +511,14 @@ class Loops:
     """The runners of the loops run inside one :func:`loops` block, one
     per loop kind, kept across the calls of a chunked run (their graphs
     and static buffers serve every chunk) and made anew for another model;
-    ``stats[kind]`` sums what the kind's runners did."""
+    ``stats[kind]`` sums what the kind's runners did; ``running`` is the
+    Stats of the loop whose runner runs."""
 
     def __init__(self, settings: Settings):
         self.settings = settings
         self.runners: Dict[str, tuple] = {}
         self.stats: Dict[str, Stats] = {}
+        self.running: Optional[Stats] = None
 
     def runner(self, kind: str, owners: tuple,
                make: Callable[[Settings, Stats], Runner]) -> Runner:
@@ -514,4 +569,22 @@ def run_loop(kind: str, owners: tuple, body: Callable, key: Callable,
                       planet, settings, stats)
 
     with loops() as scope:
-        return scope.runner(kind, owners, make).run(state, max_steps)
+        runner = scope.runner(kind, owners, make)
+        outer, scope.running = scope.running, runner.stats
+        try:
+            return runner.run(state, max_steps)
+        finally:
+            scope.running = outer
+
+
+def loop_stats(kind: Optional[str] = None) -> Optional[Stats]:
+    """The Stats of loop ``kind`` in the open :func:`loops` block, or
+    without ``kind`` those of the loop whose runner runs in it (where the
+    adjustment of an iteration counts its reads); None outside a block or
+    a loop."""
+    scope = _OPEN.get()
+    if scope is None:
+        return None
+    if kind is None:
+        return scope.running
+    return scope.stats.setdefault(kind, Stats())

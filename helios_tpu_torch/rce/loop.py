@@ -126,7 +126,8 @@ def _convection_step(phys: Phys, m: ModelArrays, thermo: ThermoProps,
     # --- flux calculation with the adjusted profile ---
     T_int = interp_ops.interface_temperatures(T_adj)
     if it % 10 == 0:
-        cache = compute_cells(phys, m, T_adj, T_int, sset)
+        with graphs.span("helios.refresh"):
+            cache = compute_cells(phys, m, T_adj, T_int, sset)
     else:
         cache = s.cache
     flux = solve_fluxes(phys, m, cache, T_adj, s.flux)
@@ -257,8 +258,10 @@ def convection_loop(phys: Phys, m: ModelArrays, thermo: ThermoProps,
         unstable = convect.conv_check(T, m.p_lay, m.p_int, kappa_lay,
                                       kap_int)
         enter = unstable.any(dim=0) | rad.goto_convection
-        state = state._replace(keep_running=(
-            enter.cpu().numpy() if batch else bool(enter)))
+        with graphs.span("helios.read", graphs.loop_stats("convection"),
+                         "read_s"):
+            keep = enter.cpu().numpy() if batch else bool(enter)
+        state = state._replace(keep_running=keep)
 
     def body(s, it, rounds):
         return _one_convection_iteration(phys, m, thermo, s, it, sset,

@@ -246,7 +246,8 @@ def _radiation_step(phys: Phys, m: ModelArrays,
     L = phys.nlayer
     if it % 10 == 0:
         T_int = interp_ops.interface_temperatures(s.T_lay)
-        cache = compute_cells(phys, m, s.T_lay, T_int, sset)
+        with graphs.span("helios.refresh"):
+            cache = compute_cells(phys, m, s.T_lay, T_int, sset)
     else:
         cache = s.cache
 
