@@ -3363,9 +3363,10 @@ def ensemble_path(tmpdir, launch_counts, flag_out, T_start):
     """Path n: run_ensemble of 8 flagship planets (path a's config and
     start profile, surface albedo 0.0, 0.1, ..., 0.7, the table in
     memory).  Every member finite and converged; one noniso_sweep launch
-    per batched flux solve (not 8); gap_causes (the first op at which a
-    member would differ with torch's sums; none with the fixed-order ones;
-    8 copies of path a's planet bit for bit path a); member 0's forward
+    per batched flux solve (not 8) and per iteration replayed past the
+    stop; gap_causes (the first op at which a member would differ with
+    torch's sums; none with the fixed-order ones; 8 copies of path a's
+    planet bit for bit path a); member 0's forward
     solve and run bit for bit path a's; the batch's wall against 8 x path
     a's, planets per hour and the peak device memory per member; where a
     batched radiation iteration's time goes, with the fixed-order sums and
@@ -3396,7 +3397,8 @@ def ensemble_path(tmpdir, launch_counts, flag_out, T_start):
               and not o.conv.keep_running and not o.conv.aborted,
               f"ensemble path: {o.result.name} did not converge")
     solves = batched_flux_solves(outs)
-    check(launch_counts == only(noniso_sweep=solves),
+    check(launch_counts == only(noniso_sweep=solves,
+                                idle=launch_counts["idle"]),
           f"ensemble path: launches {launch_counts} for {solves} batched "
           f"flux solves (members alone would make "
           f"{sum(o.n_flux_solves for o in outs)})")
@@ -3662,8 +3664,9 @@ def ensemble_cli_path(k, tmpdir, launch_counts, resumed_counts):
     command line in this process, with progress lines and a checkpoint
     every 100 iterations, the table handed over as path k's is.  Each
     member's file set; the ensemble checkpoint pair under the first
-    member's directory; one noniso_sweep launch per batched flux solve;
-    the dark member bit for bit path k's unmonitored run; then the same
+    member's directory; one noniso_sweep launch per batched flux solve
+    (and per iteration replayed past the stop); the dark member bit for
+    bit path k's unmonitored run; then the same
     command again, which resumes from the converged checkpoints, makes no
     flux solve and leaves the files unchanged."""
     from helios_tpu_torch import examples
@@ -3688,7 +3691,8 @@ def ensemble_cli_path(k, tmpdir, launch_counts, resumed_counts):
     check(any(ln.startswith("[ensemble/convection]") for ln in progress),
           "ensemble CLI: no convection progress line")
     solves = batched_flux_solves(outs)
-    check(launch_counts == only(noniso_sweep=solves),
+    check(launch_counts == only(noniso_sweep=solves,
+                                idle=launch_counts["idle"]),
           f"ensemble CLI: launches {launch_counts} for {solves} batched "
           "flux solves")
     files = {}

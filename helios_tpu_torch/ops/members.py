@@ -77,6 +77,15 @@ def member_state(state, i: int):
     return _map_state(pick, state)
 
 
+def member_mask(name: str, x: torch.Tensor, run: torch.Tensor):
+    """``run`` ([P] bool, or 0-d for one planet) shaped to broadcast along
+    the planet axis of the loop-state tensor ``x`` of field ``name``."""
+    if not run.dim():
+        return run
+    axis = state_axis(name, x)
+    return run.reshape((1,) * axis + run.shape + (1,) * (x.dim() - axis - 1))
+
+
 def freeze_members(new, old, run):
     """``new`` where a member runs, ``old`` where it has stopped, over the
     NamedTuple tree of a batch's state: a member that has converged keeps
@@ -85,12 +94,7 @@ def freeze_members(new, old, run):
     def pick(name, n, o):
         if n is o:
             return n
-        mask = run.to(n.device)
-        if run.dim():
-            axis = state_axis(name, n)
-            mask = mask.reshape(
-                (1,) * axis + run.shape + (1,) * (n.dim() - axis - 1))
-        return torch.where(mask, n, o)
+        return torch.where(member_mask(name, n, run.to(n.device)), n, o)
 
     return _map_state(pick, new, old)
 

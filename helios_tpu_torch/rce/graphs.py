@@ -1,5 +1,5 @@
-"""The loops on the device: one planet's iterations captured as CUDA graphs
-and replayed, one device read per chunk of iterations (the port's
+"""The loops on the device: a planet's or a batch's iterations captured as
+CUDA graphs and replayed, one device read per chunk of iterations (the port's
 counterpart of the JAX package's ``lax.while_loop``,
 helios_tpu/rce/radiative.py:331-358, helios_tpu/rce/loop.py:214-251).
 
@@ -18,21 +18,26 @@ results only where ``keep_running`` was set at its start, so the iterations
 after the planet (or a member of a batch) stops change nothing, as an
 iteration of ``lax.while_loop`` past its condition does not run.
 
-- One planet on one device keeps its state in static buffers.  On the card
-  each key's body runs eagerly the first time (which builds and loads the
-  kernels), is captured as a CUDA graph into one memory pool after the
-  chunk's read has shown that the planet ran that iteration, and is
-  replayed from then on; on the CPU the same body runs eagerly, since the
-  caller asked for the CPU.  The host's copy of the counter chooses each
-  replay's key; while the planet runs it equals the device counter.
-- A batch of planets and a sliced model run :data:`PER_ITERATION`: a chunk
-  of one, unbounded adjustments, nothing captured.  So does a planet inside
-  ``loops(PER_ITERATION)``, the reference that the graphs are held against.
+- A model whole on one device, one planet's or a batch's, keeps its state
+  in static buffers.  On the card each key's body runs eagerly the first
+  time (which builds and loads the kernels), is captured as a CUDA graph
+  into one memory pool after the chunk's read has shown that the planet
+  (a member) ran that iteration, and is replayed from then on; on the CPU
+  the same body runs eagerly, since the caller asked for the CPU.  The
+  host's copy of the counter chooses each replay's key; while the planet
+  runs it equals the device counter, and a batch's running members share
+  it.
+- A sliced model (spectral slices, the planet x spectral mesh, whose
+  planet groups take turns on the runners) runs :data:`PER_ITERATION`: a
+  chunk of one, unbounded adjustments, nothing captured.  So does any run
+  inside ``loops(PER_ITERATION)``, the reference that the graphs are held
+  against.
 
 The convective adjustment inside a graph runs ``rounds`` correction rounds
 (``convect.convective_adjustment``) and flags a chunk in which a running
-planet was still unstable after them; that chunk runs again from a
-snapshot of its start, eagerly and with unbounded rounds (a *redo*).
+planet (a member) was still unstable after them; that chunk runs again
+from a snapshot of its start, eagerly and with unbounded rounds (a
+*redo*).
 
 Kernel launch counts (``<wrapper>.launches``) count every launch: an eager
 iteration's wrappers count their own, a replay adds the launches its graph
@@ -65,7 +70,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from helios_tpu_torch.ops.members import freeze_members
+from helios_tpu_torch.ops.members import freeze_members, member_mask
 from helios_tpu_torch.ops.slices import count
 
 # iterations between two reads of the device: the iterations replayed
@@ -87,9 +92,9 @@ COUNTER_DTYPES = dict(it=torch.int64, local_limit=torch.float64,
 
 @dataclasses.dataclass(frozen=True)
 class Settings:
-    """How a planet's loops run: ``chunk`` iterations between two reads
-    of the device; ``rounds`` and ``entry_rounds`` the adjustment rounds of
-    an iteration and of the convection loop's iteration 0.  With
+    """How the loops of a whole model run: ``chunk`` iterations between two
+    reads of the device; ``rounds`` and ``entry_rounds`` the adjustment
+    rounds of an iteration and of the convection loop's iteration 0.  With
     ``rounds`` None an adjustment runs while unstable, reading a flag per
     round, and nothing is captured (a capture cannot read); else on the
     card each iteration is a replayed CUDA graph."""
@@ -112,8 +117,9 @@ class Stats:
     convection loop's entry check), the unbounded adjustments' blocking
     reads (one per correction round and one more) and their seconds,
     which an eager iteration's seconds include, the histogram of the
-    adjustment rounds that the convection iterations needed (first tries;
-    the last index: more than a graph holds, a redo), and per kernel the
+    adjustment rounds that the convection iterations needed (first tries,
+    a batch's iteration once, at its member that needed the most; the last
+    index: more than a graph holds, a redo), and per kernel the
     launches of iterations that changed nothing (past the stop, first
     tries of redone chunks)."""
     graphs: int = 0
@@ -176,11 +182,20 @@ class span:
 # --------------------------------------------------------------------------- #
 
 def _leaves(x) -> List[torch.Tensor]:
-    """The tensors of a NamedTuple tree (a planet's whole state), in field
-    order."""
+    """The tensors of a NamedTuple tree (a planet's or a batch's whole
+    state), in field order."""
     if hasattr(x, "_fields"):
         return [t for v in x for t in _leaves(v)]
     return [x] if isinstance(x, torch.Tensor) else []
+
+
+def _leaf_names(x, name: str = "") -> List[str]:
+    """The field names of :func:`_leaves`' tensors, each its innermost
+    field (which says where a batch's tensor carries the planet axis,
+    ``members.state_axis``)."""
+    if hasattr(x, "_fields"):
+        return [n for f, v in zip(x._fields, x) for n in _leaf_names(v, f)]
+    return [name] if isinstance(x, torch.Tensor) else []
 
 
 def _rebuild(template, leaves):
@@ -280,29 +295,30 @@ class Runner:
     ``template`` (a device state) gives the static buffers their shapes.
     ``adjusts``: the body makes a convective adjustment of ``rounds``
     rounds and returns (rounds needed, still unstable) as ``aux`` (None
-    for unbounded rounds).  ``planet``: one planet on a whole model, whose
-    state lives in static buffers and whose iterations the card captures;
-    otherwise (a batch, a sliced model) the runner takes
-    :data:`PER_ITERATION` whatever ``settings`` says."""
+    for unbounded rounds).  ``whole``: the model is whole on one device,
+    and the state (a planet's, or a batch's with the planet axis) lives in
+    static buffers whose iterations the card captures; otherwise (a sliced
+    model) the runner takes :data:`PER_ITERATION` whatever ``settings``
+    says."""
 
     def __init__(self, body: Callable, key: Callable, template,
-                 done_count: str, adjusts: bool, planet: bool,
+                 done_count: str, adjusts: bool, whole: bool,
                  settings: Settings, stats: Stats):
         self.body, self.key, self.done_count = body, key, done_count
-        self.planet = planet
-        self.settings = settings if planet else PER_ITERATION
+        self.settings = settings if whole else PER_ITERATION
         # iterations that a graph holds on the card (and runs eagerly on
         # the CPU)
-        self.graphable = planet and self.settings.rounds is not None
+        self.graphable = whole and self.settings.rounds is not None
         self.bounded = adjusts and self.graphable
         self.capture = self.graphable and template.T_lay.is_cuda
         self.stats = stats
         dev = template.T_lay.device
         self.static = None
-        if planet:
+        if whole:
             self.static = _rebuild(template, [
                 torch.empty_like(t, memory_format=torch.contiguous_format)
                 for t in _leaves(template)])
+            self.names = _leaf_names(template)
         self.state = self.static
         top = max(self.settings.rounds or 0, self.settings.entry_rounds or 0)
         self.overflow = torch.zeros((), dtype=torch.bool, device=dev)
@@ -317,16 +333,22 @@ class Runner:
     # -- state in and out ------------------------------------------------- #
 
     def load(self, state):
-        """Take a host-counter state: a planet's into the static buffers
-        (a host counter by a fill, which reads nothing from host memory),
-        a batch's as its device-counter state."""
+        """Take a host-counter state: into the static buffers (a planet's
+        host counter by a fill, which reads nothing from host memory, a
+        batch's [P] counters by a copy), or a sliced model's as its
+        device-counter state."""
         self.fields = host_fields(state)
-        if not self.planet:
+        if self.static is None:
             self.state = to_device(state)
             return
         for f in state._fields:
             if f in self.fields:
-                getattr(self.static, f).fill_(getattr(state, f))
+                value = getattr(state, f)
+                dst = getattr(self.static, f)
+                if np.ndim(value):
+                    dst.copy_(torch.as_tensor(value))
+                else:
+                    dst.fill_(value)
                 continue
             for dst, src in zip(_leaves(getattr(self.static, f)),
                                 _leaves(getattr(state, f))):
@@ -346,10 +368,11 @@ class Runner:
         return flags
 
     def result(self, flags):
-        """The state as a host-counter state of its own tensors (a
-        planet's cloned: the next replay does not overwrite them)."""
+        """The state as a host-counter state of its own tensors (the
+        static buffers' cloned: the next replay does not overwrite
+        them)."""
         out = self.state
-        if self.planet:
+        if self.static is not None:
             out = _rebuild(out, [t.clone() for t in _leaves(out)])
         return to_host(out, flags, self.fields,
                        batched=out.T_lay.dim() > 1)
@@ -358,11 +381,13 @@ class Runner:
 
     def _write(self, new, aux):
         """The new state where the planet (a member) ran at the
-        iteration's start, the old one elsewhere: a planet's into its
-        static buffers, a batch's as a new state; the adjustment's round
-        count and flag."""
+        iteration's start, the old one elsewhere: into the static buffers
+        (``keep`` along each tensor's planet axis, as
+        ``members.freeze_members`` broadcasts it), a sliced model's as a
+        new state; the adjustment's round count and flag, a batch's
+        iteration counted once where a member ran."""
         keep = self.state.keep_running
-        if not self.planet:
+        if self.static is None:
             self.state = freeze_members(new, self.state, keep)
             return
         keep = keep.clone()          # the writes below overwrite it
@@ -372,15 +397,16 @@ class Runner:
         ptrs = {t.untyped_storage().data_ptr() for t in olds}
         news = [n if n is o or n.untyped_storage().data_ptr() not in ptrs
                 else n.clone() for n, o in zip(news, olds)]
-        for o, n in zip(olds, news):
+        for name, o, n in zip(self.names, olds, news):
             if n is not o:
-                torch.where(keep, n, o, out=o)
+                torch.where(member_mask(name, o, keep), n, o, out=o)
         if aux is not None:
             needed, unstable = aux
             self.overflow |= unstable
             slot = (needed + unstable).clamp(max=self.hist.numel() - 1)
+            ran = keep.any() if keep.dim() else keep
             self.hist.index_add_(0, slot.reshape(1),
-                                 keep.to(torch.int64).reshape(1))
+                                 ran.to(torch.int64).reshape(1))
 
     def graph_rounds(self, it: int) -> Optional[int]:
         """The adjustment rounds of iteration ``it`` as its graph runs it
@@ -451,10 +477,11 @@ class Runner:
 
     def run(self, state, max_steps: Optional[int]):
         """Iterate from the host-counter ``state`` until the planet (every
-        member) stops or ``max_steps`` iterations ran, in chunks of up to
-        ``settings.chunk`` iterations and one read per chunk (and one at
-        entry), with the state's card current (a graph replays on the
-        current card's stream).  Returns the final host-counter state."""
+        member of a batch) stops or ``max_steps`` iterations ran, in chunks
+        of up to ``settings.chunk`` iterations and one read per chunk (and
+        one at entry), with the state's card current (a graph replays on
+        the current card's stream).  Returns the final host-counter
+        state."""
         if self.capture:
             with torch.cuda.device(self.static.T_lay.device):
                 return self._run(state, max_steps)
@@ -491,8 +518,8 @@ class Runner:
             self.stats.iterations += ran
             self.stats.past_stop += n - ran
             self._idle(tried + made[ran:])
-            # capture the keys that ran while the planet ran, now that the
-            # read has shown it, if it runs on
+            # capture the keys that ran while the planet (a member) ran,
+            # now that the read has shown it, if it runs on
             if self.capture and flags["keep_running"].any():
                 for j in range(ran):
                     key = self.key(it0 + j)
@@ -562,11 +589,11 @@ def run_loop(kind: str, owners: tuple, body: Callable, key: Callable,
     """Run loop ``kind`` of ``body`` from the host-counter ``state`` on
     model ``m`` (see :class:`Runner`), with the runner of the open
     :func:`loops` block, or one of this call alone."""
-    planet = state.T_lay.dim() == 1 and not count(m)
+    whole = not count(m)
 
     def make(settings, stats):
         return Runner(body, key, to_device(state), done_count, adjusts,
-                      planet, settings, stats)
+                      whole, settings, stats)
 
     with loops() as scope:
         runner = scope.runner(kind, owners, make)

@@ -22,7 +22,7 @@ rtol 1e-10 against its native fp64 Planck lookup).
 A replay runs the ops that its key's capture recorded, so every eager
 iteration that a graph would hold is recorded op by op (a
 ``TorchFunctionMode``): the iterations of one key run the same ops with the
-same host numbers, and none reads the device.
+same host numbers, and none reads the device; so do a batch's.
 """
 
 import numpy as np
@@ -39,6 +39,8 @@ from helios_tpu_torch.config import HeliosConfig
 from helios_tpu_torch.rce import graphs, loop, radiative
 
 import torch_port_helpers as H
+from test_torch_device_loop_batch import (assert_same_members,
+                                          batch_reference, run_batch)
 
 NBIN = 8
 CASES = {
@@ -65,25 +67,11 @@ def _reference(case):
     return REFERENCES[case]
 
 
-def _assert_same_state(got, want, label):
-    """Every tensor and counter of two loop states, bit for bit."""
-    assert type(got) is type(want), label
-    for f in got._fields:
-        g, w = getattr(got, f), getattr(want, f)
-        if hasattr(g, "_fields"):
-            _assert_same_state(g, w, f"{label}.{f}")
-        elif isinstance(g, torch.Tensor):
-            assert g.dtype == w.dtype and g.shape == w.shape, (label, f)
-            assert torch.equal(g, w), f"{label}.{f} differs"
-        else:
-            assert type(g) is type(w) and g == w, (label, f, g, w)
-
-
 def _assert_same_run(got, want):
-    _assert_same_state(got.rad, want.rad, "rad")
+    H.assert_same_state(got.rad, want.rad, "rad")
     assert (got.conv is None) == (want.conv is None)
     if want.conv is not None:
-        _assert_same_state(got.conv, want.conv, "conv")
+        H.assert_same_state(got.conv, want.conv, "conv")
     assert torch.equal(got.T_lay, want.T_lay)
     for f in want.totals._fields:
         assert torch.equal(getattr(got.totals, f), getattr(want.totals, f))
@@ -144,7 +132,7 @@ def test_monitored_chunks_see_the_same_states():
         assert (gp, gn) == (wp, wn)
         assert torch.equal(gs.T_lay, gT), "a kept state was overwritten"
         assert torch.equal(gT, wT)
-        _assert_same_state(gs, ws, gp)
+        H.assert_same_state(gs, ws, gp)
 
 
 def test_resume_from_a_state_in_each_loop():
@@ -172,10 +160,10 @@ def test_resume_from_a_state_in_each_loop():
             conv = loop.convection_loop(out.phys, out.arrays, thermo, None,
                                         state0=conv_mid)
         runs[mode] = (rad, conv)
-    _assert_same_state(runs["chunked"][0], runs["per"][0], "rad")
-    _assert_same_state(runs["chunked"][1], runs["per"][1], "conv")
-    _assert_same_state(runs["per"][0], out.rad, "rad against the run")
-    _assert_same_state(runs["per"][1], out.conv, "conv against the run")
+    H.assert_same_state(runs["chunked"][0], runs["per"][0], "rad")
+    H.assert_same_state(runs["chunked"][1], runs["per"][1], "conv")
+    H.assert_same_state(runs["per"][0], out.rad, "rad against the run")
+    H.assert_same_state(runs["per"][1], out.conv, "conv against the run")
 
 
 def test_adjustment_overflow_redoes_the_chunk():
@@ -277,14 +265,15 @@ class OpRecorder(TorchFunctionMode):
         return func(*args, **kwargs)
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", list(CASES) + ["batch"])
 def test_iterations_of_one_key_run_the_same_ops(case, monkeypatch):
     """Every eager iteration that a graph would hold (the adjustment at
     the graph's rounds; not a redo's unbounded one), recorded op by op
     with its host numbers: the iterations of one key (``rad_key``,
     ``conv_key``) run the same ops, so a replay of the key's graph runs
-    what the iteration would, and none reads the device."""
-    want = _reference(case)
+    what the iteration would, and none reads the device; for one planet
+    of each case, and for a batch of three whose members stop at
+    different iterations (tests/test_torch_device_loop_batch.py)."""
     traces = {}
     eager = graphs.Runner._eager
 
@@ -299,11 +288,18 @@ def test_iterations_of_one_key_run_the_same_ops(case, monkeypatch):
         return made
 
     monkeypatch.setattr(graphs.Runner, "_eager", recording)
-    with graphs.loops(graphs.Settings(chunk=16)):
-        out = _run(CASES[case])
-    _assert_same_run(out, want)
+    if case == "batch":
+        outs, _ = run_batch(graphs.Settings(chunk=16))
+        assert_same_members(outs, batch_reference())
+        ran = (max(o.rad.it for o in outs)
+               + max(o.conv.steps for o in outs))
+    else:
+        with graphs.loops(graphs.Settings(chunk=16)):
+            out = _run(CASES[case])
+        _assert_same_run(out, _reference(case))
+        ran = out.rad.it + out.conv.steps
     runs = sum(len(v) for v in traces.values())
-    assert runs >= out.rad.it + out.conv.steps
+    assert runs >= ran
     repeated = [k for k, v in traces.items() if len(v) > 1]
     assert len(repeated) >= 5, sorted(traces)
     for key, seen in traces.items():

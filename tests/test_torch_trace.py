@@ -4,15 +4,17 @@ structure only (no time is compared with a threshold).
 
 A tiny ``pipeline.run`` and a tiny two-member ``run_ensemble`` (the small
 scenario of tests/torch_port_helpers.py at 8 bins, a physical timestep: 40
-radiation iterations, then one convective adjustment and solve) run under
+radiation iterations, then one convective adjustment and solve), and the
+batch again in ``graphs.loops(graphs.PER_ITERATION)``, run under
 torch.profiler: each is one ``helios.run`` range holding ``helios.prepare``,
 ``helios.radiation``, ``helios.convection`` and ``helios.result`` in that
 order, and the loops' ranges match their Stats one for one: every
 ``helios.read`` is a runner's read (``reads``) or the convection loop's
 entry read, every ``helios.iteration`` an eager iteration, every
-``helios.adjust_read`` a blocking read of the batch's unbounded adjustment
-(``adjust_reads``).  Without a profiler no range is entered, and the
-spans still time into the Stats.
+``helios.adjust_read`` a blocking read of an unbounded adjustment
+(``adjust_reads``): the per-iteration batch's; the chunked loops bound
+their adjustments and read none.  Without a profiler no range is entered,
+and the spans still time into the Stats.
 """
 
 import pytest
@@ -28,7 +30,7 @@ import torch_port_helpers as H
 
 # 40 radiation iterations stopped by the run time, one adjustment
 SHORT = dict(physical_tstep=1e4, runtime_limit=4e5)
-KINDS = ("single", "batch")
+KINDS = ("single", "batch", "batch per iteration")
 PHASES = ["helios.prepare", "helios.radiation", "helios.convection",
           "helios.result"]
 NEW_FIELDS = ("replay_s", "read_s", "adjust_reads", "adjust_read_s")
@@ -38,7 +40,8 @@ TRACED = {}
 def _solve(kind):
     """The run's outputs (one per planet) and its loops' Stats."""
     table = H.small_table(8)
-    with graphs.loops() as lp:
+    settings = graphs.PER_ITERATION if kind == "batch per iteration" else None
+    with graphs.loops(settings) as lp:
         if kind == "single":
             cfg = HeliosConfig(**dict(H.SMALL_RUN, **SHORT)).finalize()
             outs = [pipeline.run(cfg, table, write_output=False,
@@ -116,13 +119,14 @@ def test_loop_ranges_match_their_stats(kind, loop):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_adjustment_reads_are_counted_where_unbounded(kind):
-    """The batch runs its adjustments unbounded (graphs.PER_ITERATION):
-    each is a helios.adjust, whose blocking reads the convection Stats
-    count; one planet's adjustments are bounded and read nothing."""
+    """The per-iteration batch runs its adjustments unbounded
+    (graphs.PER_ITERATION): each is a helios.adjust, whose blocking reads
+    the convection Stats count; the chunked loops' adjustments, one
+    planet's and a batch's, are bounded and read nothing."""
     _, stats, ranges = _traced(kind)
     conv = stats["convection"]
     adjusts = [r for r in ranges if r[2] == "helios.adjust"]
-    if kind == "batch":
+    if kind == "batch per iteration":
         assert conv.adjust_reads > 0 and conv.adjust_read_s > 0.0
         assert len(adjusts) == conv.iterations
     else:

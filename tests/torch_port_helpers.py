@@ -95,6 +95,21 @@ def native_build(monkeypatch):
             build(*a, **k)))
 
 
+def assert_same_state(got, want, label):
+    """Every tensor and counter of two loop states (of the port), bit for
+    bit."""
+    assert type(got) is type(want), label
+    for f in got._fields:
+        g, w = getattr(got, f), getattr(want, f)
+        if hasattr(g, "_fields"):
+            assert_same_state(g, w, f"{label}.{f}")
+        elif isinstance(g, torch.Tensor):
+            assert g.dtype == w.dtype and g.shape == w.shape, (label, f)
+            assert torch.equal(g, w), f"{label}.{f} differs"
+        else:
+            assert type(g) is type(w) and g == w, (label, f, g, w)
+
+
 def file_rows(path):
     with open(path) as f:
         return [line.split() for line in f]
