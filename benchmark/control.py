@@ -45,7 +45,8 @@ def forward_report(prog, rep, device):
     dt = arrays.p_lay.dtype
     T = torch.as_tensor(rep["T_lay"], device=device).to(dt)
     cache = compute_cells(phys, arrays, T,
-                          interp_ops.interface_temperatures(T))
+                          interp_ops.interface_temperatures(T),
+                          prog.program.get("sset"))
     flux = zero_fluxes(phys, arrays, T)
     for _ in range(SOLVES):
         flux = solve_fluxes(phys, arrays, cache, T, flux)
@@ -67,7 +68,7 @@ def readings(cell, device: str) -> dict:
     out = {"sound": [], "forward64": [], "control": []}
     with tempfile.TemporaryDirectory() as tmpdir:
         prog = drive.Program(cell.config, cell.traffic, device, tmpdir)
-        table = prog.table_fields
+        table = prog.reference_table
         n = len(prog.members)
         reports = []
         for k in range(0, n, prog.batch):

@@ -1,6 +1,6 @@
 """A cell of BENCHMARK.json and what it names, found by name: the
-configuration file, the traffic mix, the reference module and the readers
-of the per-layer metrics."""
+configuration file, the traffic mix, the reference module, the inputs
+module and the readers of the per-layer metrics."""
 
 from __future__ import annotations
 
@@ -56,6 +56,14 @@ def load(name: str, root: Path = ROOT) -> Cell:
 def reference(cfg: dict):
     """The plain reference module a configuration names."""
     return importlib.import_module(f"benchmark.reference.{cfg['reference']}")
+
+
+def inputs(cfg: dict):
+    """``make`` of the inputs module a configuration names
+    (``benchmark/inputs/<inputs>.py``), or None where it names none."""
+    if "inputs" not in cfg:
+        return None
+    return importlib.import_module(f"benchmark.inputs.{cfg['inputs']}").make
 
 
 def reader(metric: str) -> Callable[[dict], object]:

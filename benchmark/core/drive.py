@@ -8,7 +8,13 @@ and its ``batch``, the planets per call: 1 solves each planet by
 ``helios_tpu_torch.pipeline.run``, more solve that many at once by
 ``helios_tpu_torch.parallel.ensemble.run_ensemble``.  Calls go in rounds:
 every round solves every member once, in an order drawn from the seed, so
-that every seed gives the same work in another order."""
+that every seed gives the same work in another order.
+
+A configuration that names ``inputs`` brings inputs beyond the premixed
+table: ``benchmark/inputs/<inputs>.py``'s ``make`` (``benchmark.inputs``
+says its contract) is called once at set-up, its ``program`` keywords go
+into every call of the entry points, and its ``reference`` arrays beside
+the table's fields to the reference."""
 
 from __future__ import annotations
 
@@ -67,7 +73,7 @@ class Program:
                  precision: str = None):
         from helios_tpu_torch.config import HeliosConfig
         from helios_tpu_torch.io.opacity import OpacityTable
-        from benchmark.core.cell import reference
+        from benchmark.core.cell import inputs, reference
 
         self.device = device
         self.batch = int(traffic["batch"])
@@ -78,6 +84,16 @@ class Program:
         helios = dict(cfg["helios"])
         if precision is not None:
             helios["precision"] = precision
+        # the entry points' extra keywords, and the table argument of the
+        # reference: the table's fields, with the inputs' arrays beside them
+        self.program, self.reference_table = {}, self.table_fields
+        make = inputs(cfg)
+        if make is not None:
+            extra = make(dict(cfg, helios=helios), self.table_fields, tmpdir,
+                         device)
+            self.program = dict(extra["program"])
+            self.reference_table = dict(self.table_fields,
+                                        **extra["reference"])
         p_lay, _ = ref.pressure_grid(ref.deployment(helios, {}))
         path = os.path.join(tmpdir, "start_tp.dat")
         write_tp_file(path, start_profile(p_lay, cfg["start_profile"]))
@@ -98,13 +114,14 @@ class Program:
         with graphs.loops() as lp:
             if len(members) == 1:
                 outs = [pipeline.run(self.cfgs[members[0]], self.table,
-                                     write_output=False, device=self.device)]
+                                     write_output=False, device=self.device,
+                                     **self.program)]
                 solves = outs[0].n_flux_solves
             else:
                 outs = ensemble.run_ensemble(
                     [self.cfgs[k] for k in members],
                     tables=[self.table] * len(members), write_output=False,
-                    device=self.device)
+                    device=self.device, **self.program)
                 solves = (max(o.rad.it - o.rad_it0 for o in outs)
                           + max(o.conv.steps if o.conv is not None else 0
                                 for o in outs))

@@ -16,7 +16,10 @@ def judge(cfg: dict, traffic: dict, table: dict, reports: List[dict],
     """{number: {"value", "limit"}}: the worst reading of each of the
     reference's numbers over the reports, and ``failed``, the planets
     that did not converge or ended non-finite (limit 0).  The reference
-    runs in float64 with TF32 off."""
+    runs in float64 with TF32 off.  ``table`` is what the reference reads
+    as its table: the premixed table's fields, and beside them the
+    ``reference`` arrays of a configuration's inputs
+    (``drive.Program.reference_table``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ref = reference(cfg)

@@ -71,7 +71,7 @@ def record(cfg, traffic, calls, prof):
     h, t = cfg["helios"], cfg["table"]
     batch = int(traffic["batch"])
     return dict(
-        kind="single" if batch == 1 else "grid",
+        kind="single" if batch == 1 else "grid", config=cfg,
         calls=[dict(wall_s=c.wall_s, run_wall_s=c.run_wall_s, rad_s=c.rad_s,
                     conv_s=c.conv_s, flux_solves=c.flux_solves,
                     planets=len(c.members), stats=c.stats) for c in calls],
@@ -122,7 +122,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     if found:
         raise SystemExit(f"forbidden modules loaded: {found}")
     reports = [r for c in calls + calls_traced for r in c.reports]
-    table = prog.table_fields
+    table = prog.reference_table
     del prog, calls_traced
     if device == "cuda":
         torch.cuda.empty_cache()

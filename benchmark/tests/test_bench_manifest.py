@@ -99,8 +99,15 @@ def test_configs_state_what_the_reference_needs():
         cfg = json.loads((ROOT / c["file"]).read_text())
         assert cfg["reduced"] == c["reduced"] == []
         ref = cell_mod.reference(cfg)
+        for name in ("deployment", "pressure_grid", "planck_table",
+                     "check_planet"):
+            assert callable(getattr(ref, name)), (ref.__name__, name)
         d = ref.deployment(cfg["helios"], {})
         assert d["nlayer"] == 105
         assert cfg["table"]["nbin"] == 385 and cfg["table"]["ny"] == 20
-        assert set(cfg["limits"]) == {"flux_gap", "rad_residual",
-                                      "adiabat_gap"}
+        assert cfg["limits"] and all(v >= 0 for v in cfg["limits"].values())
+        if cfg["reference"] == "rce_premixed":
+            assert set(cfg["limits"]) == {"flux_gap", "rad_residual",
+                                          "adiabat_gap"}
+        if "inputs" in cfg:
+            assert callable(cell_mod.inputs(cfg))

@@ -10,6 +10,7 @@ from benchmark.core.drive import Call
 
 STATS = dict(graphs=3, replays=40, eager=16, reads=50, redos=0,
              iterations=700, past_stop=10, capture_s=0.8, eager_s=1.0,
+             replay_s=0.03, read_s=1.1, adjust_reads=30, adjust_read_s=0.1,
              rounds=None, idle_launches={})
 PROFILE = dict(window_s=4.0, busy_s=1.2, device_s=1.3,
                kernels=dict(noniso_sweep=(0.12, 700), thomas_solve=(0.07,
@@ -28,10 +29,16 @@ def record(name):
     return c, run.record(c.config, c.traffic, calls, prof)
 
 
+def test_stats_hold_every_field_of_the_programs_stats():
+    from helios_tpu_torch.rce import graphs
+    assert set(STATS) == set(graphs.Stats().as_dict())
+
+
 @pytest.mark.parametrize("name", [w["name"] for w in
                                   cell_mod.manifest()["workloads"]])
 def test_readers_in_their_cells(name):
     c, rec = record(name)
+    assert rec["config"] is c.config
     listed = {m["name"] for m in c.per_layer}
     for metric in cell_mod.manifest()["per_layer"]:
         v = cell_mod.reader(metric["name"])(rec)
