@@ -48,6 +48,7 @@ from helios_tpu_torch.ops.members import memberwise
 from helios_tpu_torch.ops.slices import (Slices, count, devices, over_slices,
                                          take)
 from helios_tpu_torch.ops import twostream as ts_ops
+from helios_tpu_torch.tracing import mixing
 
 
 @dataclass(frozen=True)
@@ -364,9 +365,10 @@ def _gas_properties(phys: Phys, m: ModelArrays, T, p, sset):
         if sset is None:
             raise ValueError("on-the-fly opacity mixing needs a species "
                              "set (sset)")
-        opac, scat, mmm = chem.mixed_opacities(
-            sset, T, p, m.lambda_centers, m.gauss_weight, m.gauss_y,
-            ro_method=phys.ro_method, scat=phys.scat)
+        with mixing():
+            opac, scat, mmm = chem.mixed_opacities(
+                sset, T, p, m.lambda_centers, m.gauss_weight, m.gauss_y,
+                ro_method=phys.ro_method, scat=phys.scat)
         # [n, B, Y] -> the flat [n, S]
         return opac.flatten(-2), scat, mmm
     opac, scat = interp_ops.interpolate_opacity(

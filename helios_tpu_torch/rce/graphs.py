@@ -44,12 +44,16 @@ iteration's wrappers count their own, a replay adds the launches its graph
 holds (recorded at capture, which launches nothing).  The runner's
 :class:`Stats` count the graphs, replays, reads, redos and adjustment
 rounds, and the launches of iterations that changed nothing (past the
-stop, or the first try of a redone chunk).
+stop, or the first try of a redone chunk).  On-the-fly opacity mixing
+passes (``tracing.mixing``) are counted the same way, live in an eager
+iteration and by a replay as many as its graph holds, and their Random
+Overlap launches are the iterations' ``ro_mix`` launches.
 
-The host's time is taken in :class:`span` blocks (``helios.<phase>``) at
+The host's time is taken in ``tracing.span`` blocks (``helios.<phase>``) at
 the boundaries of the run and of the loops: each adds its seconds to a
 field of the loop's Stats (captures, eager iterations, replays, reads,
-the adjustment's reads), and while a profiler records it is a
+the adjustment's reads, the opacity mixing inside captures and eager
+iterations), and while a profiler records it is a
 ``record_function`` range on the clock of the device's kernels.
 
 The runners live in the block of :func:`loops` that the caller of a run
@@ -64,7 +68,6 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-import time
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -72,6 +75,7 @@ import torch
 
 from helios_tpu_torch.ops.members import freeze_members, member_mask
 from helios_tpu_torch.ops.slices import count
+from helios_tpu_torch.tracing import running, running_stats, span
 
 # iterations between two reads of the device: the iterations replayed
 # after the stop cost at most CHUNK - 1 iterations of device time (PERF.md
@@ -119,9 +123,13 @@ class Stats:
     which an eager iteration's seconds include, the histogram of the
     adjustment rounds that the convection iterations needed (first tries,
     a batch's iteration once, at its member that needed the most; the last
-    index: more than a graph holds, a redo), and per kernel the
+    index: more than a graph holds, a redo), per kernel the
     launches of iterations that changed nothing (past the stop, first
-    tries of redone chunks)."""
+    tries of redone chunks), and of on-the-fly opacity mixing
+    (``tracing.mixing``) the host seconds of its passes inside captures
+    and eager iterations, the passes run and the ``ro_mix`` launches of
+    the iterations (the mixing's Random Overlap, one per absorber after
+    the first); a premixed run's three read zero."""
     graphs: int = 0
     replays: int = 0
     eager: int = 0
@@ -137,44 +145,12 @@ class Stats:
     adjust_read_s: float = 0.0
     rounds: Optional[List[int]] = None
     idle_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    mix_s: float = 0.0
+    mixes: int = 0
+    mix_launches: int = 0
 
     def as_dict(self):
         return dataclasses.asdict(self)
-
-
-class span:
-    """A block of the run's host time named ``name`` (``helios.<phase>``):
-    its seconds (``.seconds`` once it ends) are added to ``stats.<field>``
-    when ``stats`` is given.  While a profiler records, the block is also a
-    ``torch.profiler.record_function`` range, on the clock of the device's
-    kernels in the trace; else only the check is paid (the range costs
-    some microseconds, the check a fraction of one).  A span waits for no
-    device work: a phase that should end with its device work synchronises
-    inside its block."""
-    __slots__ = ("name", "stats", "field", "seconds", "_t0", "_range")
-
-    def __init__(self, name: str, stats: Optional[Stats] = None,
-                 field: Optional[str] = None):
-        self.name, self.stats, self.field = name, stats, field
-        self.seconds = 0.0
-        self._range = None
-
-    def __enter__(self):
-        if torch.autograd._profiler_enabled():
-            self._range = torch.profiler.record_function(self.name)
-            self._range.__enter__()
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.seconds = time.perf_counter() - self._t0
-        if self.stats is not None:
-            setattr(self.stats, self.field,
-                    getattr(self.stats, self.field) + self.seconds)
-        if self._range is not None:
-            self._range.__exit__(*exc)
-            self._range = None
-        return False
 
 
 # --------------------------------------------------------------------------- #
@@ -274,6 +250,10 @@ def _set_launches(counts) -> None:
         w.launches = n
 
 
+# where ro_mix, the mixing's only kernel, stands in _launches()
+_RO = 3
+
+
 def _minus(a, b) -> List[int]:
     return [x - y for x, y in zip(a, b)]
 
@@ -285,6 +265,7 @@ def _minus(a, b) -> List[int]:
 class _Graph(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
     launches: List[int]
+    mixes: int                  # the opacity mixing passes it holds
 
 
 class Runner:
@@ -423,12 +404,16 @@ class Runner:
             new, aux = self.body(self.state, it, rounds)
             self._write(new, aux)
         self.stats.eager += 1
-        return _minus(_launches(), before)
+        made = _minus(_launches(), before)
+        self.stats.mix_launches += made[_RO]
+        return made
 
     def _capture(self, it: int) -> _Graph:
         """Iteration ``it``'s body and write captured as a graph; a capture
-        launches nothing, so the launch counts stay as they were."""
+        launches nothing, so the launch and mixing counts stay as they
+        were (the mixing's host seconds count)."""
         before = _launches()
+        mixes = self.stats.mixes
         with span("helios.capture", self.stats, "capture_s"):
             g = torch.cuda.CUDAGraph()
             self.stream.wait_stream(torch.cuda.current_stream())
@@ -443,8 +428,10 @@ class Runner:
             torch.cuda.current_stream().wait_stream(self.stream)
         held = _minus(_launches(), before)
         _set_launches(before)
+        held_mixes = self.stats.mixes - mixes
+        self.stats.mixes = mixes
         self.stats.graphs += 1
-        return _Graph(g, held)
+        return _Graph(g, held, held_mixes)
 
     def step(self, it: int) -> List[int]:
         """Iteration ``it`` (the host's counter): a replay of its key's
@@ -457,6 +444,8 @@ class Runner:
             g.graph.replay()
         _set_launches([a + b for a, b in zip(_launches(), g.launches)])
         self.stats.replays += 1
+        self.stats.mixes += g.mixes
+        self.stats.mix_launches += g.launches[_RO]
         return g.launches
 
     # -- chunks ----------------------------------------------------------- #
@@ -538,14 +527,12 @@ class Loops:
     """The runners of the loops run inside one :func:`loops` block, one
     per loop kind, kept across the calls of a chunked run (their graphs
     and static buffers serve every chunk) and made anew for another model;
-    ``stats[kind]`` sums what the kind's runners did; ``running`` is the
-    Stats of the loop whose runner runs."""
+    ``stats[kind]`` sums what the kind's runners did."""
 
     def __init__(self, settings: Settings):
         self.settings = settings
         self.runners: Dict[str, tuple] = {}
         self.stats: Dict[str, Stats] = {}
-        self.running: Optional[Stats] = None
 
     def runner(self, kind: str, owners: tuple,
                make: Callable[[Settings, Stats], Runner]) -> Runner:
@@ -597,11 +584,8 @@ def run_loop(kind: str, owners: tuple, body: Callable, key: Callable,
 
     with loops() as scope:
         runner = scope.runner(kind, owners, make)
-        outer, scope.running = scope.running, runner.stats
-        try:
+        with running(runner.stats):
             return runner.run(state, max_steps)
-        finally:
-            scope.running = outer
 
 
 def loop_stats(kind: Optional[str] = None) -> Optional[Stats]:
@@ -613,5 +597,5 @@ def loop_stats(kind: Optional[str] = None) -> Optional[Stats]:
     if scope is None:
         return None
     if kind is None:
-        return scope.running
+        return running_stats()
     return scope.stats.setdefault(kind, Stats())
