@@ -313,14 +313,16 @@ PATH = {}
 
 
 def reset_counts():
-    """Every launch count to 0, the last path's loops block closed (its
-    runners, graphs and buffers dropped) and a new one opened, and the
-    peak memory reset, so that a path's graphs, replays, reads, idle
-    launches and peak are its own."""
+    """Every launch count to 0, the last path's loops block closed and a
+    new one opened, its runners and the kept ones (graphs.clear_kept)
+    dropped with their graphs and buffers, and the peak memory reset, so
+    that a path's graphs, replays, reads, idle launches and peak are its
+    own."""
     from helios_tpu_torch.rce import graphs
     for fn in kernel_counters().values():
         fn.launches = 0
     PATH_LOOPS.close()
+    graphs.clear_kept()
     PATH["loops"] = PATH_LOOPS.enter_context(graphs.loops())
     torch.cuda.reset_peak_memory_stats()
 

@@ -56,18 +56,33 @@ the adjustment's reads, the opacity mixing inside captures and eager
 iterations), and while a profiler records it is a
 ``record_function`` range on the clock of the device's kernels.
 
-The runners live in the block of :func:`loops` that the caller of a run
-opens (``monitor.run_radiation_chunked`` and ``run_convection_chunked``),
-one per loop kind across the calls of a chunked run, and are dropped with
-their graphs and buffers when it ends.  A capture or replay error raises;
-nothing falls back to the eager body.
+A runner that holds its iterations (a whole model, ``rounds`` bounded:
+one that captures on the card) outlives the block of :func:`loops` it ran
+in: it is kept process-wide, one per loop kind, with its graphs, memory
+pool, static buffers and its own copies of the tensors its body reads
+(the owners': phys, model, thermo, species set).  A later loop whose key
+matches, the kind, the settings, the owners' structure and Python scalars
+(the ``Phys`` value among them) and every tensor's shape, strides, dtype
+and device, of the owners and of the state, takes it over: the solve's
+owner tensors are copied into the runner's (:class:`_Owned`), its state
+into the static buffers, and the graphs already captured replay.  A miss
+drops the kind's kept runner, and every kept runner of other owners,
+graphs and buffers, before a new one is made; :func:`clear_kept` drops
+them all.  The other runners (sliced models, ``PER_ITERATION``) live in
+the block that the caller of a run opens (``monitor.run_radiation_chunked``
+and ``run_convection_chunked``), one per loop kind across the calls of a
+chunked run, and are dropped when it ends.  Either way a runner counts
+into the Stats of the block it runs in.  A capture or replay error
+raises; nothing falls back to the eager body.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import contextvars
 import dataclasses
+import weakref
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -129,7 +144,9 @@ class Stats:
     (``tracing.mixing``) the host seconds of its passes inside captures
     and eager iterations, the passes run and the ``ro_mix`` launches of
     the iterations (the mixing's Random Overlap, one per absorber after
-    the first); a premixed run's three read zero."""
+    the first); a premixed run's three read zero; and the lookups of a
+    kept runner (:func:`loops`): those that took one over and those that
+    made one (neither for the runners of a block)."""
     graphs: int = 0
     replays: int = 0
     eager: int = 0
@@ -148,6 +165,8 @@ class Stats:
     mix_s: float = 0.0
     mixes: int = 0
     mix_launches: int = 0
+    cache_hits: int = 0
+    cache_misses: int = 0
 
     def as_dict(self):
         return dataclasses.asdict(self)
@@ -157,33 +176,67 @@ class Stats:
 # loop states: host counters <-> device counters
 # --------------------------------------------------------------------------- #
 
-def _leaves(x) -> List[torch.Tensor]:
-    """The tensors of a NamedTuple tree (a planet's or a batch's whole
-    state), in field order."""
+def _parts(x):
+    """The named parts of a NamedTuple or a dataclass, a list's or a plain
+    tuple's items (named None); None for a leaf."""
     if hasattr(x, "_fields"):
-        return [t for v in x for t in _leaves(v)]
-    return [x] if isinstance(x, torch.Tensor) else []
+        return list(zip(x._fields, x))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return [(f.name, getattr(x, f.name)) for f in dataclasses.fields(x)]
+    if isinstance(x, (list, tuple)):
+        return [(None, v) for v in x]
+    return None
+
+
+def _leaves(x) -> List[torch.Tensor]:
+    """The tensors of a tree (a planet's or a batch's whole state, a loop's
+    owners), in field order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for _, v in _parts(x) or () for t in _leaves(v)]
 
 
 def _leaf_names(x, name: str = "") -> List[str]:
     """The field names of :func:`_leaves`' tensors, each its innermost
     field (which says where a batch's tensor carries the planet axis,
     ``members.state_axis``)."""
-    if hasattr(x, "_fields"):
-        return [n for f, v in zip(x._fields, x) for n in _leaf_names(v, f)]
-    return [name] if isinstance(x, torch.Tensor) else []
+    if isinstance(x, torch.Tensor):
+        return [name]
+    return [n for f, v in _parts(x) or () for n in _leaf_names(v, f or name)]
 
 
 def _rebuild(template, leaves):
     """``template``'s tree with its tensors replaced by ``leaves``."""
-    it = iter(leaves)
+    return _replaced(template, iter(leaves))
 
-    def walk(x):
-        if hasattr(x, "_fields"):
-            return type(x)(*(walk(v) for v in x))
-        return next(it) if isinstance(x, torch.Tensor) else x
 
-    return walk(template)
+def _replaced(x, leaves):
+    # a function of the module, not a closure that calls itself: such a
+    # closure is a reference cycle, which would hold ``leaves`` (a
+    # result's tensors) until the cyclic collector runs
+    if isinstance(x, torch.Tensor):
+        return next(leaves)
+    parts = _parts(x)
+    if parts is None or not _leaves(x):
+        return x
+    new = [_replaced(v, leaves) for _, v in parts]
+    if hasattr(x, "_fields"):
+        return type(x)(*new)
+    if isinstance(x, (list, tuple)):
+        return type(x)(new)
+    return dataclasses.replace(x, **{f: v for (f, _), v in zip(parts, new)})
+
+
+def _signature(x):
+    """What a loop body can observe of a tree other than its tensors'
+    values: its structure, its Python scalars, and each tensor's shape,
+    strides, dtype and device (hashable; the kept runners' key)."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.stride(), x.dtype, x.device)
+    parts = _parts(x)
+    if parts is None:
+        return x
+    return (type(x), tuple((f, _signature(v)) for f, v in parts))
 
 
 def host_fields(state) -> List[str]:
@@ -292,7 +345,6 @@ class Runner:
         self.graphable = whole and self.settings.rounds is not None
         self.bounded = adjusts and self.graphable
         self.capture = self.graphable and template.T_lay.is_cuda
-        self.stats = stats
         dev = template.T_lay.device
         self.static = None
         if whole:
@@ -305,11 +357,17 @@ class Runner:
         self.overflow = torch.zeros((), dtype=torch.bool, device=dev)
         self.hist = torch.zeros(top + 2, dtype=torch.int64, device=dev)
         self.hist_seen = np.zeros(top + 2, np.int64)
-        if self.bounded and stats.rounds is None:
-            stats.rounds = [0] * (top + 2)
         self.graphs: Dict[tuple, _Graph] = {}
         self.pool = torch.cuda.graph_pool_handle() if self.capture else None
         self.stream = torch.cuda.Stream(dev) if self.capture else None
+        self.take(stats)
+
+    def take(self, stats: Stats) -> None:
+        """Count into ``stats`` from now on (the Stats of the block that
+        runs the runner, which may have been kept from an earlier one)."""
+        self.stats = stats
+        if self.bounded and stats.rounds is None:
+            stats.rounds = [0] * self.hist.numel()
 
     # -- state in and out ------------------------------------------------- #
 
@@ -523,29 +581,117 @@ class Runner:
 # who owns the runners
 # --------------------------------------------------------------------------- #
 
+def _compact(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with each broadcast (stride 0) dimension cut to one element:
+    its distinct elements, which a copy can write."""
+    return t.as_strided([1 if st == 0 else n
+                         for n, st in zip(t.shape, t.stride())],
+                        t.stride(), t.storage_offset())
+
+
+def _version(t: torch.Tensor) -> Optional[int]:
+    """``t``'s in-place write counter, None where it keeps none (an
+    inference tensor)."""
+    try:
+        return t._version
+    except RuntimeError:
+        return None
+
+
+class _Owned:
+    """A kept runner's own copies of its owners' tensors, which its body
+    reads: ``owners`` is the owners' tree on them, with the strides of
+    the tensors first copied and their broadcast dimensions broadcast;
+    ``load`` copies a later loop's owners (of the same signature ``sig``)
+    into them, all but the tensors it copied last that no write has
+    changed since."""
+
+    def __init__(self, owners, sig):
+        self.sig = sig
+        leaves = _leaves(owners)
+        self.dst = [_compact(t).clone() for t in leaves]
+        self.owners = _rebuild(owners, [d.expand(t.shape) for d, t
+                                        in zip(self.dst, leaves)])
+        self.seen = [(weakref.ref(t), _version(t)) for t in leaves]
+
+    def load(self, owners) -> None:
+        for k, t in enumerate(_leaves(owners)):
+            ref, version = self.seen[k]
+            if ref() is t and version is not None and version == _version(t):
+                continue
+            self.dst[k].copy_(_compact(t))
+            self.seen[k] = (weakref.ref(t), _version(t))
+
+
+# the runners kept across blocks, one per loop kind: (key, runner, owned)
+_KEPT: Dict[str, tuple] = {}
+
+
+def clear_kept() -> None:
+    """Drop the kept runners, their graphs, buffers and copies."""
+    _KEPT.clear()
+
+
+# graphs go before the CUDA context does
+atexit.register(clear_kept)
+
+
 class Loops:
-    """The runners of the loops run inside one :func:`loops` block, one
-    per loop kind, kept across the calls of a chunked run (their graphs
-    and static buffers serve every chunk) and made anew for another model;
-    ``stats[kind]`` sums what the kind's runners did."""
+    """The Stats of the loops run inside one :func:`loops` block, one per
+    loop kind (``stats[kind]`` sums what the kind's runners did there), and
+    the runners of this block alone (sliced models, ``PER_ITERATION``),
+    kept across the calls of a chunked run (their buffers serve every
+    chunk) and made anew for another model."""
 
     def __init__(self, settings: Settings):
         self.settings = settings
         self.runners: Dict[str, tuple] = {}
         self.stats: Dict[str, Stats] = {}
 
-    def runner(self, kind: str, owners: tuple,
-               make: Callable[[Settings, Stats], Runner]) -> Runner:
-        """The runner of loop ``kind`` for ``owners`` (phys, model, thermo,
-        species set: compared by identity)."""
-        held = self.runners.get(kind)
-        if held is None or len(held[0]) != len(owners) or any(
-                a is not b for a, b in zip(held[0], owners)):
-            self.runners.pop(kind, None)     # its graphs go before new ones
-            held = (owners, make(self.settings,
-                                 self.stats.setdefault(kind, Stats())))
-            self.runners[kind] = held
-        return held[1]
+    def runner(self, kind: str, owners: tuple, bind: Callable, template,
+               done_count: str, adjusts: bool) -> Runner:
+        """The runner of loop ``kind`` on ``owners`` (phys, model, thermo,
+        species set) with the state ``template``; ``bind(*owners) ->
+        (body, key)`` (see :class:`Runner`) is called on the kept runner's
+        copies of the owners, or on the owners for a runner of the
+        block."""
+        stats = self.stats.setdefault(kind, Stats())
+        whole = not count(owners[1])
+        settings = self.settings if whole else PER_ITERATION
+
+        def make(on):
+            body, key = bind(*on)
+            return Runner(body, key, template, done_count, adjusts, whole,
+                          self.settings, stats)
+
+        if settings.rounds is None:
+            held = self.runners.get(kind)
+            if held is None or len(held[0]) != len(owners) or any(
+                    a is not b for a, b in zip(held[0], owners)):
+                self.runners.pop(kind, None)  # its buffers go before new ones
+                held = (owners, make(owners))
+                self.runners[kind] = held
+            return held[1]
+        sig = _signature(owners)
+        key = (kind, settings, done_count, adjusts, sig,
+               _signature(template))
+        if kind in _KEPT and _KEPT[kind][0] == key:
+            stats.cache_hits += 1
+            _, runner, owned = _KEPT[kind]
+            owned.load(owners)
+            runner.take(stats)
+            return runner
+        stats.cache_misses += 1
+        # its graphs, and those of other owners, go before new ones
+        for k in [k for k, (_, _, o) in _KEPT.items()
+                  if k == kind or o.sig != sig]:
+            del _KEPT[k]
+        # the other kind's copies of these owners serve this runner too
+        owned = (next(iter(_KEPT.values()))[2] if _KEPT
+                 else _Owned(owners, sig))
+        owned.load(owners)
+        _KEPT[kind] = (key, make(owned.owners), owned)
+        return _KEPT[kind][1]
 
 
 _OPEN: contextvars.ContextVar = contextvars.ContextVar("loops", default=None)
@@ -553,10 +699,11 @@ _OPEN: contextvars.ContextVar = contextvars.ContextVar("loops", default=None)
 
 @contextlib.contextmanager
 def loops(settings: Optional[Settings] = None):
-    """A block whose loops share their runners (:class:`Loops`, yielded),
-    dropped with their graphs and buffers when it ends.  Without
-    ``settings`` an open block is joined (the caller that opened it owns
-    the runners), else one of the default settings opened."""
+    """A block whose loops share their Stats and runners (:class:`Loops`,
+    yielded); the runners of the block alone are dropped with their
+    buffers when it ends, the kept ones stay.  Without ``settings`` an
+    open block is joined (the caller that opened it owns the runners),
+    else one of the default settings opened."""
     outer = _OPEN.get()
     if settings is None and outer is not None:
         yield outer
@@ -570,20 +717,15 @@ def loops(settings: Optional[Settings] = None):
         scope.runners.clear()
 
 
-def run_loop(kind: str, owners: tuple, body: Callable, key: Callable,
-             state, m, max_steps: Optional[int], done_count: str,
-             adjusts: bool):
-    """Run loop ``kind`` of ``body`` from the host-counter ``state`` on
-    model ``m`` (see :class:`Runner`), with the runner of the open
-    :func:`loops` block, or one of this call alone."""
-    whole = not count(m)
-
-    def make(settings, stats):
-        return Runner(body, key, to_device(state), done_count, adjusts,
-                      whole, settings, stats)
-
+def run_loop(kind: str, owners: tuple, bind: Callable, state,
+             max_steps: Optional[int], done_count: str, adjusts: bool):
+    """Run loop ``kind`` from the host-counter ``state`` on ``owners``
+    (phys, model, thermo, species set), its body and key made by
+    ``bind(*owners)`` (see :class:`Runner`, :meth:`Loops.runner`), with the
+    runner of the open :func:`loops` block, or one of this call alone."""
     with loops() as scope:
-        runner = scope.runner(kind, owners, make)
+        runner = scope.runner(kind, owners, bind, to_device(state),
+                              done_count, adjusts)
         with running(runner.stats):
             return runner.run(state, max_steps)
 

@@ -263,15 +263,17 @@ def convection_loop(phys: Phys, m: ModelArrays, thermo: ThermoProps,
             keep = enter.cpu().numpy() if batch else bool(enter)
         state = state._replace(keep_running=keep)
 
-    def body(s, it, rounds):
-        return _one_convection_iteration(phys, m, thermo, s, it, sset,
-                                         rounds)
+    def bind(phys, m, thermo, sset):
+        def body(s, it, rounds):
+            return _one_convection_iteration(phys, m, thermo, s, it, sset,
+                                             rounds)
+        return body, lambda it: conv_key(phys, it)
 
     if phys.physical_tstep != 0.0:
         # one adjustment and solve, after which the loop is done: no
         # chunk replays iterations past it
         max_steps = 1 if max_steps is None else min(max_steps, 1)
 
-    return graphs.run_loop("convection", (phys, m, thermo, sset), body,
-                           lambda it: conv_key(phys, it), state, m,
-                           max_steps, done_count="steps", adjusts=True)
+    return graphs.run_loop("convection", (phys, m, thermo, sset), bind,
+                           state, max_steps, done_count="steps",
+                           adjusts=True)

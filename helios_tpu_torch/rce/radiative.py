@@ -371,8 +371,9 @@ def radiation_loop(phys: Phys, m: ModelArrays, thermo: Optional[ThermoProps],
     (computation.py:827-990).  One planet on one device runs in chunks of
     :mod:`graphs` (on the card each iteration a replayed CUDA graph), with
     one read of the device per chunk; a batch or a sliced model reads its
-    flags after every iteration.  The runner is that of the open
-    ``graphs.loops`` block, or one of this call alone.
+    flags after every iteration.  The runner is one kept from an earlier
+    loop of the same key, or that of the open ``graphs.loops`` block, or
+    one of this call alone (``graphs.Loops.runner``).
 
     ``max_steps`` caps this call; ``sset`` is the species set of on-the-fly
     opacity mixing; ``state0`` continues from a prior state instead of
@@ -394,9 +395,11 @@ def radiation_loop(phys: Phys, m: ModelArrays, thermo: Optional[ThermoProps],
         totals = integrate_flux_flat(phys, m, flux, state.cache.F_dir)
         return state._replace(flux=flux, totals=totals)
 
-    def body(s, it, rounds):
-        return _one_radiation_iteration(phys, m, thermo, s, it, sset), None
+    def bind(phys, m, thermo, sset):
+        def body(s, it, rounds):
+            return _one_radiation_iteration(phys, m, thermo, s, it,
+                                            sset), None
+        return body, lambda it: rad_key(phys, it)
 
-    return graphs.run_loop("radiation", (phys, m, thermo, sset), body,
-                           lambda it: rad_key(phys, it), state, m, max_steps,
-                           done_count="it", adjusts=False)
+    return graphs.run_loop("radiation", (phys, m, thermo, sset), bind, state,
+                           max_steps, done_count="it", adjusts=False)
