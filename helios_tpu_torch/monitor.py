@@ -10,9 +10,10 @@ loops run ``chunk_iters`` iterations per call (the ``max_steps`` /
 between chunks every registered callback sees the current state.  A chunk
 adds no arithmetic to an iteration, so the chunked trajectory is bit for
 bit the straight one; it costs one host sync per chunk on top of the
-loops' own reads of the device.  Each of the two chunked runners owns the
-loops' runners (``graphs.loops``) across its chunks: one planet's CUDA
-graphs are captured once per run and freed when its loop ends.
+loops' own reads of the device.  A chunk is a loop call like any other: a
+whole model's runner, its CUDA graphs and buffers, is kept from one call
+to the next (and from one run to the next of the same shapes,
+``rce.graphs``), a sliced model's made anew for each chunk.
 
 Callbacks:
   - ProgressPrinter:  reference-style progress lines
@@ -23,7 +24,7 @@ Callbacks:
 Profiling: with ``profile_dir`` the second chunk of the radiation loop runs
 under ``torch.profiler`` and its Chrome trace is written there (the first
 chunk includes the kernels' first-use build and load); the trace holds the
-loop's ``helios.*`` ranges (``graphs.span``).
+loop's ``helios.*`` ranges (``tracing.span``).
 
 On a mesh (``mesh``, :mod:`helios_tpu_torch.parallel.sharding`) each chunk
 runs over the slices and the planet positions, and between chunks the state
@@ -44,7 +45,6 @@ import torch
 from helios_tpu_torch.forward import ModelArrays, Phys
 from helios_tpu_torch.ops.members import loop_counter, running_members
 from helios_tpu_torch.parallel import sharding as shd
-from helios_tpu_torch.rce import graphs
 from helios_tpu_torch.rce.loop import convection_loop
 from helios_tpu_torch.rce.radiative import (RadLoopState, init_rad_state,
                                             radiation_loop)
@@ -122,13 +122,6 @@ def run_radiation_chunked(phys: Phys, m: ModelArrays, thermo, T_lay0, *,
     resumes from a restored state.  A post-processing run is one flux
     solve, with no callbacks.  ``mesh``: the loop runs on this mesh, ``m``
     and ``sset`` placed on it (sharding.place_model, place_species)."""
-    with graphs.loops():
-        return _radiation_chunks(phys, m, thermo, T_lay0, chunk_iters, sset,
-                                 callbacks, state0, profile_dir, mesh)
-
-
-def _radiation_chunks(phys, m, thermo, T_lay0, chunk_iters, sset, callbacks,
-                      state0, profile_dir, mesh):
     if mesh is not None:
         rad_init, rad_run, _, _ = shd.production_runners(
             phys, mesh, thermo, sset, chunk_iters=chunk_iters)
@@ -155,13 +148,6 @@ def run_convection_chunked(phys: Phys, m: ModelArrays, thermo, rad, *,
     (the same continuation as run_radiation_chunked).  ``state0`` resumes
     from a restored ConvLoopState instead of entering from the radiation
     result ``rad``.  ``mesh``: as in run_radiation_chunked."""
-    with graphs.loops():
-        return _convection_chunks(phys, m, thermo, rad, chunk_iters, sset,
-                                  callbacks, state0, mesh)
-
-
-def _convection_chunks(phys, m, thermo, rad, chunk_iters, sset, callbacks,
-                       state0, mesh):
     if mesh is not None:
         _, _, conv_enter, conv_run = shd.production_runners(
             phys, mesh, thermo, sset, chunk_iters=chunk_iters)

@@ -1,7 +1,8 @@
 """The planet axis of a batch (:mod:`helios_tpu_torch.parallel.ensemble`):
-where each array carries it, one member taken out, a stopped member's
-state kept, the move to and from the JAX package's [N, ...] order, and
-elementwise functions rounded as each member's own run rounds them.
+where each array carries it, one member taken out, the mask that keeps a
+stopped member's state, the move to and from the JAX package's [N, ...]
+order, and elementwise functions rounded as each member's own run rounds
+them.
 
 A batch of P planets keeps the planet axis after the layer axis: per-layer
 arrays [n, P], spectral arrays [n, P, S], so that a contiguous [L, P, S]
@@ -84,19 +85,6 @@ def member_mask(name: str, x: torch.Tensor, run: torch.Tensor):
         return run
     axis = state_axis(name, x)
     return run.reshape((1,) * axis + run.shape + (1,) * (x.dim() - axis - 1))
-
-
-def freeze_members(new, old, run):
-    """``new`` where a member runs, ``old`` where it has stopped, over the
-    NamedTuple tree of a batch's state: a member that has converged keeps
-    exactly its state of its own last iteration while the others go on.
-    ``run``: [P] bool on the device (0-d for one planet)."""
-    def pick(name, n, o):
-        if n is o:
-            return n
-        return torch.where(member_mask(name, n, run.to(n.device)), n, o)
-
-    return _map_state(pick, new, old)
 
 
 def member_groups(state, n: int):

@@ -49,7 +49,7 @@ from helios_tpu_torch.monitor import (run_convection_chunked,
 from helios_tpu_torch.ops.members import (MODEL_AXIS, member_state,
                                           running_members)
 from helios_tpu_torch.parallel import sharding as shd
-from helios_tpu_torch.rce import graphs
+from helios_tpu_torch.tracing import span
 
 def stack_models(models: Sequence[ModelArrays]) -> ModelArrays:
     """N ModelArrays as one batch: each field with the planet axis where
@@ -157,8 +157,8 @@ def run_ensemble(cfgs: Sequence, tables: Optional[Sequence] = None,
     position, row by row; a device may repeat); the member count must
     divide by ``n_planet_batch``.  Returns one RunOutput per member; the
     walls are the batch's, its spans those of ``pipeline.run``."""
-    with graphs.span("helios.run") as whole:
-        with graphs.span("helios.prepare"):
+    with span("helios.run") as whole:
+        with span("helios.prepare"):
             dev = shd.home_device(device)
             cfgs = [c if c._finalized else c.finalize() for c in cfgs]
             cfg0 = cfgs[0]
@@ -191,18 +191,9 @@ def run_ensemble(cfgs: Sequence, tables: Optional[Sequence] = None,
             want_conv = (phys.convection and not phys.singlewalk
                          and not phys.iso)
 
-            # on a mesh the loops run on a copy with the bin axis padded to
-            # a multiple of the slices, placed on the mesh; restores read
-            # the padded copy whole on the home device
-            m = stack_models(models)
-            phys_run, sset_run = phys, sset
-            m_loop, sset_loop = m, sset
-            if mesh is not None:
-                n_spec = mesh.shape["spectral"]
-                phys_run, m = shd.pad_spectral(phys, m, n_spec)
-                sset_run = shd.pad_species(sset, n_spec)
-                m_loop = shd.place_model(m, mesh)
-                sset_loop = shd.place_species(sset_run, mesh)
+            # on a mesh the loops run on the padded batch placed on it
+            (phys_run, m, sset_run), (m_loop, sset_loop) = shd.place_run(
+                phys, stack_models(models), sset, mesh)
             T0 = torch.as_tensor(np.stack(T0s, axis=1),
                                  dtype=torch_dtype(cfg0.dtype), device=dev)
 
@@ -238,13 +229,13 @@ def run_ensemble(cfgs: Sequence, tables: Optional[Sequence] = None,
                     conv_path, chunk, phys_run))
             pl.settle(dev)
 
-        with graphs.span("helios.radiation") as rad_span:
+        with span("helios.radiation") as rad_span:
             rads = run_radiation_chunked(phys_run, m_loop, thermo, T0,
                                          chunk_iters=chunk, sset=sset_loop,
                                          callbacks=rad_cbs, state0=rad0,
                                          mesh=mesh)
             pl.settle(dev)
-        with graphs.span("helios.convection") as conv_span:
+        with span("helios.convection") as conv_span:
             convs = None
             if want_conv:
                 convs = run_convection_chunked(
@@ -253,7 +244,7 @@ def run_ensemble(cfgs: Sequence, tables: Optional[Sequence] = None,
                     mesh=mesh)
             pl.settle(dev)
 
-        with graphs.span("helios.result"):
+        with span("helios.result"):
             outs = []
             for i, (cfg, arrays) in enumerate(zip(cfgs, models)):
                 rad_i = member_state(rads, i)

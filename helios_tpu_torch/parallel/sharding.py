@@ -221,6 +221,20 @@ def place_species(sset, mesh: Mesh) -> list:
     return [row_sets(row) for row in mesh.devices]
 
 
+def place_run(phys: Phys, m: ModelArrays, sset, mesh: Optional[Mesh]):
+    """A run's model for ``mesh``: ``(phys, m, sset)`` with the bin axis
+    padded to a multiple of the mesh's slices (what checkpoints restore,
+    whole on the home device), and ``(m, sset)`` so padded and placed on
+    the mesh (:func:`place_model`, :func:`place_species`); without a mesh
+    both as they are."""
+    if mesh is None:
+        return (phys, m, sset), (m, sset)
+    n_spec = mesh.shape["spectral"]
+    phys, m = pad_spectral(phys, m, n_spec)
+    sset = pad_species(sset, n_spec)
+    return (phys, m, sset), (place_model(m, mesh), place_species(sset, mesh))
+
+
 def on_mesh(fn, models: Sequence[ModelArrays], ssets: Sequence, x):
     """``fn(m, sset, x)`` at every planet position of a placed model, in
     position order: ``x`` (a whole loop state, or temperatures, on the home

@@ -54,12 +54,13 @@ from helios_tpu_torch.io.opacity import OpacityTable, load_opacity_file
 from helios_tpu_torch.ops import integrate as int_ops
 from helios_tpu_torch.ops import interp as interp_ops
 from helios_tpu_torch.parallel import sharding as shd
-from helios_tpu_torch.rce import convect, graphs
+from helios_tpu_torch.rce import convect
 from helios_tpu_torch.rce.loop import ConvLoopState
 from helios_tpu_torch.rce.radiative import (RadLoopState, ThermoProps,
                                             kappa_cp_lay, kappa_int,
                                             make_const_thermo,
                                             make_table_thermo)
+from helios_tpu_torch.tracing import span
 
 
 def initial_temperatures(cfg: HeliosConfig, phys: Phys,
@@ -471,9 +472,9 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
     devices, one per slice (a device may repeat).
     The times end after the device has finished: the run is the span
     ``helios.run``, its phases ``helios.prepare``, ``helios.radiation``,
-    ``helios.convection`` and ``helios.result`` (``graphs.span``)."""
-    with graphs.span("helios.run") as whole:
-        with graphs.span("helios.prepare"):
+    ``helios.convection`` and ``helios.result`` (``tracing.span``)."""
+    with span("helios.run") as whole:
+        with span("helios.prepare"):
             if not cfg._finalized:
                 cfg = cfg.finalize()
             n_spec = int(cfg.n_spectral_shards)
@@ -496,19 +497,12 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
             T0 = torch.as_tensor(initial_temperatures(cfg, phys, arrays),
                                  dtype=torch_dtype(cfg.dtype), device=dev)
 
-            # a mesh: the loops run on a copy with the bin axis padded to a
-            # multiple of the slices (restores read it whole on the home
-            # device) and placed on the slices; post-processing keeps the
-            # unpadded model
-            mesh = None
-            phys_run, arrays_run, sset_run = phys, arrays, sset
-            m_loop, sset_loop = arrays, sset
-            if n_spec > 1:
-                phys_run, arrays_run = shd.pad_spectral(phys, arrays, n_spec)
-                sset_run = shd.pad_species(sset, n_spec)
-                mesh = shd.make_mesh(1, n_spec, devs[:n_spec])
-                m_loop = shd.place_model(arrays_run, mesh)
-                sset_loop = shd.place_species(sset_run, mesh)
+            # on a mesh the loops run on the padded model placed on the
+            # slices; post-processing keeps the unpadded model
+            mesh = (shd.make_mesh(1, n_spec, devs[:n_spec]) if n_spec > 1
+                    else None)
+            (phys_run, arrays_run, sset_run), (m_loop, sset_loop) = (
+                shd.place_run(phys, arrays, sset, mesh))
 
             # a monitored run observes the loops between chunks (mid-run
             # coupling TP writes and the debug checks too); an unmonitored
@@ -553,13 +547,13 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
             chunk = (monitored_chunk(cfg, coupl_interval) if monitored
                      else None)
             settle(dev)
-        with graphs.span("helios.radiation") as rad_span:
+        with span("helios.radiation") as rad_span:
             rad = monitor_mod.run_radiation_chunked(
                 phys_run, m_loop, thermo, T0, chunk_iters=chunk,
                 sset=sset_loop, callbacks=rad_cbs, state0=rad_state0,
                 profile_dir=cfg.profile_dir or None, mesh=mesh)
             settle(dev)
-        with graphs.span("helios.convection") as conv_span:
+        with span("helios.convection") as conv_span:
             if convect_on:
                 conv = monitor_mod.run_convection_chunked(
                     phys_run, m_loop, thermo, rad, chunk_iters=chunk,
@@ -567,7 +561,7 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None, *,
                     mesh=mesh)
             settle(dev)
 
-        with graphs.span("helios.result"):
+        with span("helios.result"):
             final = conv if conv is not None else rad
             # the outputs carry the real bins only (padded bins had
             # delta_lambda 0)

@@ -30,7 +30,7 @@ from helios_tpu_torch import constants as pc
 from helios_tpu_torch.forward import layer_index
 from helios_tpu_torch.kernels.ordered import ordered_cumsum
 from helios_tpu_torch.ops.members import memberwise
-from helios_tpu_torch.rce import graphs
+from helios_tpu_torch.tracing import running_stats, span
 
 # pressure above which the top atmosphere is ignored by the instability
 # check (artificial temperature peaks occur there); host_functions.py:345
@@ -362,17 +362,17 @@ def convective_adjustment(T_lay, p_lay, p_int, kappa_lay, kappa_int,
     def any_unstable(active, stats) -> bool:
         """One round's blocking read, counted and timed into the running
         loop's Stats."""
-        with graphs.span("helios.adjust_read", stats, "adjust_read_s"):
+        with span("helios.adjust_read", stats, "adjust_read_s"):
             flag = bool(active.any())
         if stats is not None:
             stats.adjust_reads += 1
         return flag
 
-    with (graphs.span("helios.adjust") if rounds is None
+    with (span("helios.adjust") if rounds is None
           else contextlib.nullcontext()):
         unstable, active = unstable_members(T_lay)
         if rounds is None:
-            stats = graphs.loop_stats()
+            stats = running_stats()
             while any_unstable(active, stats):
                 T_lay = correct(T_lay, unstable, active)
                 unstable, active = unstable_members(T_lay)

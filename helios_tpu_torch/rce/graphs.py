@@ -13,22 +13,23 @@ with host counters, as the callers see it, becomes a device state at entry
 and returns with host counters read back.
 
 One class, :class:`Runner`, runs a body in chunks of ``Settings.chunk``
-iterations with one read of the flags after each.  An iteration writes its
-results only where ``keep_running`` was set at its start, so the iterations
-after the planet (or a member of a batch) stops change nothing, as an
-iteration of ``lax.while_loop`` past its condition does not run.
+iterations with one read of the flags after each, on a state it holds in
+static buffers (a planet's, a batch's with the planet axis, or a sliced
+model's, each slice's on its device).  An iteration writes its results
+only where ``keep_running`` was set at its start, so the iterations after
+the planet (or a member of a batch) stops change nothing, as an iteration
+of ``lax.while_loop`` past its condition does not run.
 
-- A model whole on one device, one planet's or a batch's, keeps its state
-  in static buffers.  On the card each key's body runs eagerly the first
-  time (which builds and loads the kernels), is captured as a CUDA graph
-  into one memory pool after the chunk's read has shown that the planet
-  (a member) ran that iteration, and is replayed from then on; on the CPU
-  the same body runs eagerly, since the caller asked for the CPU.  The
-  host's copy of the counter chooses each replay's key; while the planet
-  runs it equals the device counter, and a batch's running members share
-  it.
+- A model whole on one device, one planet's or a batch's: on the card each
+  key's body runs eagerly the first time (which builds and loads the
+  kernels), is captured as a CUDA graph into one memory pool after the
+  chunk's read has shown that the planet (a member) ran that iteration,
+  and is replayed from then on; on the CPU the same body runs eagerly,
+  since the caller asked for the CPU.  The host's copy of the counter
+  chooses each replay's key; while the planet runs it equals the device
+  counter, and a batch's running members share it.
 - A sliced model (spectral slices, the planet x spectral mesh, whose
-  planet groups take turns on the runners) runs :data:`PER_ITERATION`: a
+  planet groups run one after another) runs :data:`PER_ITERATION`: a
   chunk of one, unbounded adjustments, nothing captured.  So does any run
   inside ``loops(PER_ITERATION)``, the reference that the graphs are held
   against.
@@ -41,8 +42,8 @@ from a snapshot of its start, eagerly and with unbounded rounds (a
 
 Kernel launch counts (``<wrapper>.launches``) count every launch: an eager
 iteration's wrappers count their own, a replay adds the launches its graph
-holds (recorded at capture, which launches nothing).  The runner's
-:class:`Stats` count the graphs, replays, reads, redos and adjustment
+holds (recorded by kernel name at capture, which launches nothing).  The
+runner's :class:`Stats` count the graphs, replays, reads, redos and adjustment
 rounds, and the launches of iterations that changed nothing (past the
 stop, or the first try of a redone chunk).  On-the-fly opacity mixing
 passes (``tracing.mixing``) are counted the same way, live in an eager
@@ -56,24 +57,23 @@ the adjustment's reads, the opacity mixing inside captures and eager
 iterations), and while a profiler records it is a
 ``record_function`` range on the clock of the device's kernels.
 
-A runner that holds its iterations (a whole model, ``rounds`` bounded:
-one that captures on the card) outlives the block of :func:`loops` it ran
-in: it is kept process-wide, one per loop kind, with its graphs, memory
-pool, static buffers and its own copies of the tensors its body reads
-(the owners': phys, model, thermo, species set).  A later loop whose key
-matches, the kind, the settings, the owners' structure and Python scalars
-(the ``Phys`` value among them) and every tensor's shape, strides, dtype
-and device, of the owners and of the state, takes it over: the solve's
-owner tensors are copied into the runner's (:class:`_Owned`), its state
-into the static buffers, and the graphs already captured replay.  A miss
-drops the kind's kept runner, and every kept runner of other owners,
-graphs and buffers, before a new one is made; :func:`clear_kept` drops
-them all.  The other runners (sliced models, ``PER_ITERATION``) live in
-the block that the caller of a run opens (``monitor.run_radiation_chunked``
-and ``run_convection_chunked``), one per loop kind across the calls of a
-chunked run, and are dropped when it ends.  Either way a runner counts
-into the Stats of the block it runs in.  A capture or replay error
-raises; nothing falls back to the eager body.
+Who owns a runner follows from its settings alone (:meth:`Loops.runner`).
+A runner that holds iterations (``rounds`` bounded: a whole model outside
+:data:`PER_ITERATION`, the runner that captures on the card) is kept
+process-wide, one per loop kind, with its graphs, memory pool, static
+buffers and its own copies of the tensors its body reads (the owners':
+phys, model, thermo, species set).  A later loop whose key matches, the
+kind, the settings, the owners' structure and Python scalars (the ``Phys``
+value among them) and every tensor's shape, strides, dtype and device, of
+the owners and of the state, takes it over: the solve's owner tensors are
+copied into the runner's (:class:`_Owned`), its state into the static
+buffers, and the graphs already captured replay.  A miss drops the kind's
+kept runner, and every kept runner of other owners, graphs and buffers,
+before a new one is made; :func:`clear_kept` drops them all.  Every other
+runner is made for its :func:`run_loop` call and dropped when the call
+returns.  Either way a runner counts into the Stats of the :func:`loops`
+block it runs in.  A capture or replay error raises; nothing falls back to
+the eager body.
 """
 
 from __future__ import annotations
@@ -88,9 +88,9 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from helios_tpu_torch.ops.members import freeze_members, member_mask
+from helios_tpu_torch import tracing
+from helios_tpu_torch.ops.members import member_mask
 from helios_tpu_torch.ops.slices import count
-from helios_tpu_torch.tracing import running, running_stats, span
 
 # iterations between two reads of the device: the iterations replayed
 # after the stop cost at most CHUNK - 1 iterations of device time (PERF.md
@@ -146,7 +146,7 @@ class Stats:
     the iterations (the mixing's Random Overlap, one per absorber after
     the first); a premixed run's three read zero; and the lookups of a
     kept runner (:func:`loops`): those that took one over and those that
-    made one (neither for the runners of a block)."""
+    made one (neither for a runner made for one loop call)."""
     graphs: int = 0
     replays: int = 0
     eager: int = 0
@@ -294,21 +294,18 @@ def _kernel_wrappers():
             ro.ro_mix, ordered.ordered_sum, integrate.band_integrate)
 
 
-def _launches() -> List[int]:
-    return [w.launches for w in _kernel_wrappers()]
+def _launches() -> Dict[str, int]:
+    """Each wrapper's launch count, by the wrapper's name."""
+    return {w.__name__: w.launches for w in _kernel_wrappers()}
 
 
-def _set_launches(counts) -> None:
-    for w, n in zip(_kernel_wrappers(), counts):
-        w.launches = n
+def _set_launches(counts: Dict[str, int]) -> None:
+    for w in _kernel_wrappers():
+        w.launches = counts[w.__name__]
 
 
-# where ro_mix, the mixing's only kernel, stands in _launches()
-_RO = 3
-
-
-def _minus(a, b) -> List[int]:
-    return [x - y for x, y in zip(a, b)]
+def _minus(a: Dict[str, int], b: Dict[str, int]) -> Dict[str, int]:
+    return {k: n - b[k] for k, n in a.items()}
 
 
 # --------------------------------------------------------------------------- #
@@ -317,7 +314,7 @@ def _minus(a, b) -> List[int]:
 
 class _Graph(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
-    launches: List[int]
+    launches: Dict[str, int]    # by kernel name
     mixes: int                  # the opacity mixing passes it holds
 
 
@@ -326,33 +323,28 @@ class Runner:
     -> (new state, aux)`` is the loop's body at host counter ``it``;
     ``key(it)`` the branches it takes there; ``done_count`` the device
     counter that advances once per iteration run (``it`` or ``steps``).
-    ``template`` (a device state) gives the static buffers their shapes.
-    ``adjusts``: the body makes a convective adjustment of ``rounds``
-    rounds and returns (rounds needed, still unstable) as ``aux`` (None
-    for unbounded rounds).  ``whole``: the model is whole on one device,
-    and the state (a planet's, or a batch's with the planet axis) lives in
-    static buffers whose iterations the card captures; otherwise (a sliced
-    model) the runner takes :data:`PER_ITERATION` whatever ``settings``
-    says."""
+    ``template`` (a device state) gives the static buffers their shapes
+    and devices.  ``adjusts``: the body makes a convective adjustment of
+    ``rounds`` rounds and returns (rounds needed, still unstable) as
+    ``aux`` (None for unbounded rounds).  ``settings``: as resolved for
+    the model (:data:`PER_ITERATION` for a sliced one); with ``rounds``
+    bounded the runner holds its iterations, which the card captures."""
 
     def __init__(self, body: Callable, key: Callable, template,
-                 done_count: str, adjusts: bool, whole: bool,
-                 settings: Settings, stats: Stats):
+                 done_count: str, adjusts: bool, settings: Settings,
+                 stats: Stats):
         self.body, self.key, self.done_count = body, key, done_count
-        self.settings = settings if whole else PER_ITERATION
+        self.settings = settings
         # iterations that a graph holds on the card (and runs eagerly on
         # the CPU)
-        self.graphable = whole and self.settings.rounds is not None
+        self.graphable = settings.rounds is not None
         self.bounded = adjusts and self.graphable
         self.capture = self.graphable and template.T_lay.is_cuda
         dev = template.T_lay.device
-        self.static = None
-        if whole:
-            self.static = _rebuild(template, [
-                torch.empty_like(t, memory_format=torch.contiguous_format)
-                for t in _leaves(template)])
-            self.names = _leaf_names(template)
-        self.state = self.static
+        self.static = _rebuild(template, [
+            torch.empty_like(t, memory_format=torch.contiguous_format)
+            for t in _leaves(template)])
+        self.names = _leaf_names(template)
         top = max(self.settings.rounds or 0, self.settings.entry_rounds or 0)
         self.overflow = torch.zeros((), dtype=torch.bool, device=dev)
         self.hist = torch.zeros(top + 2, dtype=torch.int64, device=dev)
@@ -372,14 +364,10 @@ class Runner:
     # -- state in and out ------------------------------------------------- #
 
     def load(self, state):
-        """Take a host-counter state: into the static buffers (a planet's
+        """Take a host-counter state into the static buffers (a planet's
         host counter by a fill, which reads nothing from host memory, a
-        batch's [P] counters by a copy), or a sliced model's as its
-        device-counter state."""
+        batch's [P] counters by a copy)."""
         self.fields = host_fields(state)
-        if self.static is None:
-            self.state = to_device(state)
-            return
         for f in state._fields:
             if f in self.fields:
                 value = getattr(state, f)
@@ -397,8 +385,8 @@ class Runner:
         """The state's counters, the overflow flag and the rounds'
         histogram, one read."""
         self.stats.reads += 1
-        with span("helios.read", self.stats, "read_s"):
-            flags = read_flags(self.state, [self.overflow, self.hist])
+        with tracing.span("helios.read", self.stats, "read_s"):
+            flags = read_flags(self.static, [self.overflow, self.hist])
         if self.bounded:
             hist = flags["extra1"].astype(np.int64)
             self.stats.rounds = [a + int(b) for a, b in zip(
@@ -410,9 +398,7 @@ class Runner:
         """The state as a host-counter state of its own tensors (the
         static buffers' cloned: the next replay does not overwrite
         them)."""
-        out = self.state
-        if self.static is not None:
-            out = _rebuild(out, [t.clone() for t in _leaves(out)])
+        out = _rebuild(self.static, [t.clone() for t in _leaves(self.static)])
         return to_host(out, flags, self.fields,
                        batched=out.T_lay.dim() > 1)
 
@@ -420,16 +406,11 @@ class Runner:
 
     def _write(self, new, aux):
         """The new state where the planet (a member) ran at the
-        iteration's start, the old one elsewhere: into the static buffers
-        (``keep`` along each tensor's planet axis, as
-        ``members.freeze_members`` broadcasts it), a sliced model's as a
-        new state; the adjustment's round count and flag, a batch's
-        iteration counted once where a member ran."""
-        keep = self.state.keep_running
-        if self.static is None:
-            self.state = freeze_members(new, self.state, keep)
-            return
-        keep = keep.clone()          # the writes below overwrite it
+        iteration's start, the old one elsewhere, into the static buffers
+        (``keep`` along each tensor's planet axis, on the tensor's device:
+        a slice's may be another card); the adjustment's round count and
+        flag, a batch's iteration counted once where a member ran."""
+        keep = self.static.keep_running.clone()   # the writes overwrite it
         olds, news = _leaves(self.static), _leaves(new)
         # a result that shares a buffer of the state (T_store = T_lay) is
         # copied first: the writes below overwrite those buffers
@@ -438,7 +419,8 @@ class Runner:
                 else n.clone() for n, o in zip(news, olds)]
         for name, o, n in zip(self.names, olds, news):
             if n is not o:
-                torch.where(member_mask(name, o, keep), n, o, out=o)
+                torch.where(member_mask(name, o, keep.to(o.device)), n, o,
+                            out=o)
         if aux is not None:
             needed, unstable = aux
             self.overflow |= unstable
@@ -454,16 +436,16 @@ class Runner:
             return None
         return self.settings.entry_rounds if it == 0 else self.settings.rounds
 
-    def _eager(self, it: int, rounds) -> List[int]:
+    def _eager(self, it: int, rounds) -> Dict[str, int]:
         """Iteration ``it`` run eagerly; returns the launches it made (the
         wrappers counted them)."""
         before = _launches()
-        with span("helios.iteration", self.stats, "eager_s"):
-            new, aux = self.body(self.state, it, rounds)
+        with tracing.span("helios.iteration", self.stats, "eager_s"):
+            new, aux = self.body(self.static, it, rounds)
             self._write(new, aux)
         self.stats.eager += 1
         made = _minus(_launches(), before)
-        self.stats.mix_launches += made[_RO]
+        self.stats.mix_launches += made["ro_mix"]
         return made
 
     def _capture(self, it: int) -> _Graph:
@@ -472,7 +454,7 @@ class Runner:
         were (the mixing's host seconds count)."""
         before = _launches()
         mixes = self.stats.mixes
-        with span("helios.capture", self.stats, "capture_s"):
+        with tracing.span("helios.capture", self.stats, "capture_s"):
             g = torch.cuda.CUDAGraph()
             self.stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(self.stream):
@@ -491,19 +473,20 @@ class Runner:
         self.stats.graphs += 1
         return _Graph(g, held, held_mixes)
 
-    def step(self, it: int) -> List[int]:
+    def step(self, it: int) -> Dict[str, int]:
         """Iteration ``it`` (the host's counter): a replay of its key's
         graph, or without one the body run eagerly.  Returns the launches
         it made."""
         g = self.graphs.get(self.key(it)) if self.capture else None
         if g is None:
             return self._eager(it, self.graph_rounds(it))
-        with span("helios.replay", self.stats, "replay_s"):
+        with tracing.span("helios.replay", self.stats, "replay_s"):
             g.graph.replay()
-        _set_launches([a + b for a, b in zip(_launches(), g.launches)])
+        for w in _kernel_wrappers():
+            w.launches += g.launches[w.__name__]
         self.stats.replays += 1
         self.stats.mixes += g.mixes
-        self.stats.mix_launches += g.launches[_RO]
+        self.stats.mix_launches += g.launches["ro_mix"]
         return g.launches
 
     # -- chunks ----------------------------------------------------------- #
@@ -515,11 +498,10 @@ class Runner:
         for dst, src in zip(_leaves(self.static), snap):
             dst.copy_(src)
 
-    def _idle(self, made: List[List[int]]) -> None:
-        names = [w.__name__ for w in _kernel_wrappers()]
+    def _idle(self, made: List[Dict[str, int]]) -> None:
         idle = self.stats.idle_launches
         for counts in made:
-            for name, n in zip(names, counts):
+            for name, n in counts.items():
                 idle[name] = idle.get(name, 0) + n
 
     def run(self, state, max_steps: Optional[int]):
@@ -637,41 +619,32 @@ atexit.register(clear_kept)
 
 
 class Loops:
-    """The Stats of the loops run inside one :func:`loops` block, one per
-    loop kind (``stats[kind]`` sums what the kind's runners did there), and
-    the runners of this block alone (sliced models, ``PER_ITERATION``),
-    kept across the calls of a chunked run (their buffers serve every
-    chunk) and made anew for another model."""
+    """The settings of the loops run inside one :func:`loops` block and
+    their Stats, one per loop kind (``stats[kind]`` sums what the kind's
+    runners did there)."""
 
     def __init__(self, settings: Settings):
         self.settings = settings
-        self.runners: Dict[str, tuple] = {}
         self.stats: Dict[str, Stats] = {}
 
     def runner(self, kind: str, owners: tuple, bind: Callable, template,
                done_count: str, adjusts: bool) -> Runner:
         """The runner of loop ``kind`` on ``owners`` (phys, model, thermo,
-        species set) with the state ``template``; ``bind(*owners) ->
+        species set) with the state ``template``: one that holds
+        iterations is the kept one of its key, taken over or made and
+        kept; any other is made for this call alone.  ``bind(*owners) ->
         (body, key)`` (see :class:`Runner`) is called on the kept runner's
-        copies of the owners, or on the owners for a runner of the
-        block."""
+        copies of the owners, or on the owners."""
         stats = self.stats.setdefault(kind, Stats())
-        whole = not count(owners[1])
-        settings = self.settings if whole else PER_ITERATION
+        settings = PER_ITERATION if count(owners[1]) else self.settings
 
         def make(on):
             body, key = bind(*on)
-            return Runner(body, key, template, done_count, adjusts, whole,
-                          self.settings, stats)
+            return Runner(body, key, template, done_count, adjusts, settings,
+                          stats)
 
         if settings.rounds is None:
-            held = self.runners.get(kind)
-            if held is None or len(held[0]) != len(owners) or any(
-                    a is not b for a, b in zip(held[0], owners)):
-                self.runners.pop(kind, None)  # its buffers go before new ones
-                held = (owners, make(owners))
-                self.runners[kind] = held
-            return held[1]
+            return make(owners)
         sig = _signature(owners)
         key = (kind, settings, done_count, adjusts, sig,
                _signature(template))
@@ -699,11 +672,9 @@ _OPEN: contextvars.ContextVar = contextvars.ContextVar("loops", default=None)
 
 @contextlib.contextmanager
 def loops(settings: Optional[Settings] = None):
-    """A block whose loops share their Stats and runners (:class:`Loops`,
-    yielded); the runners of the block alone are dropped with their
-    buffers when it ends, the kept ones stay.  Without ``settings`` an
-    open block is joined (the caller that opened it owns the runners),
-    else one of the default settings opened."""
+    """A block whose loops share their settings and Stats (:class:`Loops`,
+    yielded).  Without ``settings`` an open block is joined, else one of
+    the default settings opened."""
     outer = _OPEN.get()
     if settings is None and outer is not None:
         yield outer
@@ -714,30 +685,25 @@ def loops(settings: Optional[Settings] = None):
         yield scope
     finally:
         _OPEN.reset(token)
-        scope.runners.clear()
 
 
 def run_loop(kind: str, owners: tuple, bind: Callable, state,
              max_steps: Optional[int], done_count: str, adjusts: bool):
     """Run loop ``kind`` from the host-counter ``state`` on ``owners``
     (phys, model, thermo, species set), its body and key made by
-    ``bind(*owners)`` (see :class:`Runner`, :meth:`Loops.runner`), with the
-    runner of the open :func:`loops` block, or one of this call alone."""
+    ``bind(*owners)`` (see :class:`Runner`, :meth:`Loops.runner`), in the
+    open :func:`loops` block or in one of this call alone."""
     with loops() as scope:
         runner = scope.runner(kind, owners, bind, to_device(state),
                               done_count, adjusts)
-        with running(runner.stats):
+        with tracing.running(runner.stats):
             return runner.run(state, max_steps)
 
 
-def loop_stats(kind: Optional[str] = None) -> Optional[Stats]:
-    """The Stats of loop ``kind`` in the open :func:`loops` block, or
-    without ``kind`` those of the loop whose runner runs in it (where the
-    adjustment of an iteration counts its reads); None outside a block or
-    a loop."""
+def loop_stats(kind: str) -> Optional[Stats]:
+    """The Stats of loop ``kind`` in the open :func:`loops` block; None
+    outside a block."""
     scope = _OPEN.get()
     if scope is None:
         return None
-    if kind is None:
-        return running_stats()
     return scope.stats.setdefault(kind, Stats())

@@ -4,10 +4,11 @@
 
 As in the radiation loop, the body keeps its counters on the device and
 branches on the host's copy of the counter (:func:`conv_key`), and
-:mod:`helios_tpu_torch.rce.graphs` runs one planet's iterations as
-replayed CUDA graphs, reading the device once per chunk.  The counter
-advances only while the run is not done (computation.py:1109-1164), a
-device flag from iteration 400 on (before it the run cannot be done).
+:mod:`helios_tpu_torch.rce.graphs` runs a planet's or a batch's
+iterations as replayed CUDA graphs, reading the device once per chunk.
+The counter advances only while the run is not done
+(computation.py:1109-1164), a device flag from iteration 400 on (before
+it the run cannot be done).
 Inside a graph the convective adjustment runs a fixed number of rounds.
 With a physical timestep the loop makes one convective adjustment and
 flux solve and no temperature step.
@@ -29,6 +30,7 @@ from helios_tpu_torch.rce import convect, graphs
 from helios_tpu_torch.rce.radiative import (RadLoopState, ThermoProps,
                                             kappa_cp_lay, kappa_int,
                                             smoothing_flux)
+from helios_tpu_torch.tracing import span
 
 
 class ConvLoopState(NamedTuple):
@@ -126,7 +128,7 @@ def _convection_step(phys: Phys, m: ModelArrays, thermo: ThermoProps,
     # --- flux calculation with the adjusted profile ---
     T_int = interp_ops.interface_temperatures(T_adj)
     if it % 10 == 0:
-        with graphs.span("helios.refresh"):
+        with span("helios.refresh"):
             cache = compute_cells(phys, m, T_adj, T_int, sset)
     else:
         cache = s.cache
@@ -258,8 +260,7 @@ def convection_loop(phys: Phys, m: ModelArrays, thermo: ThermoProps,
         unstable = convect.conv_check(T, m.p_lay, m.p_int, kappa_lay,
                                       kap_int)
         enter = unstable.any(dim=0) | rad.goto_convection
-        with graphs.span("helios.read", graphs.loop_stats("convection"),
-                         "read_s"):
+        with span("helios.read", graphs.loop_stats("convection"), "read_s"):
             keep = enter.cpu().numpy() if batch else bool(enter)
         state = state._replace(keep_running=keep)
 

@@ -8,8 +8,8 @@ its counter, criterion and flags on the device and branches on the host's
 copy of the counter (cell refresh every 10th iteration, foreplay,
 prefactor resets, criterion relaxation, the overheat check every 100th
 iteration, the cap: :func:`rad_key`); :mod:`helios_tpu_torch.rce.graphs`
-runs one planet's iterations as replayed CUDA graphs, reading the device
-once per chunk, and a batch one iteration at a time.
+runs a planet's or a batch's iterations as replayed CUDA graphs, reading
+the device once per chunk, and a sliced model one iteration at a time.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from helios_tpu_torch.ops import integrate as int_ops
 from helios_tpu_torch.ops import interp as interp_ops
 from helios_tpu_torch.ops.members import memberwise
 from helios_tpu_torch.rce import graphs
+from helios_tpu_torch.tracing import span
 
 
 class ThermoProps(NamedTuple):
@@ -246,7 +247,7 @@ def _radiation_step(phys: Phys, m: ModelArrays,
     L = phys.nlayer
     if it % 10 == 0:
         T_int = interp_ops.interface_temperatures(s.T_lay)
-        with graphs.span("helios.refresh"):
+        with span("helios.refresh"):
             cache = compute_cells(phys, m, s.T_lay, T_int, sset)
     else:
         cache = s.cache
@@ -368,12 +369,12 @@ def radiation_loop(phys: Phys, m: ModelArrays, thermo: Optional[ThermoProps],
                    sset=None,
                    state0: Optional[RadLoopState] = None) -> RadLoopState:
     """Run the radiative-equilibrium iteration to convergence
-    (computation.py:827-990).  One planet on one device runs in chunks of
-    :mod:`graphs` (on the card each iteration a replayed CUDA graph), with
-    one read of the device per chunk; a batch or a sliced model reads its
-    flags after every iteration.  The runner is one kept from an earlier
-    loop of the same key, or that of the open ``graphs.loops`` block, or
-    one of this call alone (``graphs.Loops.runner``).
+    (computation.py:827-990).  A model whole on one device, a planet's or
+    a batch's, runs in chunks of :mod:`graphs` (on the card each iteration
+    a replayed CUDA graph), with one read of the device per chunk; a
+    sliced model reads its flags after every iteration.  The runner is the
+    one kept from an earlier loop of the same key, or one of this call
+    alone (``graphs.Loops.runner``).
 
     ``max_steps`` caps this call; ``sset`` is the species set of on-the-fly
     opacity mixing; ``state0`` continues from a prior state instead of

@@ -156,7 +156,7 @@ def test_mixing_fields_default_to_zero_and_are_in_the_dict(field):
 def test_a_pass_outside_a_loop_is_only_a_span():
     """compute_cells outside the loops (the start and the result) mixes
     too: the span is there, no Stats take it."""
-    assert graphs.loop_stats() is None
+    assert tracing.running_stats() is None
     with graphs.loops() as lp:
         with tracing.mixing():
             pass
@@ -165,17 +165,17 @@ def test_a_pass_outside_a_loop_is_only_a_span():
 
 def test_the_running_loop_takes_the_passes_and_no_other():
     """tracing.running marks the loop whose Stats a pass counts into, and
-    graphs.loop_stats() reads it inside a loops() block."""
+    tracing.running_stats() reads it inside a loops() block."""
     a, b = graphs.Stats(), graphs.Stats()
     with graphs.loops():
         with tracing.running(a):
-            assert graphs.loop_stats() is a
+            assert tracing.running_stats() is a
             with tracing.mixing():
                 pass
             with tracing.running(b):
                 with tracing.mixing():
                     pass
-            assert graphs.loop_stats() is a
-        assert graphs.loop_stats() is None
+            assert tracing.running_stats() is a
+        assert tracing.running_stats() is None
     assert (a.mixes, b.mixes) == (1, 1)
     assert a.mix_s > 0.0 and a.mix_launches == 0

@@ -453,7 +453,9 @@ def test_cuda_ensemble_matches_cpu(cuda_device, tmp_path):
     one batched forward solve against the same batch on the CPU at 1e-10
     with one noniso_sweep launch for both planets, and run_ensemble to
     convergence with one launch per batched flux solve (no member runs
-    alone); each member's final T within 1e-8 of the CPU batch's."""
+    alone) and per replayed iteration that changed nothing (the runners'
+    idle launches: past the stop, first tries of redone chunks); each
+    member's final T within 1e-8 of the CPU batch's."""
     from helios_tpu_torch.parallel import ensemble as ens
 
     table = synthetic_premixed_table(nbin=16, ny=4, ntemp=8, npress=6,
@@ -484,11 +486,14 @@ def test_cuda_ensemble_matches_cpu(cuda_device, tmp_path):
                                    rtol=1e-10, atol=0.0, msg=f)
 
     before = noniso_sweep.launches
-    outs = ens.run_ensemble(cfgs, tables=[table, table], write_output=False,
-                            device=cuda_device)
+    with graphs.loops() as loops:
+        outs = ens.run_ensemble(cfgs, tables=[table, table],
+                                write_output=False, device=cuda_device)
     torch.cuda.synchronize()
+    idle = sum(st.idle_launches.get("noniso_sweep", 0)
+               for st in loops.stats.values())
     assert noniso_sweep.launches - before == (
-        max(o.rad.it for o in outs) + max(o.conv.steps for o in outs))
+        max(o.rad.it for o in outs) + max(o.conv.steps for o in outs) + idle)
     want = ens.run_ensemble(cfgs, tables=[table, table], write_output=False,
                             device="cpu")
     for got, w in zip(outs, want):

@@ -1,5 +1,5 @@
 """The spans and counters of the port's run phases and loops
-(helios_tpu_torch.rce.graphs.span, graphs.Stats), on the CPU, counts and
+(helios_tpu_torch.tracing.span, rce.graphs.Stats), on the CPU, counts and
 structure only (no time is compared with a threshold).
 
 A tiny ``pipeline.run`` and a tiny two-member ``run_ensemble`` (the small
@@ -21,7 +21,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from helios_tpu_torch import pipeline
+from helios_tpu_torch import pipeline, tracing
 from helios_tpu_torch.config import HeliosConfig
 from helios_tpu_torch.parallel import ensemble
 from helios_tpu_torch.rce import graphs
@@ -178,9 +178,9 @@ def test_span_adds_its_seconds_to_a_field(field):
     both), or to nothing without Stats."""
     st = graphs.Stats()
     stats = st if field else None
-    with graphs.span("helios.test", stats, field) as a:
+    with tracing.span("helios.test", stats, field) as a:
         pass
-    with graphs.span("helios.test", stats, field) as b:
+    with tracing.span("helios.test", stats, field) as b:
         pass
     assert a.seconds >= 0.0 and b.seconds >= 0.0
     if field:
@@ -193,9 +193,9 @@ def test_span_is_a_range_and_closes_on_error():
     """Under the profiler a span is a range of its name, nested under the
     span it was entered in; an error closes it and passes through."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with graphs.span("helios.outer"):
+        with tracing.span("helios.outer"):
             with pytest.raises(ValueError):
-                with graphs.span("helios.inner"):
+                with tracing.span("helios.inner"):
                     raise ValueError("passes through")
     got = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
                  for e in prof.profiler.kineto_results.events()
@@ -206,11 +206,11 @@ def test_span_is_a_range_and_closes_on_error():
 
 def test_loop_stats_follow_the_open_block():
     """graphs.loop_stats: None outside a block; in one, a kind's Stats
-    (the runner's own), and without a kind the running loop's (none
-    between loops)."""
+    (the runner's own); tracing.running_stats, the running loop's, is
+    None between loops."""
     assert graphs.loop_stats("convection") is None
-    assert graphs.loop_stats() is None
+    assert tracing.running_stats() is None
     with graphs.loops() as lp:
         st = graphs.loop_stats("convection")
         assert lp.stats["convection"] is st
-        assert graphs.loop_stats() is None
+        assert tracing.running_stats() is None
