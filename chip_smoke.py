@@ -38,7 +38,10 @@ Phases (any failure exits non-zero before the last line is printed):
      ordered_sum) at the flagship [106, 7700], path n's batch [106, 8,
      7700] with the members' shared delta_lambda and the flagship as 2
      slices with the carry (the totals the flagship's), fp64 and fp32,
-     timed against that chain of 15 launches and its bound; the host time
+     timed against that chain of 15 launches and its bound; the convective
+     adjustment (conv_adjust) bit for bit the chain of ops it replaces at
+     4 rounds, a flagship column and an 8-planet batch, fp64 and fp32,
+     both timed back to back, as CUDA graphs and on the device; the host time
      of a kernel wrapper's launch, step by step, at the Gauss sum; then
      the host tools: the port's ktable
      library (kdistr.cpp) built by g++ on this machine, its
@@ -296,6 +299,7 @@ def copy_bandwidth():
 
 
 def kernel_counters():
+    from helios_tpu_torch.kernels.adjust import conv_adjust
     from helios_tpu_torch.kernels.integrate import band_integrate
     from helios_tpu_torch.kernels.ordered import ordered_sum
     from helios_tpu_torch.kernels.ro import ro_mix
@@ -303,7 +307,8 @@ def kernel_counters():
     from helios_tpu_torch.kernels.thomas import thomas_solve
     return {"noniso_sweep": noniso_sweep, "iso_sweep": iso_sweep,
             "thomas_solve": thomas_solve, "ro_mix": ro_mix,
-            "ordered_sum": ordered_sum, "band_integrate": band_integrate}
+            "ordered_sum": ordered_sum, "band_integrate": band_integrate,
+            "conv_adjust": conv_adjust}
 
 
 # the loops block (graphs.loops) of the path that runs: its runners serve
@@ -363,9 +368,11 @@ class AtLeastOnce:
 def only(idle=None, **counts):
     """The launch counts of a path that runs just the named kernels; with
     any flux solve (a named count), also the flux integration and the
-    fixed-order sums and scans, at least once.  ``idle``: the launches of
-    the iterations that changed nothing (read_idle), added to the counts
-    and expected under "idle"."""
+    fixed-order sums and scans, at least once; none of the convective
+    adjustment unless named (a path with a convection loop names its
+    loops' count, adjust_count).  ``idle``: the launches of the iterations
+    that changed nothing (read_idle), added to the counts and expected
+    under "idle"."""
     idle = idle or dict.fromkeys(kernel_counters(), 0)
     sums = AtLeastOnce() if any(counts.values()) else 0
     want = {name: (sums if name in ("ordered_sum", "band_integrate")
@@ -374,6 +381,39 @@ def only(idle=None, **counts):
             for name in kernel_counters()}
     want["idle"] = idle
     return want
+
+
+def adjust_count(label, stats):
+    """The convective adjustment's launches that a path's loops counted
+    (Stats.adjust_launches, ``stats`` as loop_stats gives them; 0 where no
+    convection loop ran), less those of the iterations that changed
+    nothing, which only() adds from the counts' idle ones.  Each loop is
+    held to its iterations: the radiation loop launches none; a
+    convection loop that redid no chunk and read no round launches one
+    per iteration run or replayed past the stop (its bounded
+    adjustments), one that replayed nothing (the per-iteration loop) one
+    per read of its unbounded adjustments, and one that redid a chunk
+    more than one per iteration."""
+    total = 0
+    for kind, st in stats.items():
+        if st is None:
+            continue
+        n, its = st["adjust_launches"], st["iterations"] + st["past_stop"]
+        if kind != "convection":
+            check(n == 0, f"{label}: {n} conv_adjust launches in the {kind} "
+                  "loop")
+        elif not st["redos"] and not st["adjust_reads"]:
+            check(n == its, f"{label}: {n} conv_adjust launches for {its} "
+                  "convection iterations (none redone)")
+        elif not st["replays"]:
+            check(n == st["adjust_reads"] > 0,
+                  f"{label}: {n} conv_adjust launches for "
+                  f"{st['adjust_reads']} adjustment reads")
+        else:
+            check(n > its, f"{label}: {n} conv_adjust launches for {its} "
+                  f"convection iterations and {st['redos']} redone chunks")
+        total += n - st["idle_launches"].get("conv_adjust", 0)
+    return total
 
 
 def loop_stats():
@@ -975,6 +1015,124 @@ def band_integrate_case(dtype):
     return out
 
 
+def adjust_inputs(dtype, P, seed, L=L_FLAG):
+    """Columns of the convective adjustment at the flagship depth (P of
+    them, or a planet's with P None): blocks of layers steeper and flatter
+    than the adiabat over p 1e9..1e-1, narrow stable gaps and inversions,
+    fluxes near the fudge factors' balance.  Returns (T_lay, the keyword
+    arguments of convective_adjustment but T, rounds and members)."""
+    from helios_tpu_torch import constants as pc
+    rng = np.random.default_rng(seed)
+    n = P or 1
+    p_int = np.logspace(9, -1, L + 1)[:, None] * np.ones((1, n))
+    p_lay = np.sqrt(p_int[:-1] * p_int[1:])
+    slope = np.empty((L, n))
+    for q in range(n):
+        i = 0
+        while i < L:
+            k = int(rng.integers(1, 12))
+            slope[i:i + k, q] = rng.choice([-0.05, 0.05, 0.2, 0.3, 0.4],
+                                           p=[0.1, 0.15, 0.15, 0.3, 0.3])
+            i += k
+    T = np.empty((L + 1, n))
+    T[L - 1] = 300.0
+    for i in range(L - 2, -1, -1):
+        T[i] = T[i + 1] * (p_lay[i] / p_lay[i + 1]) ** slope[i]
+    T[L] = T[0] * rng.uniform(0.98, 1.06, n)
+    F_intern = pc.SIGMA_SB * 500.0 ** 4
+    F_down = rng.uniform(1e8, 2e8, (L + 1, n))
+    kappa = np.full((L + 1, n), 0.25)
+    arrays = dict(
+        p_lay=p_lay, p_int=p_int, kappa_lay=kappa[:L], kappa_int=kappa,
+        c_p_lay=pc.R_UNIV / kappa[:L],
+        meanmolmass_lay=2.3 * pc.AMU * (1 + rng.uniform(0, 0.01, (L, n))),
+        F_add_heat_sum=rng.uniform(0, 1e3, (L, n)),
+        F_smooth_sum=rng.uniform(-1e3, 1e3, (L, n)), F_down_tot=F_down,
+        F_up_tot=F_down * rng.uniform(0.993, 1.007, (L + 1, n)) + F_intern)
+    t = lambda a: torch.tensor(a if P else a[:, 0], dtype=dtype,
+                               device=DEVICE).contiguous()
+    kw = {k: t(v) for k, v in arrays.items()}
+    kw.update(iter_value=10, T_star=5000.0, input_dampara="automatic",
+              F_intern=F_intern)
+    return t(T), kw
+
+
+def adjust_case(dtype):
+    """The convective adjustment's kernel against the chain of ops it
+    replaces (convect.plain_adjustment, its sums through ordered_sum) at
+    graphs.ROUNDS rounds, bit for bit (T, marks, rounds needed, flag), at
+    the flagship depth for a planet and for an ENSEMBLE_P-planet batch;
+    times the kernel and the chain back to back and each replayed as a
+    CUDA graph (as the loops run them), the kernel's device time
+    (profiler), the chain's device time and its launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from helios_tpu_torch.rce import convect
+    from helios_tpu_torch.rce.graphs import ROUNDS
+    name = str(dtype).split(".")[-1]
+    out = {}
+    for key, P in (("", None), ("ensemble_", ENSEMBLE_P)):
+        T, kw = adjust_inputs(dtype, P, seed=30)
+        members = torch.ones(T.shape[1:], dtype=torch.bool, device=DEVICE)
+        run = lambda fn: fn(T, kw["p_lay"], kw["p_int"], kw["kappa_lay"],
+                            kw["kappa_int"], kw["c_p_lay"],
+                            kw["meanmolmass_lay"], members=members,
+                            rounds=ROUNDS, **{k: v for k, v in kw.items()
+                                              if k not in ADJUST_COLUMNS})
+        kernel = lambda: run(convect.convective_adjustment)
+        chain = lambda: run(convect.plain_adjustment)
+        got, want = kernel(), chain()
+        torch.cuda.synchronize()
+        off = [k for k, (g, w) in enumerate(zip(got, want))
+               if not torch.equal(g, w)]
+        check(not off, f"conv_adjust {name} P={P}: outputs {off} not bit for "
+              "bit the chain's")
+        graphed = {}
+        for label, fn in (("kernel", kernel), ("chain", chain)):
+            g = torch.cuda.CUDAGraph()
+            fn()
+            with torch.cuda.graph(g):
+                fn()
+            graphed[label] = cuda_ms(g.replay, 20, 3, per_event=20)
+            del g
+        ms = cuda_ms(kernel, 20, 3, per_event=20)
+        chain_ms = cuda_ms(chain, 10, 2, per_event=5)
+        device_ms = profiled_kernel_ms(kernel, "conv_adjust_kernel")
+        chain()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            chain()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        chain_device_ms = sum(
+            getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+            for e in events) / 1e3
+        chain_launches = sum(e.count for e in events)
+        out.update({key + "ms": ms, key + "device_ms": device_ms,
+                    key + "graphed_ms": graphed["kernel"],
+                    key + "chain_ms": chain_ms,
+                    key + "chain_graphed_ms": graphed["chain"],
+                    key + "chain_device_ms": chain_device_ms,
+                    key + "chain_launches": chain_launches,
+                    key + "rounds_needed": int(got[2]),
+                    key + "columns": P or 1})
+        log(f"conv_adjust {name} [{L_FLAG + 1} x {P or 1}], {ROUNDS} rounds "
+            f"({int(got[2])} needed): bit for bit the chain; kernel "
+            f"{ms:.4f} ms back to back, {graphed['kernel']:.4f} ms as a "
+            f"graph, {device_ms:.4f} ms on the device (profiler); the chain "
+            f"it replaces {chain_ms:.4f} ms back to back, "
+            f"{graphed['chain']:.4f} ms as a graph, {chain_device_ms:.4f} ms "
+            f"on the device in {chain_launches} device operations")
+    return out
+
+
+# the per-layer arrays of convective_adjustment, in its argument order
+ADJUST_COLUMNS = ("p_lay", "p_int", "kappa_lay", "kappa_int", "c_p_lay",
+                  "meanmolmass_lay")
+
+
 def host_us(fn, n=1000, batch=100):
     """The host time of one fn() in microseconds: time.perf_counter_ns
     over n calls in batches of ``batch`` with no sync inside a batch (the
@@ -1450,7 +1608,7 @@ def main_path(launch_counts):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        with graphs.loops(graphs.PER_ITERATION):
+        with graphs.loops(graphs.PER_ITERATION) as per_loops:
             per = pipeline.run(cfg, table, write_output=False, device=DEVICE)
         per_counts = read_counts()
         per_peak = torch.cuda.max_memory_allocated() / 2**20
@@ -1464,9 +1622,16 @@ def main_path(launch_counts):
     converged = (not bool(rad.keep_running) and not conv.keep_running
                  and not rad.aborted and not conv.aborted)
     check(converged, "main path: the run did not converge")
+    # the adjustment's kernel: one launch per bounded adjustment (every
+    # graphed convection iteration, past the stop too), one per read of an
+    # unbounded one (the per-iteration loop, a redone chunk)
+    per_stats = {k: st.as_dict() for k, st in per_loops.stats.items()}
+    check(per_stats["convection"]["adjust_reads"] > 0,
+          "main path, per-iteration loop: no adjustment read")
     check(out.n_flux_solves > 0
-          and launch_counts == only(noniso_sweep=out.n_flux_solves,
-                                    idle=launch_counts["idle"]),
+          and launch_counts == only(
+              noniso_sweep=out.n_flux_solves, idle=launch_counts["idle"],
+              conv_adjust=adjust_count("main path", stats)),
           f"main path: launches {launch_counts} for {out.n_flux_solves} "
           "flux solves")
     check(all(st is not None and st["graphs"] > 0 and st["replays"] > 0
@@ -1481,7 +1646,10 @@ def main_path(launch_counts):
           f"bit for bit the per-iteration run ({per.rad.it} + "
           f"{per.conv.it}): max |dT| "
           f"{np.abs(T - per.T_lay.cpu().numpy()).max():.3e} K")
-    check(per_counts == only(noniso_sweep=per.n_flux_solves),
+    check(per_counts == only(
+              noniso_sweep=per.n_flux_solves,
+              conv_adjust=adjust_count("main path, per-iteration loop",
+                                       per_stats)),
           f"main path, per-iteration loop: launches {per_counts} for "
           f"{per.n_flux_solves} flux solves")
     log(f"main path: flagship RCE run [{L_FLAG} layers x {NBIN_FLAG} bins x "
@@ -1489,7 +1657,10 @@ def main_path(launch_counts):
         f"convection iterations ({conv.steps} convection steps), "
         f"{out.n_flux_solves} flux solves + "
         f"{launch_counts['idle']['noniso_sweep']} idle iterations = "
-        f"{launch_counts['noniso_sweep']} noniso_sweep launches")
+        f"{launch_counts['noniso_sweep']} noniso_sweep launches; "
+        f"{launch_counts['conv_adjust']} conv_adjust launches (the "
+        f"per-iteration loop: {per_counts['conv_adjust']} for "
+        f"{per.conv.steps} adjustments)")
     for name, o, peak in (
             ("graphed", out, None), ("per-iteration", per, per_peak)):
         log(f"main path, {name} loops: wall {o.wall_seconds:.3f} s "
@@ -1808,8 +1979,9 @@ def matrix_path(flag_out, launch_counts):
     T = out.T_lay.cpu().numpy()
     check(out.phys.flux_calc_method == "matrix", "matrix path: not matrix")
     check(np.all(np.isfinite(T)), "matrix path: non-finite temperatures")
-    check(n > 0 and launch_counts == only(thomas_solve=n, noniso_sweep=n,
-                                          idle=launch_counts["idle"]),
+    check(n > 0 and launch_counts == only(
+              thomas_solve=n, noniso_sweep=n, idle=launch_counts["idle"],
+              conv_adjust=adjust_count("matrix path", stats)),
           f"matrix path: launches {launch_counts} for {n} flux solves")
     converged = (not bool(rad.keep_running) and conv is not None
                  and not conv.keep_running and not rad.aborted
@@ -2083,9 +2255,10 @@ def cloud_kw(mie_dir):
                 cloud_to_gas_scale_height=[0.8])
 
 
-def rce_summary(label, out, launch_counts, kernel):
+def rce_summary(label, out, launch_counts, kernel, stats):
     """Checks of a converged RCE run (finite T, converged, one ``kernel``
-    launch per flux solve) and its log line; returns its numbers."""
+    launch per flux solve, the adjustment's launches its loops' ``stats``
+    count) and its log line; returns its numbers."""
     rad, conv = out.rad, out.conv
     T = out.T_lay.cpu().numpy()
     check(np.all(np.isfinite(T)), f"{label}: non-finite temperatures")
@@ -2094,8 +2267,9 @@ def rce_summary(label, out, launch_counts, kernel):
                                            or conv.aborted)))
     check(converged, f"{label}: the run did not converge")
     n = out.n_flux_solves
-    check(n > 0 and launch_counts == only(**{kernel: n},
-                                          idle=launch_counts["idle"]),
+    check(n > 0 and launch_counts == only(
+              **{kernel: n}, idle=launch_counts["idle"],
+              conv_adjust=adjust_count(label, stats)),
           f"{label}: launches {launch_counts} for {n} flux solves")
     conv_it = conv.it if conv is not None else 0
     conv_steps = conv.steps if conv is not None else 0
@@ -2147,7 +2321,7 @@ def cloudy_path(tmpdir, launch_counts):
     loops = loop_line("cloudy path", out)
     res = rce_summary("cloudy path: flagship RCE run with a cloud deck and "
                       f"the zenith-corrected beam at {ZENITH_DEG:.0f} deg",
-                      out, launch_counts, "noniso_sweep")
+                      out, launch_counts, "noniso_sweep", loops)
     res["fwd_rel"] = totals_cuda_vs_cpu("cloudy", out.phys, out.arrays,
                                         out.T_lay, only(noniso_sweep=1))
     T0 = torch.as_tensor(pipeline.initial_temperatures(cfg, out.phys,
@@ -2276,7 +2450,7 @@ def rocky_path(launch_counts):
         out = pipeline.run(cfg, flagship_table(), write_output=True,
                            device=DEVICE)
         launch_counts.update(read_counts())
-        loop_line("rocky path", out)
+        loops = loop_line("rocky path", out)
         # in an empty output directory: with approx_f a run reads tau_lw
         # from the file of the run before it
         with tempfile.TemporaryDirectory() as twin_dir:
@@ -2296,7 +2470,8 @@ def rocky_path(launch_counts):
           f"iterations, expected {ROCKY_STEPS}")
     check(conv is not None and conv.steps == 1 and conv.it == 0,
           "rocky path: not one convective adjustment")
-    check(launch_counts == only(noniso_sweep=n, idle=launch_counts["idle"])
+    check(launch_counts == only(noniso_sweep=n, idle=launch_counts["idle"],
+                                conv_adjust=adjust_count("rocky path", loops))
           and n == ROCKY_STEPS + 1,
           f"rocky path: launches {launch_counts} for {n} flux solves")
     check(0.25 < phys.f_factor < 2.0 / 3.0 and phys.planet_type == "rocky",
@@ -2350,10 +2525,11 @@ def bare_rock_path(launch_counts):
     out = pipeline.run(cfg, flagship_table(), write_output=False,
                        device=DEVICE)
     launch_counts.update(read_counts())
-    loop_line("bare rock path", out)
+    loops = loop_line("bare rock path", out)
     phys, T = out.phys, out.T_lay.cpu().numpy()
     check(phys.no_atmo == 1 and phys.nlayer == 2, "bare rock: not 2 layers")
-    res = rce_summary("bare rock path", out, launch_counts, "iso_sweep")
+    res = rce_summary("bare rock path", out, launch_counts, "iso_sweep",
+                      loops)
     T_eq = 0.6667 ** 0.25 * (phys.R_star / phys.a) ** 0.5 * phys.T_star
     check(np.all(T[:2] == 1.001), f"bare rock: layers at {T[:2]}")
     rel = abs(T[2] / T_eq - 1.0)
@@ -2383,6 +2559,7 @@ CLI_FLAGS = ["-progress", "yes", "-checkpoint_every", "100"]
 CLI_PROCESS = """
 import json, sys
 from helios_tpu_torch import __main__ as cli, pipeline
+from helios_tpu_torch.kernels.adjust import conv_adjust
 from helios_tpu_torch.kernels.integrate import band_integrate
 from helios_tpu_torch.kernels.ordered import ordered_sum
 from helios_tpu_torch.kernels.ro import ro_mix
@@ -2400,7 +2577,7 @@ with graphs.loops() as loops:
     code = cli.main(sys.argv[2:], device={device!r})
 out = runs[0]
 idle = dict.fromkeys(("noniso_sweep", "iso_sweep", "thomas_solve", "ro_mix",
-                      "ordered_sum", "band_integrate"), 0)
+                      "ordered_sum", "band_integrate", "conv_adjust"), 0)
 for st in loops.stats.values():
     for name, n in st.idle_launches.items():
         idle[name] += n
@@ -2410,7 +2587,8 @@ print(json.dumps(dict(
                   thomas_solve=thomas_solve.launches,
                   ro_mix=ro_mix.launches,
                   ordered_sum=ordered_sum.launches,
-                  band_integrate=band_integrate.launches, idle=idle),
+                  band_integrate=band_integrate.launches,
+                  conv_adjust=conv_adjust.launches, idle=idle),
     n_flux_solves=out.n_flux_solves, rad_it=out.rad.it,
     conv_it=out.conv.it, conv_steps=out.conv.steps,
     wall_s=out.wall_seconds, rad_s=out.rad_seconds,
@@ -2550,7 +2728,8 @@ def quickstart_path(tmpdir, launch_counts):
     loop_line("quickstart CLI process", stats=cli["loops"])
     check(cli["n_flux_solves"] > 0 and launch_counts
           == only(noniso_sweep=cli["n_flux_solves"],
-                  idle=launch_counts["idle"]),
+                  idle=launch_counts["idle"],
+                  conv_adjust=adjust_count("quickstart CLI", cli["loops"])),
           f"quickstart CLI: launches {launch_counts} for "
           f"{cli['n_flux_solves']} flux solves")
 
@@ -2576,9 +2755,11 @@ def quickstart_path(tmpdir, launch_counts):
     reset_counts()
     ref = pipeline.run(cfg, table, write_output=False, device=DEVICE)
     ref_counts = read_counts()
-    loop_line("quickstart in-process run", ref)
+    ref_loops = loop_line("quickstart in-process run", ref)
     check(ref_counts == only(noniso_sweep=ref.n_flux_solves,
-                             idle=ref_counts["idle"]),
+                             idle=ref_counts["idle"],
+                             conv_adjust=adjust_count(
+                                 "quickstart in-process run", ref_loops)),
           f"quickstart in-process run: launches {ref_counts}")
     rad_ckpt, conv_ckpt = final_checkpoints(run_dir)
     same_final_state("quickstart CLI against the in-process run", rad_ckpt,
@@ -2672,7 +2853,7 @@ def resume_path(k, tmpdir, counts_rad, counts_conv):
             warnings.simplefilter("ignore")
             code, printed, out = capture_main(argv[phase], k["table"], cbs)
         counts.update(read_counts())
-        loop_line(f"resumed {phase} run", out)
+        loops = loop_line(f"resumed {phase} run", out)
         check(code == 0 and "Done!" in printed,
               f"resume path: the resumed {phase} run failed")
         restored = out.rad_it0 if phase == "radiation" else (
@@ -2680,7 +2861,9 @@ def resume_path(k, tmpdir, counts_rad, counts_conv):
         check(restored == 200, f"resume path: the {phase} run resumed at "
               f"{restored}, not 200")
         check(counts == only(noniso_sweep=out.n_flux_solves,
-                             idle=counts["idle"]),
+                             idle=counts["idle"],
+                             conv_adjust=adjust_count(
+                                 f"resumed {phase} run", loops)),
               f"resume path: launches {counts} for {out.n_flux_solves} "
               "flux solves after the restore")
         same_final_state(f"resumed {phase} run",
@@ -2838,7 +3021,7 @@ def real_gas_path(tmpdir, water, counts0, counts1, pp_counts):
         out = pipeline.run(cfg, donor, sset=sset, starflux=starflux,
                            device=DEVICE)
         counts.update(read_counts())
-        loop_line(f"real-gas coupling iteration {n}", out)
+        loops = loop_line(f"real-gas coupling iteration {n}", out)
         rad, conv = out.rad, out.conv
         check(not bool(rad.keep_running) and not rad.aborted
               and conv is not None and not (conv.keep_running
@@ -2849,7 +3032,9 @@ def real_gas_path(tmpdir, water, counts0, counts1, pp_counts):
         refreshes = (1 + (rad.it + 9) // 10
                      + (conv.it // 10 + 1 if conv.steps else 0) + 1)
         check(counts == only(noniso_sweep=out.n_flux_solves,
-                             ro_mix=2 * refreshes, idle=counts["idle"]),
+                             ro_mix=2 * refreshes, idle=counts["idle"],
+                             conv_adjust=adjust_count(
+                                 f"real-gas coupling iteration {n}", loops)),
               f"real-gas path, coupling iteration {n}: launches {counts} "
               f"for {out.n_flux_solves} flux solves and {refreshes} cell "
               f"refreshes ({rad.it} radiation, {conv.it} convection "
@@ -2952,7 +3137,9 @@ def table_convection_path(tmpdir, water, launch_counts, flag_out):
     n_conv = int(conv.conv_layer.sum())
     check(n_conv > 0, "table convection path: no convective layer")
     check(launch_counts == only(noniso_sweep=out.n_flux_solves,
-                                idle=launch_counts["idle"]),
+                                idle=launch_counts["idle"],
+                                conv_adjust=adjust_count(
+                                    "table convection path", loops)),
           f"table convection path: launches {launch_counts} for "
           f"{out.n_flux_solves} flux solves")
     thermo_rel = thermo_against_plain("table convection path", out, water)
@@ -3273,11 +3460,13 @@ def gap_causes(label, run, cfg, table):
     """Where a batch member's last bits part from its run alone, on the
     card.  (1) One forward solve (compute_cells, solve_fluxes,
     integrate_flux_flat) of ``run``'s planet at its final T, and its
-    convective adjustment from its radiation result, each alone and as
-    ENSEMBLE_P copies in one batch: the first op that differs, by
-    op_diagnosis, with torch's sums and with the fixed-order ones; with
-    the latter none may differ.  (2) The ENSEMBLE_P copies run to
-    convergence as one ensemble: each bit for bit ``run`` (checked)."""
+    convective adjustment from its radiation result as the chain of ops
+    (convect.plain_adjustment), each alone and as ENSEMBLE_P copies in one
+    batch: the first op that differs, by op_diagnosis, with torch's sums
+    and with the fixed-order ones; with the latter none may differ; and
+    the adjustment's kernel (one block per member): every copy bit for bit
+    the planet alone.  (2) The ENSEMBLE_P copies run to convergence as one
+    ensemble: each bit for bit ``run`` (checked)."""
     from helios_tpu_torch import forward as fw
     from helios_tpu_torch.ops import interp as interp_ops
     from helios_tpu_torch.parallel import ensemble as ens
@@ -3297,14 +3486,14 @@ def gap_causes(label, run, cfg, table):
     thermo = make_thermo(cfg, device=DEVICE)
     rad = run.rad
 
-    def adjustment(batch):
+    def adjustment(batch, fn=convect.plain_adjustment):
         wrap = (lambda x: copies_of(x, P)) if batch else (lambda x: x)
         arrays = mb if batch else m
         T0 = wrap(rad.T_lay)
         kap, c_p = kappa_cp_lay(thermo, T0, arrays.p_lay)
         kap_int = kappa_int(thermo, interp_ops.interface_temperatures(T0),
                             arrays.p_int)
-        return convect.convective_adjustment(
+        return fn(
             T0, arrays.p_lay, arrays.p_int, kap, kap_int, c_p,
             wrap(rad.cache.meanmolmass_lay), iter_value=0,
             T_star=phys.T_star, input_dampara=phys.input_dampara,
@@ -3316,6 +3505,15 @@ def gap_causes(label, run, cfg, table):
 
     adjust = op_diagnosis(f"{label}: the convective adjustment", P,
                           lambda: adjustment(False), lambda: adjustment(True))
+    solo = adjustment(False, convect.convective_adjustment)
+    batch = adjustment(True, convect.convective_adjustment)
+    kernel_same = all(torch.equal(b[:, k], a) for a, b in zip(solo, batch)
+                      for k in range(P))
+    log(f"{label}: the adjustment's kernel, {P} copies in one launch "
+        f"against the planet alone: "
+        f"{'bit for bit' if kernel_same else 'not bit for bit'}")
+    check(kernel_same, f"{label}: a copy's adjustment by the kernel is not "
+          "bit for bit the planet's alone")
     for what, res in (("forward solve", forward), ("adjustment", adjust)):
         found, compared = res["ordered"]
         check(compared > 0 and not found,
@@ -3388,6 +3586,7 @@ def ensemble_path(tmpdir, launch_counts, flag_out, T_start):
                             write_output=False, device=DEVICE)
     torch.cuda.synchronize()
     launch_counts.update(read_counts())
+    adjusts = adjust_count("ensemble path", loop_stats())
     peak = torch.cuda.max_memory_allocated()
 
     for o in outs:
@@ -3400,7 +3599,8 @@ def ensemble_path(tmpdir, launch_counts, flag_out, T_start):
               f"ensemble path: {o.result.name} did not converge")
     solves = batched_flux_solves(outs)
     check(launch_counts == only(noniso_sweep=solves,
-                                idle=launch_counts["idle"]),
+                                idle=launch_counts["idle"],
+                                conv_adjust=adjusts),
           f"ensemble path: launches {launch_counts} for {solves} batched "
           f"flux solves (members alone would make "
           f"{sum(o.n_flux_solves for o in outs)})")
@@ -3544,12 +3744,14 @@ def sliced_path(flag_out, flag_bd, T_start, counts_by_n):
                                device=[DEVICE] * n)
             counts_by_n[n].update(read_counts())
             label = f"sliced path, {n} slices"
+            adjusts = adjust_count(label, loop_stats())
             check(np.all(np.isfinite(out.T_lay.cpu().numpy()))
                   and not bool(out.rad.keep_running) and not out.rad.aborted
                   and not out.conv.keep_running and not out.conv.aborted,
                   f"{label}: the run did not converge")
             solves = out.n_flux_solves
-            check(counts_by_n[n] == only(noniso_sweep=n * solves),
+            check(counts_by_n[n] == only(noniso_sweep=n * solves,
+                                         conv_adjust=adjusts),
                   f"{label}: launches {counts_by_n[n]} for {solves} flux "
                   f"solves on {n} slices")
             same, rel = same_run(f"{label} against path a", out, flag_out)
@@ -3609,9 +3811,11 @@ def ensemble_mesh_path(tmpdir, launch_counts, members):
     outs = ens.run_ensemble(cfgs, tables=[table] * MESH_MEMBERS,
                             write_output=False, device=[DEVICE] * 4)
     launch_counts.update(read_counts())
+    adjusts = adjust_count("ensemble mesh path", loop_stats())
     groups = [outs[:2], outs[2:]]
     solves = [batched_flux_solves(g) for g in groups]
-    check(launch_counts == only(noniso_sweep=2 * sum(solves)),
+    check(launch_counts == only(noniso_sweep=2 * sum(solves),
+                                conv_adjust=adjusts),
           f"ensemble mesh path: launches {launch_counts} for {solves} "
           "batched flux solves of the two groups on 2 slices")
     bitwise, rels = [], []
@@ -3684,6 +3888,7 @@ def ensemble_cli_path(k, tmpdir, launch_counts, resumed_counts):
     reset_counts()
     code, printed, outs = capture_ensemble_main(argv, k["table"])
     launch_counts.update(read_counts())
+    adjusts = adjust_count("ensemble CLI", loop_stats())
     names = [o.result.name for o in outs]
     check(code == 0 and f"Done! Ensemble of {len(outs)} planets" in printed
           and names == ["dark", "gray", "bright"],
@@ -3694,7 +3899,8 @@ def ensemble_cli_path(k, tmpdir, launch_counts, resumed_counts):
           "ensemble CLI: no convection progress line")
     solves = batched_flux_solves(outs)
     check(launch_counts == only(noniso_sweep=solves,
-                                idle=launch_counts["idle"]),
+                                idle=launch_counts["idle"],
+                                conv_adjust=adjusts),
           f"ensemble CLI: launches {launch_counts} for {solves} batched "
           "flux solves")
     files = {}
@@ -3773,6 +3979,8 @@ def main():
     o32 = ordered_case(torch.float32, 1e-4, bandwidth)
     b64 = band_integrate_case(torch.float64)
     b32 = band_integrate_case(torch.float32)
+    a64 = adjust_case(torch.float64)
+    a32 = adjust_case(torch.float32)
     host_us_by_step = launch_breakdown()
     host_tools_phase()
     # the same kernels at an ensemble's width: P = 8 planets' columns
@@ -3810,10 +4018,10 @@ def main():
             "flagship, per-iteration loop", out.phys, out.arrays, T_start,
             flag_kernels, per_iteration=True)
         flag_conv_per = conv_breakdown(
-            "flagship, per-iteration loop", out, const_kappa, flag_kernels,
-            per_iteration=True)
+            "flagship, per-iteration loop", out, const_kappa,
+            flag_kernels + ("conv_adjust",), per_iteration=True)
         flag_conv = conv_breakdown("flagship", out, const_kappa,
-                                   flag_kernels)
+                                   flag_kernels + ("conv_adjust",))
         with patched_sites(lambda n, f: TORCH_ROUTE.get(n, f)):
             flag_torch = time_breakdown(
                 "flagship with torch's sums", out.phys, out.arrays, T_start,
@@ -4048,10 +4256,34 @@ def main():
             "ms", "chain_ms", "plain_ms", "device_ms", "bound_ms",
             "bound_by", "rows")},
         integrations_checked=dict(INTEGRATIONS))
+    conv_adjust = dict(
+        name="conv_adjust", route="cuda",
+        source="helios_tpu_torch/csrc/conv_adjust.cu",
+        replaces="none: helios_tpu/rce/convect.py has no pallas_call (on "
+                 "the card the port's chain of ops of the convective "
+                 "adjustment, convect.plain_adjustment)",
+        launches=counts["flagship_rce"]["conv_adjust"],
+        idle_launches=idle_of("flagship_rce", "conv_adjust"),
+        max_abs_err=0.0, ms=a64["ms"], plain_ms=a64["chain_ms"],
+        bound_ms=None, bound_by="latency: the chains of dependent adds, "
+                                "pow, log and exp of one column",
+        library_ms=None,
+        library="none: no PyTorch call computes the adjustment (the chain "
+                "of ops it replaces is the yardstick)",
+        launches_by_path=by_path("conv_adjust"), bitwise_vs_chain=True,
+        **{k: a64[k] for k in ("device_ms", "graphed_ms", "chain_graphed_ms",
+                               "chain_device_ms", "chain_launches",
+                               "rounds_needed")},
+        fp32={k: a32[k] for k in ("ms", "device_ms", "graphed_ms",
+                                  "chain_ms", "chain_graphed_ms",
+                                  "chain_device_ms")},
+        ensemble={k: a64["ensemble_" + k] for k in (
+            "ms", "device_ms", "graphed_ms", "chain_ms", "chain_graphed_ms",
+            "chain_device_ms", "chain_launches", "columns")})
     log(f"matrix flagship converged: {mat['converged']}; chip_smoke took "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [noniso, iso, thomas, ro, ordered,
-                                  integrate]}), flush=True)
+                                  integrate, conv_adjust]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

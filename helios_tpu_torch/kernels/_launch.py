@@ -2,10 +2,11 @@
 launch of a ``csrc/<name>.cu`` entry point through ctypes.
 
 Each source exports ``<name>_f64`` and ``<name>_f32``, which take the
-tensors' data pointers, then some ints, then the CUDA stream, launch on
-that stream without synchronising and return ``cudaGetLastError()``; and
-``helios_cuda_error_string``.  A source whose launch can refuse a shape
-also exports ``helios_launch_error_detail``, which says why.
+tensors' data pointers, then some ints, then some doubles (most take
+none), then the CUDA stream, launch on that stream without synchronising
+and return ``cudaGetLastError()``; and ``helios_cuda_error_string``.  A
+source whose launch can refuse a shape also exports
+``helios_launch_error_detail``, which says why.
 
 The launch path runs several times per radiation iteration, and on the
 card its host time, not the kernels', sets the pace of a one-planet run.
@@ -31,14 +32,17 @@ INT_MAX = 2**31 - 1
 
 
 @functools.lru_cache(maxsize=None)
-def _library(name: str, n_tensors: int, n_ints: int) -> ctypes.CDLL:
+def _library(name: str, n_tensors: int, n_ints: int,
+             n_doubles: int = 0) -> ctypes.CDLL:
     """``csrc/<name>.cu`` built and loaded, with the argument types of its
-    entry points: n_tensors pointers, n_ints ints, then the stream."""
+    entry points: n_tensors pointers, n_ints ints, n_doubles doubles, then
+    the stream."""
     lib = _build.load(name)
     for suffix in SUFFIX.values():
         fn = getattr(lib, f"{name}_{suffix}")
         fn.argtypes = ([ctypes.c_void_p] * n_tensors
-                       + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
+                       + [ctypes.c_int] * n_ints
+                       + [ctypes.c_double] * n_doubles + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.helios_cuda_error_string.argtypes = [ctypes.c_int]
     lib.helios_cuda_error_string.restype = ctypes.c_char_p
@@ -49,12 +53,12 @@ def _library(name: str, n_tensors: int, n_ints: int) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def entry(name: str, dtype, n_tensors: int, n_ints: int):
+def entry(name: str, dtype, n_tensors: int, n_ints: int, n_doubles: int = 0):
     """The entry point ``<name>_f64`` or ``<name>_f32`` for ``dtype``,
     built, loaded and typed at its first use."""
     if dtype not in SUFFIX:
         raise TypeError(f"unsupported dtype {dtype} (float32 or float64)")
-    return getattr(_library(name, n_tensors, n_ints),
+    return getattr(_library(name, n_tensors, n_ints, n_doubles),
                    f"{name}_{SUFFIX[dtype]}")
 
 
@@ -116,24 +120,24 @@ def check_count(name: str, value) -> int:
 
 
 def launch(name: str, tensors: Sequence[torch.Tensor],
-           ints: Sequence[int]) -> None:
+           ints: Sequence[int], doubles: Sequence[float] = ()) -> None:
     """Launch ``<name>`` on the current stream of the tensors' CUDA device.
     ``tensors`` are the inputs followed by the outputs and scratch, which
-    the caller allocated and checked.  Raises on any other device and on a
-    failed launch."""
+    the caller allocated and checked; the first one's dtype picks the
+    entry point.  Raises on any other device and on a failed launch."""
     first = tensors[0]
     if not first.is_cuda:
         raise ValueError(f"{name} runs on cuda or cpu, not {first.device}")
-    fn = entry(name, first.dtype, len(tensors), len(ints))
+    fn = entry(name, first.dtype, len(tensors), len(ints), len(doubles))
     index = first.get_device()
     if index != torch.cuda.current_device():
         # a slice of a mesh on another card: launch there, then switch back
         with torch.cuda.device(index):
-            return launch(name, tensors, ints)
-    rc = fn(*[t.data_ptr() for t in tensors], *ints,
+            return launch(name, tensors, ints, doubles)
+    rc = fn(*[t.data_ptr() for t in tensors], *ints, *doubles,
             torch.cuda.current_stream(index).cuda_stream)
     if rc != 0:
-        lib = _library(name, len(tensors), len(ints))
+        lib = _library(name, len(tensors), len(ints), len(doubles))
         msg = f"{name} launch failed: " + lib.helios_cuda_error_string(
             rc).decode()
         if hasattr(lib, "helios_launch_error_detail"):

@@ -8,6 +8,13 @@ operations over the layer column.  The one loop, the adjustment's
 flag per round, or runs a fixed number of rounds on the device (inside the
 loops' CUDA graphs) and reports whether that was enough.
 
+On the CPU the adjustment is this chain of PyTorch ops
+(:func:`plain_adjustment`); on the card it is the CUDA kernel
+:func:`helios_tpu_torch.kernels.adjust.conv_adjust`, bit for bit the chain
+on the card, one launch for a fixed number of rounds and one per round
+(and one more) for the host's loop.  The checks and marks that the loops
+make outside the adjustment stay the chain's on either device.
+
 Index conventions follow the reference: layers 0..L-1 bottom-up, plus a
 surface/BOA "ghost layer" at index L.  A convective zone that includes the
 ghost layer starts at virtual index -1 (host_functions.py:388-389).
@@ -28,6 +35,7 @@ import torch
 
 from helios_tpu_torch import constants as pc
 from helios_tpu_torch.forward import layer_index
+from helios_tpu_torch.kernels import adjust
 from helios_tpu_torch.kernels.ordered import ordered_cumsum
 from helios_tpu_torch.ops.members import memberwise
 from helios_tpu_torch.tracing import running_stats, span
@@ -345,7 +353,68 @@ def convective_adjustment(T_lay, p_lay, p_int, kappa_lay, kappa_int,
     A batch loops while any member is unstable, and a round changes only
     the members unstable at its start, so each member goes through the
     rounds of its own adjustment.  ``members`` [P] bool (or a 0-d bool for
-    a planet) limits the rounds to those members (the running ones)."""
+    a planet) limits the rounds to those members (the running ones).
+
+    CPU tensors take :func:`plain_adjustment`, any other the CUDA kernel
+    (``kernels.adjust.conv_adjust``): one launch with ``rounds``, and
+    without, one launch of one round per read of the host's loop, the last
+    one's final correction the result."""
+    if T_lay.is_cpu:
+        return plain_adjustment(
+            T_lay, p_lay, p_int, kappa_lay, kappa_int, c_p_lay,
+            meanmolmass_lay, iter_value=iter_value, T_star=T_star,
+            input_dampara=input_dampara, F_intern=F_intern,
+            F_add_heat_sum=F_add_heat_sum, F_smooth_sum=F_smooth_sum,
+            F_down_tot=F_down_tot, F_up_tot=F_up_tot, members=members,
+            rounds=rounds)
+    if members is None:
+        members = torch.ones(T_lay.shape[1:], dtype=torch.bool,
+                             device=T_lay.device)
+    # a batch's model arrays that the members share are expanded views,
+    # which the kernel reads as they are; the molar masses go in units of
+    # AMU, the chain's own quotient (conv_correct), so that the weights
+    # are the chain's to the bit
+    args = [adjust.readable(x) for x in (
+        p_lay, p_int, kappa_lay, kappa_int, c_p_lay,
+        meanmolmass_lay / pc.AMU, F_add_heat_sum, F_smooth_sum, F_down_tot,
+        F_up_tot)]
+
+    def launch(T, k):
+        return adjust.conv_adjust(
+            T.contiguous(), *args, members.contiguous(), rounds=k,
+            stitching=iter_value > 5000, T_star=T_star,
+            input_dampara=input_dampara, F_intern=F_intern)
+
+    if rounds is not None:
+        out = launch(T_lay, rounds)
+        return out.T_lay, out.conv_layer, out.needed, out.unstable
+    with span("helios.adjust"):
+        stats = running_stats()
+        while True:
+            out = launch(T_lay, 1)
+            # a round ran: some member was unstable at the launch's start
+            if not _adjust_read(out.needed, stats):
+                return out.T_lay, out.conv_layer
+            T_lay = out.T_round
+
+
+def _adjust_read(flag, stats) -> bool:
+    """One round's blocking read of ``flag``, counted and timed into the
+    running loop's Stats."""
+    with span("helios.adjust_read", stats, "adjust_read_s"):
+        value = bool(flag)
+    if stats is not None:
+        stats.adjust_reads += 1
+    return value
+
+
+def plain_adjustment(T_lay, p_lay, p_int, kappa_lay, kappa_int, c_p_lay,
+                     meanmolmass_lay, *, iter_value: int, T_star,
+                     input_dampara, F_intern, F_add_heat_sum, F_smooth_sum,
+                     F_down_tot, F_up_tot, members=None, rounds=None):
+    """:func:`convective_adjustment` as a chain of PyTorch ops on any
+    device: the CPU's route, and on the card the yardstick of the kernel,
+    which computes it bit for bit in one launch."""
     def unstable_members(T):
         unstable = conv_check(T, p_lay, p_int, kappa_lay, kappa_int)
         active = unstable.any(dim=0)
@@ -359,21 +428,12 @@ def convective_adjustment(T_lay, p_lay, p_int, kappa_lay, kappa_int,
                              c_p_lay, meanmolmass_lay, unstable | conv_layer)
         return torch.where(active, T_new, T_lay)
 
-    def any_unstable(active, stats) -> bool:
-        """One round's blocking read, counted and timed into the running
-        loop's Stats."""
-        with span("helios.adjust_read", stats, "adjust_read_s"):
-            flag = bool(active.any())
-        if stats is not None:
-            stats.adjust_reads += 1
-        return flag
-
     with (span("helios.adjust") if rounds is None
           else contextlib.nullcontext()):
         unstable, active = unstable_members(T_lay)
         if rounds is None:
             stats = running_stats()
-            while any_unstable(active, stats):
+            while _adjust_read(active.any(), stats):
                 T_lay = correct(T_lay, unstable, active)
                 unstable, active = unstable_members(T_lay)
         else:

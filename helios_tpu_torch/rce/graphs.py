@@ -44,11 +44,12 @@ Kernel launch counts (``<wrapper>.launches``) count every launch: an eager
 iteration's wrappers count their own, a replay adds the launches its graph
 holds (recorded by kernel name at capture, which launches nothing).  The
 runner's :class:`Stats` count the graphs, replays, reads, redos and adjustment
-rounds, and the launches of iterations that changed nothing (past the
-stop, or the first try of a redone chunk).  On-the-fly opacity mixing
-passes (``tracing.mixing``) are counted the same way, live in an eager
-iteration and by a replay as many as its graph holds, and their Random
-Overlap launches are the iterations' ``ro_mix`` launches.
+rounds, the adjustment kernel's launches, and the launches of iterations
+that changed nothing (past the stop, or the first try of a redone chunk).
+On-the-fly opacity mixing passes (``tracing.mixing``) are counted the same
+way, live in an eager iteration and by a replay as many as its graph
+holds, and their Random Overlap launches are the iterations' ``ro_mix``
+launches.
 
 The host's time is taken in ``tracing.span`` blocks (``helios.<phase>``) at
 the boundaries of the run and of the loops: each adds its seconds to a
@@ -144,9 +145,12 @@ class Stats:
     (``tracing.mixing``) the host seconds of its passes inside captures
     and eager iterations, the passes run and the ``ro_mix`` launches of
     the iterations (the mixing's Random Overlap, one per absorber after
-    the first); a premixed run's three read zero; and the lookups of a
+    the first); a premixed run's three read zero; the lookups of a
     kept runner (:func:`loops`): those that took one over and those that
-    made one (neither for a runner made for one loop call)."""
+    made one (neither for a runner made for one loop call); and the
+    iterations' ``conv_adjust`` launches (the convective adjustment's
+    kernel: one per bounded adjustment, one per read of an unbounded
+    one; none on the CPU)."""
     graphs: int = 0
     replays: int = 0
     eager: int = 0
@@ -167,6 +171,7 @@ class Stats:
     mix_launches: int = 0
     cache_hits: int = 0
     cache_misses: int = 0
+    adjust_launches: int = 0
 
     def as_dict(self):
         return dataclasses.asdict(self)
@@ -289,9 +294,11 @@ def to_host(state, flags, fields: List[str], batched: bool):
 # --------------------------------------------------------------------------- #
 
 def _kernel_wrappers():
-    from helios_tpu_torch.kernels import integrate, ordered, ro, sweep, thomas
+    from helios_tpu_torch.kernels import (adjust, integrate, ordered, ro,
+                                          sweep, thomas)
     return (sweep.noniso_sweep, sweep.iso_sweep, thomas.thomas_solve,
-            ro.ro_mix, ordered.ordered_sum, integrate.band_integrate)
+            ro.ro_mix, ordered.ordered_sum, integrate.band_integrate,
+            adjust.conv_adjust)
 
 
 def _launches() -> Dict[str, int]:
@@ -446,6 +453,7 @@ class Runner:
         self.stats.eager += 1
         made = _minus(_launches(), before)
         self.stats.mix_launches += made["ro_mix"]
+        self.stats.adjust_launches += made["conv_adjust"]
         return made
 
     def _capture(self, it: int) -> _Graph:
@@ -487,6 +495,7 @@ class Runner:
         self.stats.replays += 1
         self.stats.mixes += g.mixes
         self.stats.mix_launches += g.launches["ro_mix"]
+        self.stats.adjust_launches += g.launches["conv_adjust"]
         return g.launches
 
     # -- chunks ----------------------------------------------------------- #

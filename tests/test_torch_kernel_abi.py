@@ -1,14 +1,15 @@
 """The C interface of each CUDA kernel of the port against what its wrapper
 passes.
 
-A wrapper hands ``_launch.launch`` its tensors (inputs, outputs, scratch)
-and its ints, and ``_launch`` types the entry points ``<name>_f64`` and
-``<name>_f32`` of ``csrc/<name>.cu`` as that many pointers, that many ints
-and the stream.  An entry point that takes another list still builds and
-loads, and fails only on the card: as a pointer that ctypes cuts, or an
-argument read from garbage.  Here, on the CPU, each wrapper runs on meta
-tensors with the launch captured, and what it passes is held against the
-parameter list parsed from the source.
+A wrapper hands ``_launch.launch`` its tensors (inputs, outputs, scratch),
+its ints and its doubles, and ``_launch`` types the entry points
+``<name>_f64`` and ``<name>_f32`` of ``csrc/<name>.cu`` as that many
+pointers, that many ints, that many doubles and the stream.  An entry
+point that takes another list still builds and loads, and fails only on
+the card: as a pointer that ctypes cuts, or an argument read from garbage.
+Here, on the CPU, each wrapper runs on meta tensors with the launch
+captured, and what it passes is held against the parameter list parsed
+from the source: each pointer of its tensor's C type.
 """
 
 import re
@@ -16,8 +17,8 @@ import re
 import pytest
 import torch
 
-from helios_tpu_torch.kernels import (_build, _launch, integrate, ordered,
-                                      ro, sweep, thomas)
+from helios_tpu_torch.kernels import (_build, _launch, adjust, integrate,
+                                      ordered, ro, sweep, thomas)
 
 
 def _meta(dtype, *shape):
@@ -43,8 +44,17 @@ CALLS = {
         [_meta(dt, L + 1, C, S * NY)] * 3 + [_meta(dt, NY), _meta(dt, C, S),
                                             [_meta(dt, L + 1, C)] * 2],
         {})),
+    "conv_adjust": (adjust.conv_adjust, lambda dt: (
+        [_meta(dt, L + 1, C), _meta(dt, L, C), _meta(dt, L + 1, C),
+         _meta(dt, L, C), _meta(dt, L + 1, C)] + [_meta(dt, L, C)] * 4
+        + [_meta(dt, L + 1, C)] * 2
+        + [torch.empty(C, dtype=torch.bool, device="meta")],
+        dict(rounds=4, stitching=True, T_star=5000.0,
+             input_dampara="automatic", F_intern=1.0))),
 }
 CTYPE = {torch.float64: "double", torch.float32: "float"}
+# the C type of a pointer to each dtype's elements
+POINTEE = {**CTYPE, torch.bool: "bool", torch.int64: "long long"}
 
 
 def c_parameters(name, suffix):
@@ -67,23 +77,30 @@ def test_every_source_has_a_case():
 def test_wrapper_matches_entry_point(monkeypatch, name, dtype):
     wrapper, make = CALLS[name]
     launched = []
-    monkeypatch.setattr(_launch, "launch", lambda kernel, tensors, ints:
-                        launched.append((kernel, len(tensors), len(ints))))
+    monkeypatch.setattr(
+        _launch, "launch", lambda kernel, tensors, ints, doubles=():
+        launched.append((kernel, [t.dtype for t in tensors], len(ints),
+                         len(doubles))))
     monkeypatch.setattr(wrapper, "launches", 0)
     args, kw = make(dtype)
     wrapper(*args, **kw)
     assert len(launched) == 1 and launched[0][0] == name
-    _, n_tensors, n_ints = launched[0]
+    _, dtypes, n_ints, n_doubles = launched[0]
+    n_tensors = len(dtypes)
+    assert dtypes[0] == dtype
 
     params = c_parameters(name, _launch.SUFFIX[dtype])
-    assert len(params) == n_tensors + n_ints + 1, (
+    assert len(params) == n_tensors + n_ints + n_doubles + 1, (
         f"{name}_{_launch.SUFFIX[dtype]} takes {len(params)} parameters, "
-        f"the wrapper passes {n_tensors} tensors, {n_ints} ints and the "
-        "stream")
-    pointer = re.compile(rf"(const )?{CTYPE[dtype]}\* ?\w+")
-    for p in params[:n_tensors]:
-        assert pointer.fullmatch(p), f"{name}: {p!r} is not a {dtype} pointer"
-    for p in params[n_tensors:-1]:
+        f"the wrapper passes {n_tensors} tensors, {n_ints} ints, "
+        f"{n_doubles} doubles and the stream")
+    for p, dt in zip(params[:n_tensors], dtypes):
+        pointer = re.compile(rf"(const )?{POINTEE[dt]}\* ?\w+")
+        assert pointer.fullmatch(p), f"{name}: {p!r} is not a {dt} pointer"
+    for p in params[n_tensors:n_tensors + n_ints]:
         assert re.fullmatch(r"int \w+", p), f"{name}: {p!r} is not an int"
+    for p in params[n_tensors + n_ints:-1]:
+        assert re.fullmatch(r"double \w+", p), (
+            f"{name}: {p!r} is not a double")
     assert re.fullmatch(r"void\* ?\w+", params[-1]), (
         f"{name}: the last parameter {params[-1]!r} is not the stream")
